@@ -1,8 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``radiocapture_tpu_torch``) on one CUDA
-card: builds the two CUDA kernels, checks each against its plain PyTorch
-version, decodes a P25 grant through ``ControlPipeline.step`` at 2.4 MS/s
-× 64 slots, and times the bench shape (128 sources × 100 ms blocks).
+card: builds the four CUDA kernels and drives the port's two paths.
+
+1. P25 C4FM control: checks the bank and fsk tracker kernels against
+   their plain PyTorch versions, decodes a P25 grant through
+   ``ControlPipeline.step`` at 2.4 MS/s × 64 slots, and times the bench
+   shape (128 sources × 100 ms blocks).
+2. ``receiver_split2`` → CQPSK: checks the complex bank and CQPSK
+   tracker kernels against their plain versions, decodes two CQPSK
+   control channels and a Phase 2 TDMA superframe through
+   ``SpectrumSplit2.step`` → ``CqpskControlPipeline.step`` (two 2.4 MS/s
+   sources → four 1.2 MS/s halves × 64 slots), and times its bench shape
+   (128 physical sources → 256 halves × 64 slots = 16384 CQPSK lanes).
 
     python3 chip_smoke.py
 
@@ -41,6 +50,16 @@ NOISE_SYM_BOUND = 0.1
 DEADLINE_MS = 100.0
 PROFILE_STEPS = 10
 PROFILE_ROWS = 12
+# split2 → CQPSK path
+HALF_RATE = SAMP_RATE / 2          # each split2 half
+CQ_GRID_HZ = 12.5e3                # slot grid around each half's centre
+CHANNEL_FS = 25000.0               # CQPSK channel rate (bank output)
+COMPLEX_REL_TOL = 1e-4             # f32 complex bank: sum order only
+CQ_NOISE_AGREE = 0.99              # CQPSK tracker on noise: emit masks
+# first NOISE_SYM_N symbols within NOISE_SYM_ATOL on this share of the
+# noise lanes. No all-lane bound here: a differential phase near the ±4
+# branch cut that a ~1e-7 difference moves across changes by ~8.
+CQ_SYM_LANES = 0.995
 
 
 def log(*parts):
@@ -76,31 +95,23 @@ def grid_offsets(n_sources: int, dev) -> torch.Tensor:
     return torch.as_tensor(np.tile(offs, (n_sources, 1)), device=dev)
 
 
-def p25_stream(n_frames: int):
-    """The TSDU stream of tests/test_c4fm_chain.py: (dibits, expected
-    (channel, group, source) per frame)."""
-    from radiocapture_tpu_torch.fec import bits
-    from radiocapture_tpu_torch.protocol import p25
-    frames, expected = [], []
-    for i in range(n_frames):
-        t1 = p25.pack_tsbk("GRP_V_CH_GRANT", mfid=0, **{
-            "Service Options": 0, "Channel": 0x1000 + i,
-            "Group Address": 100 + i, "Source Address": 555000 + i})
-        t2 = p25.pack_tsbk("NET_STS_BCST", mfid=0, **{
-            "LRA": 0, "WACN ID": 0xBEE00, "System ID": 0x2C1,
-            "Channel": 0x100A, "System Service Class": 0x70})
-        frames.append(p25.build_tsdu_frame(0x293, [t1, t2]))
-        expected.append((0x1000 + i, 100 + i, 555000 + i))
-    return bits.bits_to_dibits(np.concatenate(frames)), expected
+def kernel_counts() -> dict:
+    """Launch counts of the four kernel wrappers."""
+    from radiocapture_tpu_torch.demod import cqpsk_kernel as cqk
+    from radiocapture_tpu_torch.demod import track_kernel as tk
+    from radiocapture_tpu_torch.ops import channelizer_kernel as ck
+    return {"xlat_bank": ck.bank_fused.launches,
+            "fsk_track": tk.track.launches,
+            "xlat_complex": ck.bank_complex.launches,
+            "cqpsk_track": cqk.track_cqpsk.launches}
 
 
-def grants(dibits: np.ndarray) -> list:
-    from radiocapture_tpu_torch.demod.framer import Framer
-    from radiocapture_tpu_torch.protocol import p25
-    return [(t["Channel"], t["Group Address"], t["Source Address"])
-            for fb in Framer().feed(np.asarray(dibits, np.uint8))
-            for t in p25.parse_frame(fb).tsbks
-            if t.get("crc") == 0 and t["name"] == "GRP_V_CH_GRANT"]
+def reset_kernel_counts() -> None:
+    from radiocapture_tpu_torch.demod import cqpsk_kernel as cqk
+    from radiocapture_tpu_torch.demod import track_kernel as tk
+    from radiocapture_tpu_torch.ops import channelizer_kernel as ck
+    for fn in (ck.bank_fused, tk.track, ck.bank_complex, cqk.track_cqpsk):
+        fn.launches = 0
 
 
 def check_bank(got, want, what: str) -> float:
@@ -185,6 +196,7 @@ def phase_tracker(dev, pipe) -> float:
     from radiocapture_tpu_torch.demod import track_kernel as tk
     from radiocapture_tpu_torch.ops import fm
     from radiocapture_tpu_torch.testing import modulators as M
+    from radiocapture_tpu_torch.testing import streams
     prm = pipe.track_params
     nb = BLOCK // pipe.decim
 
@@ -193,7 +205,8 @@ def phase_tracker(dev, pipe) -> float:
                 torch.zeros((s, c, len(prm.sym_taps) - 1), device=dev),
                 K.fsk4_init((s, c), dev))
 
-    dibits, expected = p25_stream(8)
+    dibits, expected = streams.p25_control_stream(
+        8, channel=0x1000, group=100, source=555000)
     iq = M.c4fm_modulate(dibits, fs=pipe.channel_fs)
     iq2 = M.awgn(M.freq_shift(iq, pipe.channel_fs, 240.0), 30.0)
     n = len(iq) // nb * nb
@@ -209,7 +222,7 @@ def phase_tracker(dev, pipe) -> float:
         if not np.array_equal(gd, wd):
             raise AssertionError(f"tracker dibits differ on fixture lane "
                                  f"{lane}: {len(gd)} vs {len(wd)}")
-        g = grants(gd)
+        g = streams.grants(gd)
         if len(g) < 4 or not all(x in expected for x in g):
             raise AssertionError(f"fixture lane {lane} decoded {g}")
     err = float(np.abs(got[0] - want[0]).max())
@@ -232,12 +245,12 @@ def phase_decode(dev, pipe) -> dict:
     """The port's main path: 4 sources × 64 slots at 2.4 MS/s, bf16 wire
     blocks, P25 control channel at +50 kHz on source 0 and −300 kHz on
     source 3. Returns the kernels' launch counts of this run."""
-    from radiocapture_tpu_torch.demod import track_kernel as tk
     from radiocapture_tpu_torch.device import complex_to_wire
-    from radiocapture_tpu_torch.ops import channelizer_kernel as ck
     from radiocapture_tpu_torch.testing import modulators as M
+    from radiocapture_tpu_torch.testing import streams
     n_src = 4
-    dibits, expected = p25_stream(8)
+    dibits, expected = streams.p25_control_stream(
+        8, channel=0x1000, group=100, source=555000)
     up = M.upsample_to(M.c4fm_modulate(dibits, fs=25000.0), 25000.0,
                        SAMP_RATE)
     n_blocks = -(-len(up) // BLOCK) + 1
@@ -250,8 +263,7 @@ def phase_decode(dev, pipe) -> dict:
     offs = grid_offsets(n_src, dev)
     slot = {i: int(round(f / 25e3)) + SLOTS // 2 for i, f in placed.items()}
     state = pipe.init(n_src, dev)
-    ck.bank_fused.launches = 0
-    tk.track.launches = 0
+    reset_kernel_counts()
     dib, val = [], []
     t0 = time.perf_counter()
     for b in range(n_blocks):
@@ -262,14 +274,13 @@ def phase_decode(dev, pipe) -> dict:
         if not bool(torch.isfinite(syms).all()):
             raise AssertionError("non-finite symbols")
     torch.cuda.synchronize()
-    launches = {"xlat_bank": ck.bank_fused.launches,
-                "fsk_track": tk.track.launches}
+    launches = kernel_counts()
     dt = time.perf_counter() - t0
     dib, val = np.concatenate(dib, -1), np.concatenate(val, -1)
     if dib.shape != (n_src, SLOTS, n // pipe.block_multiple):
         raise AssertionError(f"output shape {dib.shape}")
     for i, c in slot.items():
-        g = grants(dib[i, c][val[i, c].astype(bool)])
+        g = streams.grants(dib[i, c][val[i, c].astype(bool)])
         if len(g) < 4 or not all(e in expected for e in g):
             raise AssertionError(f"source {i} slot {c}: grants {g}")
         log(f"decode: source {i} slot {c} ({placed[i] / 1e3:+.0f} kHz): "
@@ -277,15 +288,15 @@ def phase_decode(dev, pipe) -> dict:
             f"group={g[0][1]} source={g[0][2]} ok")
     log(f"decode: {n_src} sources x {SLOTS} slots x {n_blocks} blocks of "
         f"{BLOCK} bf16 samples in {dt:.3f} s; launches {launches}")
-    if min(launches.values()) < 1:
+    if min(launches["xlat_bank"], launches["fsk_track"]) < 1:
         raise AssertionError(f"a kernel of the path never ran: {launches}")
     return launches
 
 
-def profile_steps(pipe, state, x, offs):
-    """``torch.profiler`` over PROFILE_STEPS steady-state steps: logs the
-    device kernels by time per step. Returns (state, device busy share:
-    kernel time over wall time, profiler on)."""
+def profile_steps(step, what: str) -> float:
+    """``torch.profiler`` over PROFILE_STEPS steady-state calls of
+    ``step()``: logs the device kernels by time per step. Returns the
+    device busy share: kernel time over wall time, profiler on."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -293,7 +304,7 @@ def profile_steps(pipe, state, x, offs):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(PROFILE_STEPS):
-            state, _ = pipe.step(state, x, offs)
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
     kern = sorted((e for e in prof.key_averages()
@@ -303,14 +314,16 @@ def profile_steps(pipe, state, x, offs):
               / PROFILE_STEPS)
     if dev_ms <= 0.0:
         raise AssertionError("the profiler saw no device kernel")
-    log(f"profile: {PROFILE_STEPS} steps, wall {wall_ms:.3f} ms/step "
+    syncs = sum(e.count for e in prof.key_averages()
+                if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"))
+    log(f"profile: {what}: {PROFILE_STEPS} steps, wall {wall_ms:.3f} ms/step "
         f"(profiler on), device kernels {dev_ms:.3f} ms/step, busy share "
-        f"{dev_ms / wall_ms:.3f}")
+        f"{dev_ms / wall_ms:.3f}, host syncs {syncs / PROFILE_STEPS:.1f}/step")
     for e in kern[:PROFILE_ROWS]:
         ms = e.self_device_time_total / 1e3 / PROFILE_STEPS
-        log(f"profile: {ms:8.3f} ms/step {100 * ms / dev_ms:5.1f}% "
-            f"x{e.count // PROFILE_STEPS:<3d} {e.key[:90]}")
-    return state, dev_ms / wall_ms
+        log(f"profile: {what}: {ms:8.3f} ms/step {100 * ms / dev_ms:5.1f}% "
+            f"x{e.count / PROFILE_STEPS:<4.1f} {e.key[:90]}")
+    return dev_ms / wall_ms
 
 
 def phase_bench(dev, pipe) -> tuple[dict, float, float]:
@@ -341,7 +354,13 @@ def phase_bench(dev, pipe) -> tuple[dict, float, float]:
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t0) * 1e3)
     lat.sort()
-    state, busy = profile_steps(pipe, state, x, offs)
+    box = [state]
+
+    def one_step():
+        box[0] = pipe.step(box[0], x, offs)[0]
+
+    busy = profile_steps(one_step, "c4fm")
+    state = box[0]
     med, mn = float(np.median(win_ms)), min(win_ms)
     res = {"step_ms_median": med, "step_ms_min": mn,
            "msps_median": s * BLOCK / med / 1e3,
@@ -396,10 +415,348 @@ def phase_bench(dev, pipe) -> tuple[dict, float, float]:
     return res, bank_err, track_err
 
 
+def cq_offsets(n_sources: int, dev) -> torch.Tensor:
+    """The CQPSK slot grid: 12.5 kHz spacing around each half's centre,
+    ±400 kHz, inside the ±600 kHz split2 passband."""
+    offs = ((np.arange(SLOTS) - SLOTS // 2) * CQ_GRID_HZ / HALF_RATE
+            ).astype(np.float32)
+    return torch.as_tensor(np.tile(offs, (n_sources, 1)), device=dev)
+
+
+def check_complex_bank(got, want, what: str) -> float:
+    """Complex bank kernel vs its plain version within
+    COMPLEX_REL_TOL·max|y|; returns max |err|."""
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    ok = err <= COMPLEX_REL_TOL * scale
+    log(f"complex bank kernel vs plain: {what} max_abs_err={err:.3e} "
+        f"tol={COMPLEX_REL_TOL * scale:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("complex bank kernel disagrees with plain")
+    return err
+
+
+def phase_complex_bank(dev, sp) -> float:
+    """Complex bank kernel vs plain: split2's taps on two sources of one
+    block, and a ragged wide case; returns max |err|."""
+    from radiocapture_tpu_torch.ops import channelizer_kernel as ck
+    from radiocapture_tpu_torch.ops.fir import phase_step_u32
+    rng = np.random.default_rng(5)
+    worst = 0.0
+    for s, n, k, d, c in ((2, BLOCK // 2, sp.bank.ntaps, 2, 2),
+                          (3, 1001, 1440, 96, 40)):
+        shape = (s, (n - 1) * d + k)
+        z = torch.as_tensor((rng.standard_normal(shape)
+                             + 1j * rng.standard_normal(shape)).astype(
+            np.complex64), device=dev)
+        offs = torch.as_tensor(rng.uniform(-0.45, 0.45, (s, c)).astype(
+            np.float32), device=dev)
+        if k == sp.bank.ntaps:
+            grev = sp.bank.modulated_taps(offs)
+        else:
+            grev = torch.as_tensor(((rng.standard_normal((s, c, k))
+                                     + 1j * rng.standard_normal((s, c, k)))
+                                    / np.sqrt(k)).astype(np.complex64),
+                                   device=dev)
+        phase0 = torch.as_tensor(rng.integers(0, 2 ** 32, (s, c)),
+                                 dtype=torch.int64, device=dev)
+        step = phase_step_u32(offs, d)
+        worst = max(worst, check_complex_bank(
+            ck.bank_complex(z, grev, phase0, step, n, d),
+            ck.bank_complex_plain(z, grev, phase0, step, n, d),
+            f"S={s} N={n} K={k} D={d} C={c}"))
+    return worst
+
+
+def check_cqpsk_noise(got, want, what: str) -> float:
+    """CQPSK tracker kernel vs plain on noise lanes, (syms, valid)
+    [S, C, N]: emit masks agree on CQ_NOISE_AGREE of the samples; the
+    first NOISE_SYM_N symbols within NOISE_SYM_ATOL on CQ_SYM_LANES of
+    the lanes. Returns the max |err| of those symbols."""
+    agree = float(np.mean(got[1] == want[1]))
+    head = np.abs(got[0][..., :NOISE_SYM_N]
+                  - want[0][..., :NOISE_SYM_N]).max(-1)
+    share = float(np.mean(head <= NOISE_SYM_ATOL))
+    ok = agree >= CQ_NOISE_AGREE and share >= CQ_SYM_LANES
+    log(f"cqpsk tracker kernel vs plain: {what}: valid agreement "
+        f"{agree:.5f} (>= {CQ_NOISE_AGREE}); first {NOISE_SYM_N} syms "
+        f"within {NOISE_SYM_ATOL} on {share:.5f} of {head.size} lanes "
+        f"(>= {CQ_SYM_LANES}), max_abs_err={float(head.max()):.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("cqpsk tracker kernel disagrees on noise")
+    return float(head.max())
+
+
+def run_cqpsk(track_fn, planes, state, baud):
+    """Stream [S, N, C] planes block by block through a CQPSK tracker
+    (AGC gain per block); returns (syms, valid, dibits) [S, C, M] numpy."""
+    from radiocapture_tpu_torch.demod import cqpsk as cq
+    outs = []
+    for y_re, y_im in planes:
+        scale = cq.agc_scale(y_re, y_im, dim=1)
+        state, *out = track_fn(y_re, y_im, scale, state, CHANNEL_FS, baud)
+        outs.append(out)
+    return [torch.cat([o[i] for o in outs], -1).cpu().numpy()
+            for i in range(3)]
+
+
+def phase_cqpsk_tracker(dev) -> float:
+    """CQPSK tracker kernel vs plain at the channel rate, two blocks each:
+    the three CQPSK fixtures (4800 Bd) and the Phase 2 superframe
+    (6000 Bd) give identical compacted dibits that decode; two noise
+    lanes beside each hold the stated agreement. Returns max |err| of
+    the compared symbols."""
+    from radiocapture_tpu_torch.demod import cqpsk as cq
+    from radiocapture_tpu_torch.demod import cqpsk_kernel as cqk
+    from radiocapture_tpu_torch.testing import modulators as M
+    from radiocapture_tpu_torch.testing import streams
+    rng = np.random.default_rng(6)
+    tdma_dib, voice = streams.tdma_superframe()
+    cases = [(4800.0, [streams.cqpsk_fixture(k)
+                       for k in streams.CQPSK_FIXTURES]),
+             (6000.0, [(M.cqpsk_modulate(tdma_dib, fs=CHANNEL_FS,
+                                         symbol_rate=6000.0), None)])]
+    worst = 0.0
+    for baud, fixtures in cases:
+        n = max(len(iq) for iq, _ in fixtures) // 2 * 2
+        lanes = np.zeros((n, len(fixtures) + 2), np.complex64)
+        for i, (iq, _) in enumerate(fixtures):
+            lanes[:min(n, len(iq)), i] = iq[:n]
+        lanes[:, len(fixtures):] = (rng.standard_normal((n, 2))
+                                    + 1j * rng.standard_normal((n, 2)))
+        planes = [tuple(torch.as_tensor(np.ascontiguousarray(part(
+            lanes[None, b * n // 2:(b + 1) * n // 2])), device=dev)
+            for part in (np.real, np.imag)) for b in range(2)]
+        shape = (1, lanes.shape[1])
+        got = run_cqpsk(cqk.track_cqpsk, planes,
+                        cq.cqpsk_init(CHANNEL_FS, baud, shape, dev), baud)
+        want = run_cqpsk(cqk.track_cqpsk_plain, planes,
+                         cq.cqpsk_init(CHANNEL_FS, baud, shape, dev), baud)
+        for i, (_, expected) in enumerate(fixtures):
+            gd = got[2][0, i][got[1][0, i].astype(bool)]
+            wd = want[2][0, i][want[1][0, i].astype(bool)]
+            if not np.array_equal(gd, wd):
+                raise AssertionError(f"cqpsk dibits differ: {baud} Bd "
+                                     f"lane {i}: {len(gd)} vs {len(wd)}")
+            if expected is None:
+                if not streams.tdma_voice_ok(streams.tdma_bursts(gd), voice):
+                    raise AssertionError("TDMA superframe did not decode")
+                what = "TDMA superframe: 12 bursts, voice as sent"
+            else:
+                g = streams.grants(gd)
+                if len(g) < 4 or not all(x in expected for x in g):
+                    raise AssertionError(f"cqpsk fixture lane {i}: {g}")
+                what = f"{len(g)} grants"
+            err = float(np.abs(got[0][0, i] - want[0][0, i]).max())
+            worst = max(worst, err)
+            log(f"cqpsk tracker kernel vs plain: {baud:.0f} Bd lane {i} "
+                f"({n} samples, 2 blocks): compacted dibits identical, "
+                f"{what}, max_abs_err(syms)={err:.3e} ok")
+        noise = np.s_[:, len(fixtures):]
+        worst = max(worst, check_cqpsk_noise(
+            [got[0][noise], got[1][noise]], [want[0][noise], want[1][noise]],
+            f"{baud:.0f} Bd noise lanes"))
+    return worst
+
+
+def phase_split2_decode(dev, sp) -> dict:
+    """The split2 → CQPSK path: two physical 2.4 MS/s complex64 sources
+    through ``SpectrumSplit2.step`` into four 1.2 MS/s halves, then
+    ``p25_cqpsk(64, 1.2e6)`` and its ``tdma=True`` variant. CQPSK control
+    channels sit in half 0 of source 0 at −75 kHz (NAC 0x293) and in
+    half 1 of source 1 at +50 kHz (NAC 0x123); a 6000 Bd Phase 2
+    superframe in half 1 of source 0 at +125 kHz. Returns the kernels'
+    launch counts of this run."""
+    from radiocapture_tpu_torch.frontend.pipeline import (
+        CqpskControlPipeline, split2_sources)
+    from radiocapture_tpu_torch.testing import modulators as M
+    from radiocapture_tpu_torch.testing import streams
+    n_src = 2
+    dib_a, exp_a = streams.p25_control_stream(8, nac=0x293)
+    dib_b, exp_b = streams.p25_control_stream(8, nac=0x123, channel=0x3000,
+                                              group=300, source=888000)
+    dib_t, voice = streams.tdma_superframe()
+
+    def up(dib, baud):
+        return M.upsample_to(M.cqpsk_modulate(dib, fs=CHANNEL_FS,
+                                              symbol_rate=baud),
+                             CHANNEL_FS, SAMP_RATE)
+
+    sigs = {"a": up(dib_a, 4800.0), "b": up(dib_b, 4800.0),
+            "tdma": up(dib_t, 6000.0)}
+    # (physical source, half, offset from the half's centre)
+    place = {"a": (0, 0, -75e3), "b": (1, 1, 50e3), "tdma": (0, 1, 125e3)}
+    n_blocks = -(-max(map(len, sigs.values())) // BLOCK) + 1
+    n = n_blocks * BLOCK
+    wide = np.stack([M.multi_channel(
+        SAMP_RATE, [(sp.half_center(0.0, h) + f, sigs[k])
+                    for k, (s, h, f) in place.items() if s == src], n,
+        rng=np.random.default_rng(20 + src)) for src in range(n_src)])
+    cq = CqpskControlPipeline.p25_cqpsk(SLOTS, HALF_RATE)
+    tdma = CqpskControlPipeline.p25_cqpsk(SLOTS, HALF_RATE, tdma=True)
+    offs = cq_offsets(2 * n_src, dev)
+    sst, cst, tst = sp.init(n_src, dev), cq.init(2 * n_src, dev), \
+        tdma.init(2 * n_src, dev)
+    reset_kernel_counts()
+    outs = {"cq": [], "tdma": []}
+    t0 = time.perf_counter()
+    for b in range(n_blocks):
+        x = torch.as_tensor(wide[:, b * BLOCK:(b + 1) * BLOCK], device=dev)
+        sst, halves = sp.step(sst, x)
+        logical = split2_sources(halves)
+        cst, out_c = cq.step(cst, logical, offs)
+        tst, out_t = tdma.step(tst, logical, offs)
+        for key, out in (("cq", out_c), ("tdma", out_t)):
+            if not bool(torch.isfinite(out[0]).all()):
+                raise AssertionError("non-finite symbols")
+            outs[key].append([o.cpu().numpy() for o in out[1:]])
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    dt = time.perf_counter() - t0
+    res = {k: [np.concatenate([o[i] for o in v], -1) for i in range(2)]
+           for k, v in outs.items()}
+    m = n // 2 // cq.decim
+    if res["cq"][1].shape != (2 * n_src, SLOTS, m):
+        raise AssertionError(f"output shape {res['cq'][1].shape}")
+
+    def lane(key, name):
+        s, h, f = place[name]
+        src, slot = 2 * s + h, int(round(f / CQ_GRID_HZ)) + SLOTS // 2
+        val, dib = res[key]
+        return src, slot, dib[src, slot][val[src, slot].astype(bool)]
+
+    for name, nac, expected in (("a", 0x293, exp_a), ("b", 0x123, exp_b)):
+        src, slot, dib = lane("cq", name)
+        g = streams.grants(dib, nac)
+        if len(g) < 4 or not all(e in expected for e in g):
+            raise AssertionError(f"split2 half {src} slot {slot}: {g}")
+        log(f"split2 decode: logical source {src} (physical "
+            f"{place[name][0]}, half {place[name][1]}) slot {slot} "
+            f"({place[name][2] / 1e3:+.0f} kHz) NAC {nac:#x}: {len(g)} "
+            f"GRP_V_CH_GRANT, first channel={g[0][0]:#x} ok")
+    src, slot, dib = lane("tdma", "tdma")
+    bursts = streams.tdma_bursts(dib)
+    if not streams.tdma_voice_ok(bursts, voice):
+        raise AssertionError(f"TDMA lane {src}/{slot}: {len(bursts)} bursts")
+    log(f"split2 decode: tdma pipeline logical source {src} slot {slot}: "
+        f"{len(bursts)} bursts, 36 voice codewords as sent ok")
+    log(f"split2 decode: {n_src} physical sources x {n_blocks} blocks of "
+        f"{BLOCK} complex64 -> {2 * n_src} halves x {SLOTS} slots, two "
+        f"CQPSK pipelines, in {dt:.3f} s; launches {launches}")
+    need = ("xlat_complex", "xlat_bank", "cqpsk_track")
+    if min(launches[k] for k in need) < 1:
+        raise AssertionError(f"a kernel of the path never ran: {launches}")
+    return launches
+
+
+def phase_split2_bench(dev, sp) -> tuple[dict, float, float]:
+    """The split2 → CQPSK bench shape: 128 physical sources × 240,000 bf16
+    wire samples → 256 halves × 64 slots = 16384 CQPSK lanes × 2500
+    samples per step. Times the step and each new kernel beside its
+    plain version, and holds each kernel's output at this shape against
+    the plain version's. Returns (timings, complex bank max |err|,
+    CQPSK tracker max |err|)."""
+    from radiocapture_tpu_torch.demod import cqpsk as cq_mod
+    from radiocapture_tpu_torch.demod import cqpsk_kernel as cqk
+    from radiocapture_tpu_torch.frontend.pipeline import (
+        CqpskControlPipeline, split2_sources)
+    from radiocapture_tpu_torch.ops import channelizer_kernel as ck
+    from radiocapture_tpu_torch.ops.fir import phase_step_u32
+    s = BENCH_SOURCES
+    cq = CqpskControlPipeline.p25_cqpsk(SLOTS, HALF_RATE)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((s, BLOCK, 2), generator=gen, device=dev).to(
+        torch.bfloat16)
+    offs = cq_offsets(2 * s, dev)
+    box = [sp.init(s, dev), cq.init(2 * s, dev)]
+
+    def one_step():
+        box[0], halves = sp.step(box[0], x)
+        box[1], out = cq.step(box[1], split2_sources(halves), offs)
+        return out
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(3):
+        one_step()
+    torch.cuda.synchronize()
+    win_ms = [cuda_ms(one_step, 5) for _ in range(5)]
+    peak = torch.cuda.max_memory_allocated(dev)
+    lat = []
+    for _ in range(30):
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    lat.sort()
+    busy = profile_steps(one_step, "split2+cqpsk")
+    med, mn = float(np.median(win_ms)), min(win_ms)
+    res = {"step_ms_median": med, "step_ms_min": mn,
+           "phys_msps_median": s * BLOCK / med / 1e3,
+           "phys_msps_best": s * BLOCK / mn / 1e3,
+           "latency_p50_ms": lat[len(lat) // 2],
+           "latency_p95_ms": lat[int(len(lat) * 0.95)],
+           "peak_mem_bytes": peak, "profile_busy_share": busy}
+
+    # the complex bank on the operands the split2 step builds, mid-stream
+    bank = sp.bank
+    offs2 = torch.as_tensor(np.tile(sp.offsets, (s, 1)), device=dev)
+    z = torch.cat([box[0].history, torch.view_as_complex(
+        x.to(torch.float32))], dim=1)
+    grev, step = bank.modulated_taps(offs2), phase_step_u32(offs2, 2)
+    phase0, n2 = box[0].phase, BLOCK // 2
+    res["xlat_complex_ms"] = cuda_ms(
+        lambda: ck.bank_complex(z, grev, phase0, step, n2, 2), 10)
+    res["xlat_complex_plain_ms"] = cuda_ms(
+        lambda: ck.bank_complex_plain(z, grev, phase0, step, n2, 2), 3)
+    cbank_err = check_complex_bank(
+        ck.bank_complex(z, grev, phase0, step, n2, 2),
+        ck.bank_complex_plain(z, grev, phase0, step, n2, 2),
+        f"bench shape S={s} N={n2} K={bank.ntaps} D=2 C=2")
+
+    # the tracker on the planes the CQPSK step's bank gives, mid-stream
+    box[0], halves = sp.step(box[0], x)
+    _, y_re, y_im = cq.bank.call_planes(box[1].bank, split2_sources(halves),
+                                        offs)
+    scale = cq_mod.agc_scale(y_re, y_im, dim=1)
+
+    def lane_state():   # the kernel updates its lane state in place
+        return type(box[1].cqpsk)(*(t.clone() for t in box[1].cqpsk))
+
+    timed = lane_state()
+    baud = cq.symbol_rate
+    res["cqpsk_track_ms"] = cuda_ms(lambda: cqk.track_cqpsk(
+        y_re, y_im, scale, timed, CHANNEL_FS, baud), 5)
+    got = cqk.track_cqpsk(y_re, y_im, scale, lane_state(), CHANNEL_FS, baud)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = cqk.track_cqpsk_plain(y_re, y_im, scale, lane_state(),
+                                 CHANNEL_FS, baud)
+    torch.cuda.synchronize()
+    res["cqpsk_track_plain_ms"] = (time.perf_counter() - t0) * 1e3
+    cq_err = check_cqpsk_noise(
+        [o.cpu().numpy() for o in got[1:3]],
+        [o.cpu().numpy() for o in want[1:3]],
+        f"bench shape S={2 * s} C={SLOTS} N={y_re.shape[1]}")
+    log("split2 bench: " + json.dumps({
+        "phys_sources": s, "halves": 2 * s, "slots": SLOTS, "block": BLOCK,
+        "wire": "bf16", "window_step_ms": win_ms, **res}))
+    log(f"split2 bench: step median {med:.3f} ms (min {mn:.3f}) = "
+        f"{res['phys_msps_median']:.1f} physical MS/s; latency p50 "
+        f"{res['latency_p50_ms']:.3f} / p95 {res['latency_p95_ms']:.3f} ms "
+        f"vs {DEADLINE_MS:.0f} ms deadline; xlat_complex "
+        f"{res['xlat_complex_ms']:.3f} ms (plain "
+        f"{res['xlat_complex_plain_ms']:.3f}); cqpsk_track "
+        f"{res['cqpsk_track_ms']:.3f} ms (plain "
+        f"{res['cqpsk_track_plain_ms']:.1f}); peak {peak / 2 ** 30:.2f} GiB")
+    return res, cbank_err, cq_err
+
+
 def main() -> None:
     from radiocapture_tpu_torch import kernels
     from radiocapture_tpu_torch.device import require_cuda
-    from radiocapture_tpu_torch.frontend.pipeline import ControlPipeline
+    from radiocapture_tpu_torch.frontend.pipeline import (ControlPipeline,
+                                                          SpectrumSplit2)
 
     dev = require_cuda()
     card = smi_line()
@@ -422,6 +779,14 @@ def main() -> None:
     res, bench_bank_err, bench_track_err = phase_bench(dev, pipe)
     bank_err = max(bank_err, bench_bank_err)
     track_err = max(track_err, bench_track_err)
+
+    sp = SpectrumSplit2(SAMP_RATE)
+    cbank_err = phase_complex_bank(dev, sp)
+    cq_err = phase_cqpsk_tracker(dev)
+    launches2 = phase_split2_decode(dev, sp)
+    res2, bench_cbank_err, bench_cq_err = phase_split2_bench(dev, sp)
+    cbank_err = max(cbank_err, bench_cbank_err)
+    cq_err = max(cq_err, bench_cq_err)
     loaded = [m for m in ("jax", "radiocapture_tpu") if m in sys.modules]
     if loaded:
         raise AssertionError(f"imported {loaded}")
@@ -437,6 +802,18 @@ def main() -> None:
          "replaces": "radiocapture_tpu/demod/fsk4.py:105",
          "launches": launches["fsk_track"], "max_abs_err": track_err,
          "ms": res["track_ms"], "plain_ms": res["track_plain_ms"]},
+        {"name": "xlat_complex", "route": "cuda",
+         "source": "radiocapture_tpu_torch/csrc/xlat_complex.cu",
+         "replaces": "radiocapture_tpu/ops/pallas_channelizer.py:73",
+         "launches": launches2["xlat_complex"], "max_abs_err": cbank_err,
+         "ms": res2["xlat_complex_ms"],
+         "plain_ms": res2["xlat_complex_plain_ms"]},
+        {"name": "cqpsk_track", "route": "cuda",
+         "source": "radiocapture_tpu_torch/csrc/cqpsk_track.cu",
+         "replaces": "radiocapture_tpu/demod/cqpsk.py:133",
+         "launches": launches2["cqpsk_track"], "max_abs_err": cq_err,
+         "ms": res2["cqpsk_track_ms"],
+         "plain_ms": res2["cqpsk_track_plain_ms"]},
     ]}))
     log(smi_line())
     log(json.dumps({"ok": True, "device": {

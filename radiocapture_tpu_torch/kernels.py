@@ -40,6 +40,12 @@ _SIGNATURES = {
     # nlevels, k_ff, k_t, stream
     "fsk_track_launch": (_P,) * 11 + (_I,) * 5 + (_F,) * 4 + (_I, _F, _F,
                                                                 _P),
+    # z, g, phase0, step, y, S, N, K, D, C, z_len, stream
+    "xlat_complex_launch": (_P,) * 5 + (_I,) * 5 + (ctypes.c_longlong, _P),
+    # y_re, y_im, scale, t, omega, freq, phase, hist_re, hist_im, prev_re,
+    # prev_im, syms, valid, dibits, consts, S, N, C, n0_first, n0_count,
+    # omega_lo, omega_hi, fmax, k_mu, k_om, k_f, stream
+    "cqpsk_track_launch": (_P,) * 15 + (_I,) * 5 + (_F,) * 6 + (_P,),
 }
 
 

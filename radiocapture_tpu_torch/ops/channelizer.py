@@ -4,9 +4,11 @@ a bank of frequency-translating decimating FIRs.
 
 Slot offsets are runtime data, so channel create/release/retune needs no
 rebuild. The JAX package vmaps one source; here the source axis ``S``
-leads every tensor. Both entry points (complex ``__call__`` and wire
-``call_wire``) go through one fused bank (``ops.channelizer_kernel``):
-``torch.view_as_real`` of a complex64 block already is the wire layout.
+leads every tensor. The wire entry points (``call_wire``,
+``call_planes``) go through the fused bf16 bank (kernel
+``csrc/xlat_bank.cu``); the complex entry point ``__call__`` goes through
+the float32 complex bank (kernel ``csrc/xlat_complex.cu``) and carries
+its history in complex64, as the JAX ``__call__`` does.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ import numpy as np
 import torch
 
 from radiocapture_tpu_torch.ops import taps as _taps
-from radiocapture_tpu_torch.ops.channelizer_kernel import (bank_fused,
+from radiocapture_tpu_torch.ops.channelizer_kernel import (bank_complex,
+                                                           bank_fused,
                                                            tap_matrix)
 from radiocapture_tpu_torch.ops.fir import U32_MASK, phase_step_u32
 
@@ -42,6 +45,7 @@ class XlatBank:
         self.taps = np.asarray(taps, np.float32)
         self.ntaps = len(taps)
         self.p = self.ntaps // decim
+        self._device_taps: dict = {}     # device -> taps tensor
 
     @classmethod
     def for_rates(cls, num_slots: int, samp_rate: float, channel_rate: float,
@@ -75,8 +79,8 @@ class XlatBank:
         g_dtype = torch.bfloat16 if cuda else torch.float32
         hist2 = torch.view_as_real(state.history).to(z_dtype)
         z2 = torch.cat([hist2, x2.to(z_dtype)], dim=1)
-        g2 = tap_matrix(self.taps, offsets_norm, self.p, self.decim,
-                        g_dtype)
+        g2 = tap_matrix(self.device_taps(x2.device), offsets_norm, self.p,
+                        self.decim, g_dtype)
         return (z2.reshape(x2.shape[0], -1), g2,
                 phase_step_u32(offsets_norm, self.decim))
 
@@ -110,9 +114,47 @@ class XlatBank:
         state, y_re, y_im = self.call_planes(state, x2, offsets_norm)
         return state, torch.complex(y_re, y_im).transpose(1, 2)
 
+    def device_taps(self, device) -> torch.Tensor:
+        """The prototype taps [K] float32 on ``device``, copied there once:
+        PyTorch follows a host→device copy of pageable memory with a
+        stream synchronize, which would stall every step."""
+        device = torch.device(device)
+        h = self._device_taps.get(device)
+        if h is None:
+            h = self._device_taps[device] = torch.as_tensor(self.taps,
+                                                            device=device)
+        return h
+
+    def modulated_taps(self, offsets_norm: torch.Tensor) -> torch.Tensor:
+        """Per-slot modulated taps ``g[s, c, k] = h[k]·e^{j2πf·k}``,
+        correlation-reversed: [S, C, K] complex64. Built with one
+        sin/cos per tap, as the JAX ``__call__`` builds them
+        (channelizer.py:117-122)."""
+        dev = offsets_norm.device
+        kk = torch.arange(self.ntaps, dtype=torch.float32, device=dev)
+        ang = float(np.float32(2.0 * np.pi)) * offsets_norm.to(
+            torch.float32)[..., None] * kk
+        h = self.device_taps(dev)
+        return torch.complex(h * torch.cos(ang), h * torch.sin(ang)).flip(-1)
+
     def __call__(self, state: XlatBankState, x: torch.Tensor,
                  offsets_norm: torch.Tensor
                  ) -> tuple[XlatBankState, torch.Tensor]:
-        """x [S, T] complex64 → channels [S, C, T//decim] complex64."""
-        return self.call_wire(
-            state, torch.view_as_real(x.to(torch.complex64)), offsets_norm)
+        """x [S, T] complex64, T % decim == 0; offsets_norm [S, C] float32
+        cycles/sample → channels [S, C, T//decim] complex64, in float32
+        throughout; the new history is the last K-1 complex64 samples of
+        history ++ x, exactly."""
+        k, d = self.ntaps, self.decim
+        x = x.to(torch.complex64)
+        if x.dim() != 2 or x.shape[1] % d:
+            raise ValueError(f"x must be [S, T] with T % {d} == 0, "
+                             f"got {tuple(x.shape)}")
+        n_out = x.shape[1] // d
+        z = torch.cat([state.history, x], dim=1)
+        step = phase_step_u32(offsets_norm, d)
+        y = bank_complex(z, self.modulated_taps(offsets_norm), state.phase,
+                         step, n_out, d)
+        new_phase = (state.phase + step * n_out) & U32_MASK
+        nh = z[:, z.shape[1] - (k - 1):].clone(
+            memory_format=torch.contiguous_format)
+        return XlatBankState(history=nh, phase=new_phase), y

@@ -1,8 +1,10 @@
-"""The fused channelizer bank: tap matrix, plain reference, CUDA wrapper.
+"""The channelizer banks' kernels: tap matrices, plain references, CUDA
+wrappers.
 
-Replaces ``radiocapture_tpu.ops.pallas_channelizer.bank_fused_pallas``
-(with ``_fused_kernel``, ``fused_tap_matrix`` and
-``fused_rotation_tables``). Per source ``s`` the bank is one real GEMM
+**The fused wire bank** (``bank_fused``, ``csrc/xlat_bank.cu``) replaces
+``radiocapture_tpu.ops.pallas_channelizer.bank_fused_pallas`` (with
+``_fused_kernel``, ``fused_tap_matrix`` and ``fused_rotation_tables``).
+Per source ``s`` the bank is one real GEMM
 
     acc[s, n, :] = z2[s][n·2D : n·2D + P·2D] · g2[s]      [N, 2C]
 
@@ -11,11 +13,15 @@ block) and ``g2[s]`` the ``[P·2D, 2C]`` interleaved-row tap matrix that
 absorbs the complex multiply, followed by the exact uint32 mixer
 rotation ``y = (acc_re + i·acc_im) · e^{iθ}``,
 ``θ = u32_to_angle(phase0 + step·n mod 2^32)``.
-
 Outputs are time-major ``[S, N, C]`` float32 planes: the layout the
-tracker kernel reads with coalesced loads, so the TPU kernel's transpose
+tracker kernels read with coalesced loads, so the TPU kernel's transpose
 pass is gone. The window matrix is never materialized by the kernel:
 window row n is an overlapping slice of ``z2[s]``.
+
+**The complex bank** (``bank_complex``, ``csrc/xlat_complex.cu``)
+replaces ``bank_matmul_pallas`` (with ``_bank_kernel``) and the rotation
+after it in ``XlatBank.__call__``: the same correlation on complex64
+input, in float32 throughout, with outputs ``[S, C, N]`` complex64.
 """
 
 from __future__ import annotations
@@ -26,11 +32,13 @@ import torch
 from radiocapture_tpu_torch.ops.fir import U32_MASK, rotate
 
 
-def tap_matrix(taps: np.ndarray, offsets_norm: torch.Tensor, p: int,
-               d: int, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+def tap_matrix(taps: np.ndarray | torch.Tensor, offsets_norm: torch.Tensor,
+               p: int, d: int, dtype: torch.dtype = torch.float32
+               ) -> torch.Tensor:
     """Per-source modulated, correlation-reversed, interleaved tap matrix.
 
-    ``taps`` [P·D] real; ``offsets_norm`` [S, C] cycles/sample.
+    ``taps`` [P·D] real (``XlatBank.device_taps`` passes them already on
+    the device); ``offsets_norm`` [S, C] cycles/sample.
     Returns ``g2`` [S, P·2D, 2C] of ``dtype`` with, for reversed tap k,
     row 2k = [g_re | g_im] and row 2k+1 = [-g_im | g_re]. The phasor is
     computed in float32 and rounded once to ``dtype`` before the rows are
@@ -50,8 +58,7 @@ def tap_matrix(taps: np.ndarray, offsets_norm: torch.Tensor, p: int,
     af = two_pi * off[..., None] * jj                      # [S, C, D]
     ph = (torch.complex(torch.cos(ac), torch.sin(ac))[..., :, None]
           * torch.complex(torch.cos(af), torch.sin(af))[..., None, :])
-    h = torch.as_tensor(np.asarray(taps, np.float32).reshape(p, d),
-                        device=dev)
+    h = torch.as_tensor(taps, dtype=torch.float32, device=dev).reshape(p, d)
     g = (h * ph).reshape(s, c, k)
     grev = g.flip(-1).transpose(1, 2)                      # [S, K, C]
     gr, gi = grev.real.to(dtype), grev.imag.to(dtype)
@@ -133,3 +140,76 @@ def bank_fused(z2: torch.Tensor, g2: torch.Tensor, phase0: torch.Tensor,
 
 
 bank_fused.launches = 0
+
+
+def bank_complex_plain(z: torch.Tensor, grev: torch.Tensor,
+                       phase0: torch.Tensor, step: torch.Tensor, n: int,
+                       d: int) -> torch.Tensor:
+    """Plain PyTorch version of the complex bank kernel, float32.
+
+    z [S, L] complex64 (L ≥ (n-1)·D + K); grev [S, C, K] complex64
+    correlation-reversed modulated taps; phase0, step [S, C] int64 uint32
+    values. Returns y [S, C, n] complex64 with
+    ``y[s, c, m] = e^{iθ} Σ_k grev[s, c, k] · z[s, m·D + k]``."""
+    s = z.shape[0]
+    c, k = grev.shape[1:]
+    zr = torch.view_as_real(z.contiguous()).reshape(s, -1)
+    # window row m: the 2K interleaved re/im values from z[m·D] on
+    w = zr.as_strided((s, n, 2 * k), (zr.stride(0), 2 * d, 1))
+    gt = grev.transpose(1, 2)                               # [S, K, C]
+    gr, gi = gt.real, gt.imag
+    g2 = torch.stack([torch.cat([gr, gi], -1), torch.cat([-gi, gr], -1)],
+                     dim=2).reshape(s, 2 * k, 2 * c)
+    acc = torch.matmul(w, g2)                               # [S, n, 2C]
+    y = torch.complex(acc[..., :c], acc[..., c:]).transpose(1, 2)
+    ramp = (phase0[:, :, None]
+            + step[:, :, None] * torch.arange(n, device=z.device)
+            ) & U32_MASK                                    # [S, C, n]
+    return rotate(y, ramp).contiguous()
+
+
+def bank_complex(z: torch.Tensor, grev: torch.Tensor, phase0: torch.Tensor,
+                 step: torch.Tensor, n: int, d: int) -> torch.Tensor:
+    """The complex bank: ``bank_complex_plain`` on CPU tensors, the CUDA
+    kernel ``csrc/xlat_complex.cu`` on CUDA tensors (float32 operands and
+    accumulation, exact uint32 rotation). Returns y [S, C, n] complex64.
+
+    At the shape ``SpectrumSplit2`` sends (D=2, K=20, C=2) the kernel is
+    memory-bound, ~5 FLOP per byte moved: each block stages the input
+    span of BM consecutive outputs of one source in shared memory once
+    and computes every slot from it, so each input sample is read from
+    device memory once and each output written once. Wide C is bound by
+    CUDA-core FMAs; the pipelines send their wire planes to
+    ``bank_fused`` instead."""
+    if z.device.type == "cpu":
+        return bank_complex_plain(z, grev, phase0, step, n, d)
+    if z.device.type != "cuda":
+        raise ValueError(f"bank_complex: unsupported device {z.device}")
+    from radiocapture_tpu_torch import kernels
+    s, length = z.shape
+    c, k = grev.shape[1:]
+    for name, t, dt, shape in (
+            ("z", z, torch.complex64, (s, length)),
+            ("grev", grev, torch.complex64, (s, c, k)),
+            ("phase0", phase0, torch.int64, (s, c)),
+            ("step", step, torch.int64, (s, c))):
+        if (t.device != z.device or t.dtype != dt
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"bank_complex: {name} must be a contiguous "
+                             f"{dt} tensor of shape {shape} on "
+                             f"{z.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if n > 0 and length < (n - 1) * d + k:
+        raise ValueError(f"bank_complex: z rows hold {length} samples, "
+                         f"need {(n - 1) * d + k}")
+    y = torch.empty((s, c, n), dtype=torch.complex64, device=z.device)
+    err = kernels.load().xlat_complex_launch(
+        z.data_ptr(), grev.data_ptr(), phase0.data_ptr(), step.data_ptr(),
+        y.data_ptr(), s, n, k, d, c, length,
+        torch.cuda.current_stream(z.device).cuda_stream)
+    kernels.check(err, "xlat_complex")
+    bank_complex.launches += 1
+    return y
+
+
+bank_complex.launches = 0

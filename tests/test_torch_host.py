@@ -16,10 +16,10 @@ from radiocapture_tpu_torch.fec import bits as TB
 from radiocapture_tpu_torch.protocol import p25 as TP
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-COPIES = ["demod/engines", "demod/framer", "fec/bits", "fec/crc",
-          "fec/golay", "fec/hamming", "fec/linear", "fec/rs6",
-          "fec/trellis", "protocol/edacs", "protocol/moto", "protocol/p25",
-          "protocol/p25_fields"]
+COPIES = ["demod/engines", "demod/framer", "demod/tdma", "fec/bits",
+          "fec/crc", "fec/golay", "fec/hamming", "fec/linear", "fec/lfsr",
+          "fec/rs6", "fec/trellis", "protocol/edacs", "protocol/moto",
+          "protocol/p25", "protocol/p25_fields"]
 
 
 def _source(package, module):

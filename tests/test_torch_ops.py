@@ -51,6 +51,11 @@ def test_modulators_identical():
         (TM.tone(25000.0, 1200.0, 500, 0.5, 0.3),
          JM.tone(25000.0, 1200.0, 500, 0.5, 0.3)),
         (TM.awgn(nb, 20.0), JM.awgn(nb, 20.0)),
+        (TM.cqpsk_modulate(dib, fs=25000.0),
+         JM.cqpsk_modulate(dib, fs=25000.0)),
+        (TM.cqpsk_modulate(dib, fs=25000.0, symbol_rate=6000.0),
+         JM.cqpsk_modulate(dib, fs=25000.0, symbol_rate=6000.0)),
+        (TM.CQPSK_LEVELS, JM.CQPSK_LEVELS),
     ]
     for got, want in cases:
         np.testing.assert_array_equal(got, want)

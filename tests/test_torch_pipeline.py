@@ -176,15 +176,27 @@ def test_entry_step_shapes():
 
 
 def test_port_never_imports_jax():
-    """A fresh interpreter runs one CPU step and imports the host decode
-    without loading jax, ml_dtypes or the JAX package."""
-    code = ("import sys\n"
+    """A fresh interpreter runs one CPU step of each path (the C4FM
+    entry, split2 → CQPSK) and imports the host decode without loading
+    jax, ml_dtypes or the JAX package."""
+    code = ("import sys, torch\n"
             "from radiocapture_tpu_torch.entry import entry\n"
-            "from radiocapture_tpu_torch.demod import engines, framer\n"
+            "from radiocapture_tpu_torch.demod import (cqpsk, "
+            "cqpsk_kernel, engines, framer, tdma)\n"
+            "from radiocapture_tpu_torch.fec import lfsr\n"
+            "from radiocapture_tpu_torch.frontend.pipeline import ("
+            "CqpskControlPipeline, SpectrumSplit2, split2_sources)\n"
             "from radiocapture_tpu_torch import convert, kernels\n"
             "fn, args = entry('cpu')\n"
             "st, out = fn(*args)\n"
             "assert out[0].shape == (1, 64, 256)\n"
+            "sp = SpectrumSplit2(800e3)\n"
+            "pipe = CqpskControlPipeline.p25_cqpsk(2, 400e3, tdma=True)\n"
+            "sst, halves = sp.step(sp.init(1, 'cpu'), "
+            "torch.ones((1, 64), dtype=torch.complex64))\n"
+            "_, out = pipe.step(pipe.init(2, 'cpu'), "
+            "split2_sources(halves), torch.zeros((2, 2)))\n"
+            "assert out[0].shape == (2, 2, 2)\n"
             "bad = [m for m in ('jax', 'jaxlib', 'ml_dtypes', "
             "'radiocapture_tpu') "
             "if m in sys.modules]\n"
