@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``radiocapture_tpu_torch``) on one CUDA
-card: builds the four CUDA kernels and drives the port's two paths.
+card: builds the five CUDA kernels and drives the port's three paths.
 
 1. P25 C4FM control: checks the bank and fsk tracker kernels against
    their plain PyTorch versions, decodes a P25 grant through
@@ -12,6 +12,13 @@ card: builds the four CUDA kernels and drives the port's two paths.
    ``SpectrumSplit2.step`` → ``CqpskControlPipeline.step`` (two 2.4 MS/s
    sources → four 1.2 MS/s halves × 64 slots), and times its bench shape
    (128 physical sources → 256 halves × 64 slots = 16384 CQPSK lanes).
+3. The site runtime: checks the fused analog voice kernel against its
+   plain version (small, ragged and bench shapes), runs ``SiteRuntime``
+   on the card (two 2.4 MS/s sources × 64 slots, 100 ms blocks) through
+   a P25 C4FM grant → recorded LDU call and an EDACS grant → recorded
+   analog call, with one block where a source delivers nothing, and times
+   ``SiteRuntime.step`` at 128 sources × 64 slots (groups ``c4fm`` and
+   ``analog``).
 
     python3 chip_smoke.py
 
@@ -60,6 +67,24 @@ CQ_NOISE_AGREE = 0.99              # CQPSK tracker on noise: emit masks
 # noise lanes. No all-lane bound here: a differential phase near the ±4
 # branch cut that a ~1e-7 difference moves across changes by ~8.
 CQ_SYM_LANES = 0.995
+# site runtime path
+VOICE_REL_TOL = 1e-5       # fm_voice audio on signal lanes, × max|audio|
+POWER_REL_TOL = 1e-5       # fm_voice power, relative
+# Noise lanes of the fm_voice check: where a phase step sits near ±π the
+# two atan2f calls may land on opposite sides of the branch cut and the
+# discriminator differs by 2π·gain at that sample (then decays through
+# the IIR, z1 ≈ 0.57). This share of noise-lane samples is held to the
+# signal lanes' bound.
+VOICE_NOISE_SHARE = 0.99
+VOICE_MAX_DEV = 5000.0     # AnalogVoicePipeline's discriminator scale
+RT_CENTER = 857.0e6
+RT_P25_CC, RT_P25_VC = 857.5e6, 856.2e6
+RT_EDACS_CC, RT_EDACS_VC = 857.8e6, 856.6e6
+RT_SECONDS = 2.0           # the decode phase's capture
+RT_KEYUP_S = 0.3           # EDACS voice carrier keys up after the grant
+RT_STARVE_BLOCK = 12       # source 1 delivers nothing in this block
+TONE_HZ = 1000.0
+RT_BENCH_STEPS = 30
 
 
 def log(*parts):
@@ -95,22 +120,24 @@ def grid_offsets(n_sources: int, dev) -> torch.Tensor:
     return torch.as_tensor(np.tile(offs, (n_sources, 1)), device=dev)
 
 
-def kernel_counts() -> dict:
-    """Launch counts of the four kernel wrappers."""
+def kernel_wrappers() -> dict:
+    """The five kernel wrappers by kernel name."""
     from radiocapture_tpu_torch.demod import cqpsk_kernel as cqk
     from radiocapture_tpu_torch.demod import track_kernel as tk
     from radiocapture_tpu_torch.ops import channelizer_kernel as ck
-    return {"xlat_bank": ck.bank_fused.launches,
-            "fsk_track": tk.track.launches,
-            "xlat_complex": ck.bank_complex.launches,
-            "cqpsk_track": cqk.track_cqpsk.launches}
+    from radiocapture_tpu_torch.ops import fm_kernel as fk
+    return {"xlat_bank": ck.bank_fused, "fsk_track": tk.track,
+            "xlat_complex": ck.bank_complex,
+            "cqpsk_track": cqk.track_cqpsk, "fm_voice": fk.voice_track}
+
+
+def kernel_counts() -> dict:
+    """Launch counts of the kernel wrappers."""
+    return {k: fn.launches for k, fn in kernel_wrappers().items()}
 
 
 def reset_kernel_counts() -> None:
-    from radiocapture_tpu_torch.demod import cqpsk_kernel as cqk
-    from radiocapture_tpu_torch.demod import track_kernel as tk
-    from radiocapture_tpu_torch.ops import channelizer_kernel as ck
-    for fn in (ck.bank_fused, tk.track, ck.bank_complex, cqk.track_cqpsk):
+    for fn in kernel_wrappers().values():
         fn.launches = 0
 
 
@@ -295,8 +322,9 @@ def phase_decode(dev, pipe) -> dict:
 
 def profile_steps(step, what: str) -> float:
     """``torch.profiler`` over PROFILE_STEPS steady-state calls of
-    ``step()``: logs the device kernels by time per step. Returns the
-    device busy share: kernel time over wall time, profiler on."""
+    ``step()``: logs the device kernels and copies by time per step (share
+    of all device time). Returns the device busy share: kernel time
+    (copies excluded) over wall time, profiler on."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -307,21 +335,26 @@ def profile_steps(step, what: str) -> float:
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
-    kern = sorted((e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA),
-                  key=lambda e: -e.self_device_time_total)
+    dev = sorted((e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA),
+                 key=lambda e: -e.self_device_time_total)
+    kern = [e for e in dev if not e.key.startswith(("Memcpy", "Memset"))]
     dev_ms = (sum(e.self_device_time_total for e in kern) / 1e3
               / PROFILE_STEPS)
+    copy_ms = (sum(e.self_device_time_total for e in dev if e not in kern)
+               / 1e3 / PROFILE_STEPS)
     if dev_ms <= 0.0:
         raise AssertionError("the profiler saw no device kernel")
     syncs = sum(e.count for e in prof.key_averages()
                 if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"))
     log(f"profile: {what}: {PROFILE_STEPS} steps, wall {wall_ms:.3f} ms/step "
         f"(profiler on), device kernels {dev_ms:.3f} ms/step, busy share "
-        f"{dev_ms / wall_ms:.3f}, host syncs {syncs / PROFILE_STEPS:.1f}/step")
-    for e in kern[:PROFILE_ROWS]:
+        f"{dev_ms / wall_ms:.3f}, copies {copy_ms:.3f} ms/step, host syncs "
+        f"{syncs / PROFILE_STEPS:.1f}/step")
+    for e in dev[:PROFILE_ROWS]:
         ms = e.self_device_time_total / 1e3 / PROFILE_STEPS
-        log(f"profile: {what}: {ms:8.3f} ms/step {100 * ms / dev_ms:5.1f}% "
+        log(f"profile: {what}: {ms:8.3f} ms/step "
+            f"{100 * ms / (dev_ms + copy_ms):5.1f}% "
             f"x{e.count / PROFILE_STEPS:<4.1f} {e.key[:90]}")
     return dev_ms / wall_ms
 
@@ -752,6 +785,317 @@ def phase_split2_bench(dev, sp) -> tuple[dict, float, float]:
     return res, cbank_err, cq_err
 
 
+def voice_planes(s: int, n: int, c: int, dev, seed: int):
+    """[S, N, C] float32 bank planes at 25 kS/s: even slots an FM tone
+    (300–3000 Hz, 0.8 of a 2.5 kHz deviation) under -30 dB noise, odd
+    slots complex noise. Returns (y_re, y_im, signal-lane mask [S, C])."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f64 = dict(device=dev, dtype=torch.float64)
+    t = torch.arange(n, **f64)[None, :, None] / CHANNEL_FS
+    freq = 300.0 + 2700.0 * torch.rand((s, 1, c), generator=g, **f64)
+    ph0 = 2 * np.pi * torch.rand((s, 1, c), generator=g, **f64)
+    audio = 0.8 * torch.sin(2 * np.pi * freq * t + ph0)
+    phase = 2 * np.pi * 2500.0 / CHANNEL_FS * torch.cumsum(audio, 1) + ph0
+    noise = torch.complex(torch.randn((s, n, c), generator=g, **f64),
+                          torch.randn((s, n, c), generator=g, **f64))
+    sig = (torch.arange(c, device=dev) % 2 == 0).expand(s, c)
+    x = torch.where(sig[:, None, :],
+                    torch.polar(torch.ones_like(phase), phase) + 0.03 * noise,
+                    noise)
+    return (x.real.float().contiguous(), x.imag.float().contiguous(), sig)
+
+
+def check_voice(got, want, sig, what: str) -> float:
+    """fm_voice kernel vs plain, (audio [S, C, N], power [S, C]): audio
+    within VOICE_REL_TOL·max|audio| on every sample of the signal lanes
+    and on VOICE_NOISE_SHARE of the noise lanes' samples, power within
+    POWER_REL_TOL. Returns the signal lanes' max |err|."""
+    err = (got[0] - want[0]).abs()
+    tol = VOICE_REL_TOL * float(want[0][sig].abs().max())
+    sig_err = float(err[sig].max())
+    share = (float((err[~sig] <= tol).float().mean()) if bool((~sig).any())
+             else 1.0)
+    p_err = float(((got[1] - want[1]).abs() / want[1].abs()).max())
+    ok = (sig_err <= tol and share >= VOICE_NOISE_SHARE
+          and p_err <= POWER_REL_TOL)
+    log(f"voice kernel vs plain: {what}: signal lanes max_abs_err="
+        f"{sig_err:.3e} (tol {tol:.3e}); noise lanes within tol "
+        f"{share:.5f} (>= {VOICE_NOISE_SHARE}); power max rel err "
+        f"{p_err:.3e} (<= {POWER_REL_TOL}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("voice kernel disagrees with plain")
+    return sig_err
+
+
+def phase_voice_kernel(dev) -> tuple[float, dict]:
+    """fm_voice kernel vs plain: small and ragged shapes over two blocks
+    (lane state carried, written in place by the kernel), then the bench
+    shape (128 sources × 64 slots × 2500 samples) with both timed.
+    Returns (max |err| on signal lanes, timings)."""
+    from radiocapture_tpu_torch.ops import fm
+    from radiocapture_tpu_torch.ops import fm_kernel as fk
+    gain = CHANNEL_FS / (2 * np.pi * VOICE_MAX_DEV)
+
+    def fresh(s, c):
+        return (fm.quad_demod_init((s, c), dev), fm.deemph_init((s, c), dev))
+
+    worst = 0.0
+    for s, n, c in ((1, 2500, SLOTS), (3, 1001, 40), (2, 37, 5)):
+        y_re, y_im, sig = voice_planes(s, 2 * n, c, dev, seed=n + c)
+        st_k, st_p = fresh(s, c), fresh(s, c)
+        for b in range(2):
+            blk = [p[:, b * n:(b + 1) * n].contiguous() for p in (y_re, y_im)]
+            ptrs = [t.data_ptr() for t in (st_k[0].prev, *st_k[1])]
+            got = fk.voice_track(*blk, *st_k, gain, CHANNEL_FS)
+            want = fk.voice_track_plain(*blk, *st_p, gain, CHANNEL_FS)
+            if [t.data_ptr() for t in (got[0].prev, *got[1])] != ptrs:
+                raise AssertionError("voice kernel did not update in place")
+            st_k, st_p = got[:2], want[:2]
+            worst = max(worst, check_voice(got[2:], want[2:], sig,
+                                           f"S={s} N={n} C={c} block {b}"))
+        ds = float((st_k[1].y_last - st_p[1].y_last)[sig].abs().max())
+        if ds > VOICE_REL_TOL * float(want[2][sig].abs().max()):
+            raise AssertionError(f"voice kernel state differs by {ds}")
+
+    s, n = BENCH_SOURCES, BLOCK // 96
+    y_re, y_im, sig = voice_planes(s, n, SLOTS, dev, seed=3)
+    timed = fresh(s, SLOTS)
+    res = {"fm_voice_ms": cuda_ms(
+        lambda: fk.voice_track(y_re, y_im, *timed, gain, CHANNEL_FS), 10),
+        "fm_voice_plain_ms": cuda_ms(lambda: fk.voice_track_plain(
+            y_re, y_im, *timed, gain, CHANNEL_FS), 5)}
+    got = fk.voice_track(y_re, y_im, *fresh(s, SLOTS), gain, CHANNEL_FS)
+    want = fk.voice_track_plain(y_re, y_im, *fresh(s, SLOTS), gain,
+                                CHANNEL_FS)
+    worst = max(worst, check_voice(got[2:], want[2:], sig,
+                                   f"bench shape S={s} N={n} C={SLOTS}"))
+    log(f"voice kernel: bench shape {s * SLOTS} lanes x {n} samples: "
+        f"kernel {res['fm_voice_ms']:.3f} ms, plain "
+        f"{res['fm_voice_plain_ms']:.3f} ms")
+    return worst, res
+
+
+def state_rows(rt, src: int) -> dict:
+    """Copies of ``src``'s state rows in every group that holds it."""
+    from radiocapture_tpu_torch.runtime import _tree_map
+    rows = {}
+    for gkey, g in rt.groups.items():
+        if src in g["srcs"]:
+            r = g["srcs"].index(src)
+            rows[gkey] = _tree_map(lambda t: t[r].clone(), rt.pipe_state[gkey])
+    return rows
+
+
+def same_rows(a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return all(same_rows(x, y) for x, y in zip(a, b))
+
+
+def phase_runtime_decode(dev) -> dict:
+    """``SiteRuntime`` on the card: two 2.4 MS/s sources × 64 slots,
+    100 ms blocks, a P25 C4FM system and an EDACS system on source 0
+    (noise on source 1). The P25 grant opens a ``c4fm`` recorder whose
+    codewords must be a run of those sent; the EDACS grant opens an
+    analog recorder whose 8 kHz WAV must peak at 1 kHz; in block
+    RT_STARVE_BLOCK source 1 delivers nothing and its state rows must
+    stay bit-identical. Returns the kernels' launch counts of the run."""
+    import shutil
+    import tempfile
+    from radiocapture_tpu_torch.audio.wav import read_wav
+    from radiocapture_tpu_torch.runtime import FileSource, SiteRuntime
+    from radiocapture_tpu_torch.rxconfig import (RcConfig, SourceConfig,
+                                                 SystemConfig)
+    from radiocapture_tpu_torch.testing import modulators as M
+    from radiocapture_tpu_torch.testing import streams
+    cc, vc, sent = streams.p25_voice_call(RT_P25_VC, RT_SECONDS)
+    ecc, evc = streams.edacs_analog_call(RT_SECONDS, RT_KEYUP_S, TONE_HZ)
+    n = int(RT_SECONDS * SAMP_RATE)
+    wide0 = M.multi_channel(SAMP_RATE, [
+        (f - RT_CENTER, M.upsample_to(iq, CHANNEL_FS, SAMP_RATE))
+        for f, iq in ((RT_P25_CC, cc), (RT_P25_VC, vc), (RT_EDACS_CC, ecc),
+                      (RT_EDACS_VC, evc))], n, noise_floor_db=-60.0)
+    wide1 = M.multi_channel(SAMP_RATE, [], n, noise_floor_db=-20.0,
+                            rng=np.random.default_rng(31))
+    audio_dir = tempfile.mkdtemp(prefix="rc_smoke_audio_")
+    cfg = RcConfig(audio_dir=audio_dir)          # 64 slots, 100 ms blocks
+    cfg.sources[0] = SourceConfig(type="file", center_freq=RT_CENTER,
+                                  samp_rate=SAMP_RATE)
+    cfg.sources[1] = SourceConfig(type="file",
+                                  center_freq=RT_CENTER + SAMP_RATE,
+                                  samp_rate=SAMP_RATE)
+    cfg.systems[0] = SystemConfig(type="p25", id="P25",
+                                  control_channels=[RT_P25_CC])
+    cfg.systems[1] = SystemConfig(type="edacs", id="EDACS",
+                                  channels={1: RT_EDACS_CC, 3: RT_EDACS_VC},
+                                  control_channels=[RT_EDACS_CC])
+    src1 = FileSource(wide1, loop=False)
+    starve = {"on": False}
+    rt = SiteRuntime(cfg, {0: FileSource(wide0, loop=False),
+                           1: lambda k: None if starve["on"] else src1(k)},
+                     dev, keep_wav=True)
+    rt.use_stream_clock()
+    completed = []
+    rt.bus.subscribe("/queue/call_management/call_complete", completed.append)
+    try:
+        n_blocks = n // rt.block_len(0)
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        for b in range(n_blocks):
+            if b == RT_STARVE_BLOCK:
+                before = {s: state_rows(rt, s) for s in (0, 1)}
+                starve["on"] = True
+            rt.step()
+            if b == RT_STARVE_BLOCK:
+                starve["on"] = False
+                after = {s: state_rows(rt, s) for s in (0, 1)}
+                frozen = {g: same_rows(before[1][g], after[1][g])
+                          for g in before[1]}
+                moved = {g: not same_rows(before[0][g], after[0][g])
+                         for g in before[1]}
+                log(f"runtime decode: block {b}, source 1 starved: its "
+                    f"rows unchanged in groups {sorted(map(str, frozen))}: "
+                    f"{frozen}; source 0 advanced: {moved}")
+                if len(frozen) < 2 or not all(frozen.values()) \
+                        or not all(moved.values()):
+                    raise AssertionError("starved source's state advanced")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = kernel_counts()
+        locked = {i.cfg.id: i.engine.is_locked for i in rt.instances}
+        recs = {kind: rec for rec, _s, _c, _b, kind
+                in rt.recorders.active.values()}
+    finally:
+        rt.close()
+    deadline = time.time() + 5.0
+    while len(completed) < 2 and time.time() < deadline:
+        time.sleep(0.05)
+    try:
+        cdrs = {c["cdr"]["modulation_type"]: c["cdr"] for c in completed}
+        if not all(locked.values()) or set(recs) != {"c4fm", "analog"} \
+                or set(cdrs) != {"p25", "analog_edacs"}:
+            raise AssertionError(f"locked {locked}, recorders {set(recs)}, "
+                                 f"calls {set(cdrs)}")
+        p25 = cdrs["p25"]
+        frames = recs["c4fm"]._imbe_frames
+        if (p25["system_group_local"], p25["system_user_local"]) != (500, 42) \
+                or not streams.codewords_ok(frames, sent, 18):
+            raise AssertionError(f"P25 call: CDR {p25}, {len(frames)} "
+                                 "codewords not as sent")
+        log(f"runtime decode: P25 C4FM grant -> call group "
+            f"{p25['system_group_local']} user {p25['system_user_local']} on "
+            f"{p25['frequency'] / 1e6:.4f} MHz, {len(frames)} IMBE codewords "
+            f"recorded, a run of those sent ok")
+        pcm, rate = read_wav(recs["analog"].filename)
+        seg = pcm[len(pcm) // 4:]
+        spec = np.abs(np.fft.rfft(seg * np.hanning(len(seg))))
+        peak = float(np.argmax(spec) * rate / len(seg))
+        ed = cdrs["analog_edacs"]
+        if rate != 8000 or len(pcm) < 8000 or abs(peak - TONE_HZ) > 20.0 \
+                or ed["system_group_local"] != 321:
+            raise AssertionError(f"EDACS call: CDR {ed}, WAV {rate} Hz, "
+                                 f"{len(pcm)} samples, peak {peak} Hz")
+        log(f"runtime decode: EDACS grant -> analog call group "
+            f"{ed['system_group_local']} on {ed['frequency'] / 1e6:.4f} MHz, "
+            f"WAV {rate} Hz x {len(pcm)} samples, peak {peak:.1f} Hz ok")
+    finally:
+        shutil.rmtree(audio_dir, ignore_errors=True)
+    log(f"runtime decode: 2 sources x {SLOTS} slots x {n_blocks} blocks, "
+        f"groups {sorted(str(k) for k in rt.groups)} in {dt:.3f} s; "
+        f"launches {launches}")
+    need = ("xlat_bank", "fsk_track", "fm_voice")
+    if min(launches[k] for k in need) < 1:
+        raise AssertionError(f"a kernel of the path never ran: {launches}")
+    return launches
+
+
+def phase_runtime_bench(dev) -> dict:
+    """``SiteRuntime.step`` at 128 sources × 64 slots, 2.4 MS/s, 100 ms
+    blocks, one P25 C4FM system: groups ``c4fm`` and ``analog`` of 128
+    sources each; providers cycle four float32 wire blocks. Reports step
+    p50/p95 against the deadline, the device ms of each group's step,
+    the host-side pieces (stacking, upload, each group's fetch), the busy
+    share and host syncs per step."""
+    from radiocapture_tpu_torch.device import wire_from_numpy
+    from radiocapture_tpu_torch.runtime import SiteRuntime
+    from radiocapture_tpu_torch.rxconfig import (RcConfig, SourceConfig,
+                                                 SystemConfig)
+    s = BENCH_SOURCES
+    rng = np.random.default_rng(41)
+    pool = [(0.1 * rng.standard_normal((BLOCK, 2))).astype(np.float32)
+            for _ in range(4)]
+    cfg = RcConfig()
+    for i in range(s):
+        cfg.sources[i] = SourceConfig(type="file",
+                                      center_freq=RT_CENTER + i * SAMP_RATE,
+                                      samp_rate=SAMP_RATE)
+    cfg.systems[0] = SystemConfig(type="p25", id="P25",
+                                  control_channels=[RT_P25_CC])
+    ticks = [0] * s
+
+    def provider(i):
+        def pull(k):
+            ticks[i] += 1
+            return pool[(i + ticks[i]) % len(pool)][:k]
+        return pull
+
+    rt = SiteRuntime(cfg, {i: provider(i) for i in range(s)}, dev)
+    try:
+        sizes = {g["cls"]: len(g["srcs"]) for g in rt.groups.values()}
+        if sizes != {"c4fm": s, "analog": s} or rt.block_len(0) != BLOCK:
+            raise AssertionError(f"groups {sizes}, block {rt.block_len(0)}")
+        for _ in range(3):
+            rt.step()
+        torch.cuda.synchronize()
+        lat = []
+        for _ in range(RT_BENCH_STEPS):
+            t0 = time.perf_counter()
+            rt.step()
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        busy = profile_steps(rt.step, "runtime")
+        # the pieces of one step, each on its own, through the runtime's
+        # own helpers (the stacking buffer is warm, as in a step)
+        xs = [pool[i % len(pool)] for i in range(s)]
+        key = (tuple(range(s)), np.dtype(np.float32))
+        t0 = time.perf_counter()
+        xb = rt._stack(key, xs)
+        stack_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = wire_from_numpy(xb, dev)
+        torch.cuda.synchronize()
+        upload_ms = (time.perf_counter() - t0) * 1e3
+        group_ms, fetch_ms = {}, {}
+        for gkey, g in rt.groups.items():
+            pipe, st, offs = g["pipe"], rt.pipe_state[gkey], rt._offsets(gkey)
+            group_ms[g["cls"]] = cuda_ms(lambda: pipe.step(st, x, offs), 5)
+            out = pipe.step(st, x, offs)[1]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rt._fetch(g["cls"], out)
+            fetch_ms[g["cls"]] = (time.perf_counter() - t0) * 1e3
+    finally:
+        rt.close()
+    lat.sort()
+    res = {"sources": s, "slots": SLOTS, "block": BLOCK, "wire": "float32",
+           "steps": RT_BENCH_STEPS, "step_ms": lat,
+           "step_p50_ms": lat[len(lat) // 2],
+           "step_p95_ms": lat[int(len(lat) * 0.95)],
+           "group_device_ms": group_ms, "stack_ms": stack_ms,
+           "upload_ms": upload_ms, "fetch_ms": fetch_ms,
+           "profile_busy_share": busy}
+    log("runtime bench: " + json.dumps(res))
+    log(f"runtime bench: SiteRuntime.step p50 {res['step_p50_ms']:.3f} / "
+        f"p95 {res['step_p95_ms']:.3f} ms vs {DEADLINE_MS:.0f} ms deadline; "
+        f"device: c4fm group {group_ms['c4fm']:.3f} ms, analog group "
+        f"{group_ms['analog']:.3f} ms; host: stack {stack_ms:.3f} ms, "
+        f"upload {upload_ms:.3f} ms, fetch c4fm {fetch_ms['c4fm']:.3f} ms "
+        f"(analog, only while an analog call records: "
+        f"{fetch_ms['analog']:.3f} ms); busy share {busy:.3f}")
+    return res
+
+
 def main() -> None:
     from radiocapture_tpu_torch import kernels
     from radiocapture_tpu_torch.device import require_cuda
@@ -787,6 +1131,10 @@ def main() -> None:
     res2, bench_cbank_err, bench_cq_err = phase_split2_bench(dev, sp)
     cbank_err = max(cbank_err, bench_cbank_err)
     cq_err = max(cq_err, bench_cq_err)
+
+    voice_err, res3 = phase_voice_kernel(dev)
+    launches3 = phase_runtime_decode(dev)
+    phase_runtime_bench(dev)
     loaded = [m for m in ("jax", "radiocapture_tpu") if m in sys.modules]
     if loaded:
         raise AssertionError(f"imported {loaded}")
@@ -814,6 +1162,11 @@ def main() -> None:
          "launches": launches2["cqpsk_track"], "max_abs_err": cq_err,
          "ms": res2["cqpsk_track_ms"],
          "plain_ms": res2["cqpsk_track_plain_ms"]},
+        {"name": "fm_voice", "route": "cuda",
+         "source": "radiocapture_tpu_torch/csrc/fm_voice.cu",
+         "replaces": "radiocapture_tpu/ops/fm.py:44",
+         "launches": launches3["fm_voice"], "max_abs_err": voice_err,
+         "ms": res3["fm_voice_ms"], "plain_ms": res3["fm_voice_plain_ms"]},
     ]}))
     log(smi_line())
     log(json.dumps({"ok": True, "device": {

@@ -4,10 +4,10 @@ The JAX pipelines keep their state wire-encoded (its ``utils/wire.py``):
 complex values as trailing ``[..., 2]`` float32, uint32 values as int32
 bits. These functions map that layout, taken as numpy arrays in the JAX
 NamedTuples (or any objects with the same field names), to the port's
-state and back, for ``ControlPipeline``, ``CqpskControlPipeline`` and
-``SpectrumSplit2`` (whose state is the bank's ``XlatBankState``). The
-state has a leading source axis ``S`` on both sides (the JAX grouped,
-vmapped form).
+state and back, for ``ControlPipeline``, ``CqpskControlPipeline``,
+``AnalogVoicePipeline`` and ``SpectrumSplit2`` (whose state is the bank's
+``XlatBankState``). The state has a leading source axis ``S`` on both
+sides (the JAX grouped, vmapped form: a runtime group's stacked state).
 """
 
 from __future__ import annotations
@@ -17,13 +17,15 @@ import torch
 
 from radiocapture_tpu_torch.demod.cqpsk import CqpskState
 from radiocapture_tpu_torch.demod.fsk4 import Fsk4State
-from radiocapture_tpu_torch.frontend.pipeline import (CqpskControlPipeline,
+from radiocapture_tpu_torch.frontend.pipeline import (AnalogVoicePipeline,
+                                                      CqpskControlPipeline,
                                                       CqpskPipelineState,
                                                       ControlPipelineState,
-                                                      SpectrumSplit2)
+                                                      SpectrumSplit2,
+                                                      VoicePipelineState)
 from radiocapture_tpu_torch.ops.channelizer import XlatBank, XlatBankState
 from radiocapture_tpu_torch.ops.fir import U32_MASK
-from radiocapture_tpu_torch.ops.fm import QuadDemodState
+from radiocapture_tpu_torch.ops.fm import DeemphState, QuadDemodState
 
 
 def _f32(a, device) -> torch.Tensor:
@@ -85,10 +87,14 @@ def state_from_jax(pipe, arrays, device):
     if isinstance(pipe, CqpskControlPipeline):
         return CqpskPipelineState(
             bank=bank, cqpsk=cqpsk_state_from_jax(arrays.cqpsk, device))
+    quad = QuadDemodState(prev=_complex(arrays.quad.prev, device))
+    if isinstance(pipe, AnalogVoicePipeline):
+        return VoicePipelineState(
+            bank=bank, quad=quad,
+            deemph=DeemphState(y_last=_f32(arrays.deemph.y_last, device),
+                               x_last=_f32(arrays.deemph.x_last, device)))
     return ControlPipelineState(
-        bank=bank,
-        quad=QuadDemodState(prev=_complex(arrays.quad.prev, device)),
-        sym_hist=_f32(arrays.sym_hist, device),
+        bank=bank, quad=quad, sym_hist=_f32(arrays.sym_hist, device),
         fsk4=Fsk4State(clock=_f32(arrays.fsk4.clock, device),
                        fine_freq=_f32(arrays.fsk4.fine_freq, device),
                        hist=_f32(arrays.fsk4.hist, device)))
@@ -105,10 +111,14 @@ def state_to_jax(pipe, state):
     if isinstance(pipe, CqpskControlPipeline):
         return CqpskPipelineState(bank=bank,
                                   cqpsk=cqpsk_state_to_jax(state.cqpsk))
+    quad = QuadDemodState(prev=_np_complex(state.quad.prev))
+    if isinstance(pipe, AnalogVoicePipeline):
+        return VoicePipelineState(
+            bank=bank, quad=quad,
+            deemph=DeemphState(y_last=_np(state.deemph.y_last),
+                               x_last=_np(state.deemph.x_last)))
     return ControlPipelineState(
-        bank=bank,
-        quad=QuadDemodState(prev=_np_complex(state.quad.prev)),
-        sym_hist=_np(state.sym_hist),
+        bank=bank, quad=quad, sym_hist=_np(state.sym_hist),
         fsk4=Fsk4State(clock=_np(state.fsk4.clock),
                        fine_freq=_np(state.fsk4.fine_freq),
                        hist=_np(state.fsk4.hist)))

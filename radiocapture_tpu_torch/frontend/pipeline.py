@@ -5,6 +5,8 @@ symbol streams (port of ``radiocapture_tpu.frontend.pipeline``).
       tracker (demod.track_kernel: discriminator → boxcar → fsk4 → slicer)
     CqpskControlPipeline:  xlat bank  →  AGC gain  →  fused CQPSK tracker
       (demod.cqpsk_kernel: NCO → Gardner → diff phase → ×4 AFC → slicer)
+    AnalogVoicePipeline:   xlat bank  →  fused voice tracker
+      (ops.fm_kernel: discriminator → 75 µs de-emphasis → power)
     SpectrumSplit2:        one 2-slot complex bank per physical source
       (``receiver_split2``): two half-rate logical sources
 
@@ -36,6 +38,7 @@ from radiocapture_tpu_torch.demod.track_kernel import TrackParams, track
 from radiocapture_tpu_torch.ops import taps as _taps
 from radiocapture_tpu_torch.ops import fm as _fm
 from radiocapture_tpu_torch.ops.channelizer import XlatBank, XlatBankState
+from radiocapture_tpu_torch.ops.fm_kernel import voice_track
 
 _UNPORTED_FRONTENDS = {
     "pfb": "ROADMAP.md queue A item 10 (PfbXlatBank)",
@@ -259,6 +262,63 @@ class CqpskControlPipeline:
     def offsets_for(self, freqs_hz: np.ndarray, center_hz: float
                     ) -> np.ndarray:
         return _offsets_for(freqs_hz, center_hz, self.samp_rate)
+
+
+class VoicePipelineState(NamedTuple):
+    bank: XlatBankState
+    quad: _fm.QuadDemodState         # prev: [S, C] complex64
+    deemph: _fm.DeemphState          # y_last, x_last: [S, C] float32
+
+
+class AnalogVoicePipeline:
+    """Wideband blocks [S, T] → per-slot NBFM audio at the channel rate
+    and a squelch power meter (the reference's per-call ``analog``
+    flowgraph, logging_receiver.py:210-222). The resample to 8 kHz and
+    the voice band-pass run per open call in the recorder
+    (``audio/recorder.py::CallRecorder._to_8k``); squelch is applied
+    there as a power mask."""
+
+    def __init__(self, num_slots: int, samp_rate: float,
+                 channel_rate: float = 12500.0, max_dev: float = 5000.0,
+                 frontend: str = "xlat"):
+        _check_frontend(frontend)
+        self.num_slots = num_slots
+        self.samp_rate = float(samp_rate)
+        self.bank = XlatBank.for_rates(num_slots, samp_rate, channel_rate)
+        self.channel_fs = self.samp_rate / self.bank.decim
+        self.max_dev = float(max_dev)
+        self.gain = self.channel_fs / (2.0 * math.pi * self.max_dev)
+
+    @property
+    def decim(self) -> int:
+        return self.bank.decim
+
+    @property
+    def block_multiple(self) -> int:
+        """Input block length must be a multiple of this."""
+        return self.bank.decim
+
+    def init(self, n_sources: int, device) -> VoicePipelineState:
+        """All-zero streaming state for ``n_sources`` sources."""
+        sc = (n_sources, self.num_slots)
+        return VoicePipelineState(bank=self.bank.init(n_sources, device),
+                                  quad=_fm.quad_demod_init(sc, device),
+                                  deemph=_fm.deemph_init(sc, device))
+
+    def step(self, state: VoicePipelineState, x: torch.Tensor,
+             offsets_norm: torch.Tensor):
+        """x: [S, T, 2] wire block or [S, T] complex64, T % decim == 0;
+        offsets_norm [S, num_slots] → (state, (audio [S, C, T//decim]
+        float32, power [S, C] float32 mean |chan|²))."""
+        x = _wire(x)
+        if x.shape[1] % self.block_multiple:
+            raise ValueError(f"block length {x.shape[1]} is not a multiple "
+                             f"of {self.block_multiple}")
+        bs, y_re, y_im = self.bank.call_planes(state.bank, x, offsets_norm)
+        quad, deemph, audio, power = voice_track(
+            y_re, y_im, state.quad, state.deemph, self.gain, self.channel_fs)
+        return (VoicePipelineState(bank=bs, quad=quad, deemph=deemph),
+                (audio, power))
 
 
 class SpectrumSplit2:

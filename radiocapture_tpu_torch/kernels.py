@@ -1,6 +1,7 @@
 """Build and load the CUDA kernels of ``csrc/``.
 
-At first use ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one
+At first use ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one
+process per source, all started together) and links them into one
 shared library with a plain C interface under ``_build/`` (a directory
 git ignores), named by a hash of the sources and flags so an edited
 source rebuilds and an unchanged one loads at once. The library is bound
@@ -27,7 +28,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-O3", "-Xcompiler", "-fPIC", "-lineinfo")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,6 +47,9 @@ _SIGNATURES = {
     # prev_im, syms, valid, dibits, consts, S, N, C, n0_first, n0_count,
     # omega_lo, omega_hi, fmax, k_mu, k_om, k_f, stream
     "cqpsk_track_launch": (_P,) * 15 + (_I,) * 5 + (_F,) * 6 + (_P,),
+    # y_re, y_im, prev, y_last, x_last, audio, power, S, N, C, gain, z1,
+    # b0, stream
+    "fm_voice_launch": (_P,) * 7 + (_I,) * 3 + (_F,) * 3 + (_P,),
 }
 
 
@@ -70,6 +74,13 @@ def library_path() -> Path:
     return BUILD_DIR / f"librc_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _check_nvcc(cmd: list, rc: int, text: str, verbose: bool) -> None:
+    if rc != 0:
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}")
+    if verbose:
+        print(text)
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the kernels if no library for these sources exists yet;
     returns its path. ``verbose`` adds ``-Xptxas -v`` and prints the
@@ -78,21 +89,23 @@ def build(verbose: bool = False) -> Path:
     if out.exists() and not verbose:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *map(str, sources())]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-        if verbose:
-            print(res.stdout + res.stderr)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = nvcc_path()
+    extra = ["-Xptxas", "-v"] if verbose else []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in sources()]
+        compiles = [[nvcc, *NVCC_FLAGS, *extra, "-c", "-o", obj, str(src)]
+                    for obj, src in zip(objs, sources())]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in compiles]
+        outs = [p.communicate()[0] for p in procs]   # wait for them all
+        for cmd, p, text in zip(compiles, procs, outs):
+            _check_nvcc(cmd, p.returncode, text, verbose)
+        lib = os.path.join(tmp, "lib.so")
+        link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", lib, *objs]
+        res = subprocess.run(link, capture_output=True, text=True)
+        _check_nvcc(link, res.returncode, res.stdout + res.stderr, verbose)
+        os.replace(lib, out)
     return out
 
 

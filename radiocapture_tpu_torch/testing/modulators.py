@@ -30,6 +30,13 @@ def tone(fs: float, freq: float, n: int, amp: float = 1.0,
             ).astype(np.complex64)
 
 
+def fm_modulate(audio: np.ndarray, fs: float, max_dev: float,
+                amp: float = 1.0) -> np.ndarray:
+    """NBFM: instantaneous frequency = audio * max_dev (audio in [-1,1])."""
+    phase = 2 * np.pi * np.cumsum(audio) * max_dev / fs
+    return (amp * np.exp(1j * phase)).astype(np.complex64)
+
+
 def freq_shift(x: np.ndarray, fs: float, freq: float) -> np.ndarray:
     n = np.arange(len(x))
     return (x * np.exp(2j * np.pi * freq * n / fs)).astype(np.complex64)

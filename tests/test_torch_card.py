@@ -5,6 +5,8 @@ This file imports no JAX, so on a machine without it run
     python -m pytest --noconftest -m cuda tests/test_torch_card.py -q
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -19,7 +21,11 @@ from radiocapture_tpu_torch.frontend.pipeline import (ControlPipeline,
                                                       SpectrumSplit2)
 from radiocapture_tpu_torch.ops import channelizer_kernel as ck
 from radiocapture_tpu_torch.ops import fm
+from radiocapture_tpu_torch.ops import fm_kernel as fk
 from radiocapture_tpu_torch.ops.fir import phase_step_u32
+from radiocapture_tpu_torch.runtime import FileSource, SiteRuntime, _tree_map
+from radiocapture_tpu_torch.rxconfig import (RcConfig, SourceConfig,
+                                             SystemConfig)
 from radiocapture_tpu_torch.testing import modulators as M
 from radiocapture_tpu_torch.testing import streams
 
@@ -33,6 +39,9 @@ COMPLEX_REL = 1e-4
 CQPSK_NOISE_AGREE = 0.99
 CQPSK_SYM_ATOL = 1e-3
 CQPSK_SYM_N = 100
+# fm_voice: audio on the FM-tone lanes within this × max|audio| (the IIR
+# in another association order, float32); power within VOICE_REL.
+VOICE_REL = 1e-5
 
 
 @pytest.fixture
@@ -268,3 +277,148 @@ def test_cqpsk_track_kernel_matches_plain(cuda_device, baud):
     head = np.abs(got[0][noise][..., :CQPSK_SYM_N]
                   - want[0][noise][..., :CQPSK_SYM_N])
     assert float(head.max()) <= CQPSK_SYM_ATOL
+
+
+def _voice_planes(rng, s, n, c):
+    """[S, N, C] float32 planes: FM tones on every lane (2.5 kHz
+    deviation at 25 kS/s, far from the atan2 branch cut) with -30 dB
+    noise."""
+    t = np.arange(n)[None, :, None] / 25000.0
+    f = rng.uniform(300.0, 3000.0, (s, 1, c))
+    audio = 0.8 * np.sin(2 * np.pi * f * t)
+    x = (np.exp(2j * np.pi * 0.1 * np.cumsum(audio, 1))
+         + _complex_normal(rng, (s, n, c), 0.03)).astype(np.complex64)
+    return x.real.copy(), x.imag.copy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,n,c", [(1, 2500, 64), (3, 1001, 40),
+                                   (2, 37, 5)])
+def test_voice_kernel_matches_plain(cuda_device, s, n, c):
+    """fm_voice against its plain version at ragged shapes, two blocks
+    with the lane state carried: audio within VOICE_REL·max|audio|, power
+    and the carried de-emphasis state within VOICE_REL relative."""
+    rng = np.random.default_rng(n + c)
+    re, im = _voice_planes(rng, s, 2 * n, c)
+    gain = 25000.0 / (2 * np.pi * 5000.0)
+    st = [(fm.quad_demod_init((s, c), cuda_device),
+           fm.deemph_init((s, c), cuda_device)) for _ in range(2)]
+    before = fk.voice_track.launches
+    for b in range(2):
+        blk = [torch.as_tensor(np.ascontiguousarray(p[:, b * n:(b + 1) * n]),
+                               device=cuda_device) for p in (re, im)]
+        got = fk.voice_track(*blk, *st[0], gain, 25000.0)
+        want = fk.voice_track_plain(*blk, *st[1], gain, 25000.0)
+        st = [got[:2], want[:2]]
+        assert got[2].shape == want[2].shape == (s, c, n)
+        scale = float(want[2].abs().max())
+        assert float((got[2] - want[2]).abs().max()) <= VOICE_REL * scale
+        torch.testing.assert_close(got[3], want[3], rtol=VOICE_REL, atol=0)
+        torch.testing.assert_close(got[1].y_last, want[1].y_last,
+                                   rtol=0, atol=VOICE_REL * scale)
+    assert fk.voice_track.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_voice_kernel_updates_state_in_place(cuda_device):
+    """On CUDA the kernel writes the lane state into the tensors it was
+    given, and those hold what the plain version returns."""
+    rng = np.random.default_rng(9)
+    re, im = (torch.as_tensor(p, device=cuda_device)
+              for p in _voice_planes(rng, 2, 300, 8))
+    quad, deemph = fm.quad_demod_init((2, 8), cuda_device), \
+        fm.deemph_init((2, 8), cuda_device)
+    want = fk.voice_track_plain(re, im, quad, deemph, 0.8, 25000.0)
+    got = fk.voice_track(re, im, quad, deemph, 0.8, 25000.0)
+    assert got[0].prev is quad.prev and got[1].y_last is deemph.y_last
+    assert got[1].x_last is deemph.x_last
+    assert torch.equal(quad.prev, want[0].prev)
+    torch.testing.assert_close(deemph.x_last, want[1].x_last, rtol=1e-5,
+                               atol=1e-6)
+    torch.testing.assert_close(deemph.y_last, want[1].y_last, rtol=1e-5,
+                               atol=1e-6)
+
+
+def _site(tmp_path, slots, n_sources=1):
+    cfg = RcConfig(audio_dir=str(tmp_path / "audio"),
+                   num_slots_per_source=slots, block_seconds=0.05)
+    for i in range(n_sources):
+        cfg.sources[i] = SourceConfig(type="file",
+                                      center_freq=857e6 + i * 2.4e6,
+                                      samp_rate=2.4e6)
+    cfg.systems[0] = SystemConfig(type="p25", id="P25",
+                                  control_channels=[857.5e6])
+    return cfg
+
+
+def _rows(rt, src):
+    return {g: _tree_map(lambda t: t[rt.groups[g]["srcs"].index(src)].clone(),
+                         st)
+            for g, st in rt.pipe_state.items() if src in rt.groups[g]["srcs"]}
+
+
+def _leaves(st):
+    return [st] if isinstance(st, torch.Tensor) else \
+        [x for part in st for x in _leaves(part)]
+
+
+@pytest.mark.cuda
+def test_runtime_mask_revert_with_in_place_kernels(cuda_device, tmp_path):
+    """A block where source 1 delivers nothing: with the trackers writing
+    lane state in place on CUDA, its state rows in the c4fm and analog
+    groups stay bit-identical while source 0's advance."""
+    rng = np.random.default_rng(3)
+    starve = {"on": False}
+
+    def p0(n):
+        return (rng.standard_normal(n) + 1j * rng.standard_normal(n)
+                ).astype(np.complex64)
+
+    rt = SiteRuntime(_site(tmp_path, 8, 2),
+                     {0: p0, 1: lambda n: None if starve["on"] else p0(n)},
+                     cuda_device)
+    try:
+        rt.step()
+        before = {s: _rows(rt, s) for s in (0, 1)}
+        starve["on"] = True
+        rt.step()
+        after = {s: _rows(rt, s) for s in (0, 1)}
+        assert len(before[1]) == 2
+        for g in before[1]:
+            assert all(torch.equal(a, b) for a, b in zip(
+                _leaves(before[1][g]), _leaves(after[1][g])))
+            assert not all(torch.equal(a, b) for a, b in zip(
+                _leaves(before[0][g]), _leaves(after[0][g])))
+    finally:
+        rt.close()
+
+
+@pytest.mark.cuda
+def test_runtime_grant_to_recording(cuda_device, tmp_path):
+    """``SiteRuntime`` on CUDA: a P25 C4FM grant opens a ``c4fm``
+    recorder on the voice channel; its CDR names group 500 / user 42 and
+    its codewords are a run of those sent."""
+    cc, vc, sent = streams.p25_voice_call(856.2e6, 1.0)
+    n = int(2.4e6)
+    wide = M.multi_channel(2.4e6, [
+        (f - 857e6, M.upsample_to(iq, 25000.0, 2.4e6))
+        for f, iq in ((857.5e6, cc), (856.2e6, vc))], n,
+        noise_floor_db=-60.0)
+    rt = SiteRuntime(_site(tmp_path, 16), {0: FileSource(wide, loop=False)},
+                     cuda_device, keep_wav=True)
+    rt.use_stream_clock()
+    done = []
+    rt.bus.subscribe("/queue/call_management/call_complete", done.append)
+    try:
+        rt.run(n_blocks=n // rt.block_len(0))
+        assert rt.instances[0].engine.is_locked
+        (rec, _src, _slot, _bid, kind), = rt.recorders.active.values()
+        assert kind == "c4fm"
+        assert streams.codewords_ok(rec._imbe_frames, sent, 9)
+    finally:
+        rt.close()
+    deadline = time.time() + 3.0
+    while not done and time.time() < deadline:
+        time.sleep(0.05)
+    assert done and done[0]["cdr"]["system_group_local"] == 500
+    assert done[0]["cdr"]["system_user_local"] == 42

@@ -1,8 +1,10 @@
-"""Port parity, host decode: the port's framer, control engines, protocol
-parsers and FEC are copies of the JAX package's numpy-only modules, made
-so the port imports nothing of ``radiocapture_tpu``. Each copy must equal
-its original with the package name changed; the decode tests of
-``test_torch_fsk4.py`` and ``test_torch_pipeline.py`` run the copies."""
+"""Port parity, host code: the port's framer, control engines, protocol
+parsers, FEC, control plane, audio sinks, scheduler and config schema are
+copies of the JAX package's host modules, made so the port imports
+nothing of ``radiocapture_tpu``. Each copy must equal its original with
+the package name changed, and the recorder everywhere but ``_to_8k``;
+the decode and runtime tests of ``tests/test_torch_*.py`` run the
+copies."""
 
 import os
 
@@ -19,7 +21,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COPIES = ["demod/engines", "demod/framer", "demod/tdma", "fec/bits",
           "fec/crc", "fec/golay", "fec/hamming", "fec/linear", "fec/lfsr",
           "fec/rs6", "fec/trellis", "protocol/edacs", "protocol/moto",
-          "protocol/p25", "protocol/p25_fields"]
+          "protocol/p25", "protocol/p25_fields", "audio/wav",
+          "audio/postproc", "audio/imbe", "demod/provoice", "control/bus",
+          "control/resp", "control/stomp", "control/presence",
+          "control/call_manager", "control/metadata_agent",
+          "control/recorder_manager", "frontend/scheduler",
+          "rxconfig/__init__", "utils/logconfig"]
 
 
 def _source(package, module):
@@ -34,6 +41,22 @@ def test_host_module_is_a_copy(module):
     got = _source("radiocapture_tpu_torch", module)
     assert got == want
     assert "radiocapture_tpu." not in got
+
+
+def _without_to_8k(src):
+    start = src.index("    def _to_8k(")
+    return src[:start] + src[src.index("    # ---- P25 digital path", start):]
+
+
+def test_recorder_is_a_copy_but_to_8k():
+    """``audio/recorder.py`` equals its original everywhere but
+    ``CallRecorder._to_8k``, which resamples with the port's torch
+    resampler instead of ``jax.numpy``."""
+    want = _source("radiocapture_tpu", "audio/recorder").replace(
+        "radiocapture_tpu.", "radiocapture_tpu_torch.")
+    got = _source("radiocapture_tpu_torch", "audio/recorder")
+    assert _without_to_8k(got) == _without_to_8k(want)
+    assert "jax" not in got and "radiocapture_tpu." not in got
 
 
 def test_host_copy_round_trips_a_tsdu():

@@ -50,6 +50,8 @@ def test_modulators_identical():
          JM.multi_channel(200e3, [(50e3, nb)], 4000)),
         (TM.tone(25000.0, 1200.0, 500, 0.5, 0.3),
          JM.tone(25000.0, 1200.0, 500, 0.5, 0.3)),
+        (TM.fm_modulate(np.sin(np.arange(500) / 7.0), 25000.0, 5000.0, 0.5),
+         JM.fm_modulate(np.sin(np.arange(500) / 7.0), 25000.0, 5000.0, 0.5)),
         (TM.awgn(nb, 20.0), JM.awgn(nb, 20.0)),
         (TM.cqpsk_modulate(dib, fs=25000.0),
          JM.cqpsk_modulate(dib, fs=25000.0)),

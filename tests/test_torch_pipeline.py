@@ -177,8 +177,8 @@ def test_entry_step_shapes():
 
 def test_port_never_imports_jax():
     """A fresh interpreter runs one CPU step of each path (the C4FM
-    entry, split2 → CQPSK) and imports the host decode without loading
-    jax, ml_dtypes or the JAX package."""
+    entry, split2 → CQPSK, one ``SiteRuntime.step``) and imports the host
+    decode without loading jax, ml_dtypes or the JAX package."""
     code = ("import sys, torch\n"
             "from radiocapture_tpu_torch.entry import entry\n"
             "from radiocapture_tpu_torch.demod import (cqpsk, "
@@ -197,6 +197,20 @@ def test_port_never_imports_jax():
             "_, out = pipe.step(pipe.init(2, 'cpu'), "
             "split2_sources(halves), torch.zeros((2, 2)))\n"
             "assert out[0].shape == (2, 2, 2)\n"
+            "import numpy as np, tempfile\n"
+            "from radiocapture_tpu_torch.runtime import SiteRuntime\n"
+            "from radiocapture_tpu_torch.rxconfig import (RcConfig, "
+            "SourceConfig, SystemConfig)\n"
+            "cfg = RcConfig(audio_dir=tempfile.mkdtemp(), "
+            "num_slots_per_source=4, block_seconds=0.01)\n"
+            "cfg.sources[0] = SourceConfig(center_freq=857e6)\n"
+            "cfg.systems[0] = SystemConfig(type='p25', "
+            "control_channels=[857.5e6])\n"
+            "rt = SiteRuntime(cfg, {0: lambda n: np.ones(n, np.complex64)}, "
+            "'cpu')\n"
+            "rt.step()\n"
+            "rt.close()\n"
+            "assert rt.blocks == 1 and rt.instances[0].slot is not None\n"
             "bad = [m for m in ('jax', 'jaxlib', 'ml_dtypes', "
             "'radiocapture_tpu') "
             "if m in sys.modules]\n"
