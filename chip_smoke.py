@@ -22,17 +22,27 @@ card: builds the five CUDA kernels and drives the port's three paths.
 
     python3 chip_smoke.py
 
+At both bench shapes the channelizer bank kernel is timed beside its
+bound (bf16 FLOP over the H100's 989 TFLOP/s, or bytes over 3.35 TB/s)
+and its library yardstick (one cuBLAS bf16 ``torch.bmm`` of the window
+matrix); where the earlier wmma kernel is present as
+``_chip/xlat_bank_wmma.cu`` (outside git), it is built and timed against
+the wgmma kernel in turns.
+
 Phases print one line each; any failure raises (non-zero exit). The
-lines before the last are the kernels' JSON summary and the card's
-``nvidia-smi`` name and power limit; the last line is the JSON result.
+lines before the last are the kernels' JSON summary (each kernel's ms,
+plain ms, bound and library ms) and the card's ``nvidia-smi`` name and
+power limit; the last line is the JSON result.
 Without a CUDA device it fails before printing any result. Imports no
 JAX and nothing of the JAX package ``radiocapture_tpu``.
 """
 
+import ctypes
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -85,6 +95,19 @@ RT_KEYUP_S = 0.3           # EDACS voice carrier keys up after the grant
 RT_STARVE_BLOCK = 12       # source 1 delivers nothing in this block
 TONE_HZ = 1000.0
 RT_BENCH_STEPS = 30
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W) for each kernel's bound
+BF16_PEAK = 989e12         # FLOP/s, tensor cores
+F32_PEAK = 67e12           # FLOP/s, CUDA cores
+HBM_RATE = 3.35e12         # bytes/s
+# Lower bounds on the trackers' arithmetic per lane-sample (complex
+# conjugate product, atan2, filters, loop updates); their bound is the
+# bytes either way.
+FSK_OPS = 20
+CQPSK_OPS = 40
+VOICE_OPS = 10
+# The earlier wmma bank kernel, kept outside git while the wgmma kernel is
+# compared with it; without the file the comparison is skipped.
+WMMA_BANK = Path(__file__).resolve().parent / "_chip" / "xlat_bank_wmma.cu"
 
 
 def log(*parts):
@@ -111,6 +134,28 @@ def cuda_ms(fn, iters: int) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def tensor_bytes(*objs) -> int:
+    """Bytes of the tensors in ``objs`` (nested tuples), each storage
+    counted once: what a kernel reads and writes at the least."""
+    seen = {}
+
+    def walk(o):
+        if isinstance(o, torch.Tensor):
+            seen[(o.data_ptr(), o.numel())] = o.numel() * o.element_size()
+        elif isinstance(o, (tuple, list)):
+            for x in o:
+                walk(x)
+    walk(objs)
+    return sum(seen.values())
+
+
+def bound(ops: float, peak: float, nbytes: int) -> tuple[float, str]:
+    """The least time the card could take, in ms, and what bounds it:
+    operations over the peak for their type, or bytes over HBM_RATE."""
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_RATE * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def grid_offsets(n_sources: int, dev) -> torch.Tensor:
@@ -179,14 +224,18 @@ def check_track_noise(got, want, what: str,
 
 
 def phase_bank(dev, pipe) -> float:
-    """Bank kernel vs plain on mid-stream inputs; returns max |err|."""
+    """Bank kernel vs plain on mid-stream inputs: the 100 ms block, ragged
+    N (off the 128-row tile) and slot counts off and over the 64-slot
+    group, with z2 one sample short of whole 2D-value rows (the wrapper
+    copies it into rows); returns max |err|."""
     from radiocapture_tpu_torch.ops import channelizer_kernel as ck
     from radiocapture_tpu_torch.ops.fir import phase_step_u32
     bank = pipe.bank
     p, d = bank.p, bank.decim
     rng = np.random.default_rng(1)
     worst = 0.0
-    for s, n, c in ((1, BLOCK // d, SLOTS), (2, 1001, 40)):
+    for s, n, c in ((1, BLOCK // d, SLOTS), (2, 1001, 40), (3, 37, 5),
+                    (2, 777, 2 * SLOTS)):
         length = (n * d + bank.ntaps - 1) * 2
         z2 = torch.as_tensor(rng.standard_normal((s, length)).astype(
             np.float32), device=dev).to(torch.bfloat16)
@@ -196,7 +245,8 @@ def phase_bank(dev, pipe) -> float:
         phase0 = torch.as_tensor(rng.integers(0, 2 ** 32, (s, c)),
                                  dtype=torch.int64, device=dev)
         step = phase_step_u32(offs, d)
-        got = ck.bank_fused(z2, g2, phase0, step, n, p, d)
+        got = ck.bank_fused(z2, ck.kernel_taps(g2, p, d), phase0, step, n,
+                            p, d)
         want = ck.bank_fused_plain(z2, g2, phase0, step, n, p, d)
         worst = max(worst, check_bank(
             got, want, f"S={s} N={n} P={p} D={d} C={c}"))
@@ -359,6 +409,93 @@ def profile_steps(step, what: str) -> float:
     return dev_ms / wall_ms
 
 
+def wmma_bank():
+    """The earlier wmma bank kernel built from WMMA_BANK, or None."""
+    from radiocapture_tpu_torch import kernels
+    if not WMMA_BANK.exists():
+        return None
+    out = WMMA_BANK.parent / "_build" / "libxlat_bank_wmma.so"
+    out.parent.mkdir(exist_ok=True)
+    subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-shared",
+                    "-o", str(out), str(WMMA_BANK)], check=True,
+                   capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(out))
+    lib.xlat_bank_launch.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_void_p]
+    return lib
+
+
+def compare_wmma(z2, g2, phase0, step, n, p, d, new_fn) -> dict | None:
+    """The earlier wmma kernel and the wgmma kernel on the same operands, timed
+    in turns (wmma, wgmma, wgmma, wmma); None without WMMA_BANK."""
+    lib = wmma_bank()
+    if lib is None:
+        log(f"bank wmma vs wgmma: skipped ({WMMA_BANK} not present)")
+        return None
+    s, c = phase0.shape
+
+    def old():
+        y = torch.empty((2, s, n, c), dtype=torch.float32, device=z2.device)
+        err = lib.xlat_bank_launch(
+            z2.data_ptr(), g2.data_ptr(), phase0.data_ptr(),
+            step.data_ptr(), y[0].data_ptr(), y[1].data_ptr(), s, n, p, d,
+            c, z2.shape[1], torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise AssertionError(f"wmma bank launch failed: {err}")
+        return y
+
+    want = old()
+    got = new_fn()
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    times = {"wmma": [], "wgmma": []}
+    for k in ("wmma", "wgmma", "wgmma", "wmma"):
+        times[k].append(cuda_ms(old if k == "wmma" else new_fn, 10))
+    return {"wmma_ms": times["wmma"], "wgmma_ms": times["wgmma"],
+            "speedup": sum(times["wmma"]) / sum(times["wgmma"]),
+            "max_abs_diff": err}
+
+
+def bank_at_bench(dev, bank, state, x2, offs, what: str
+                  ) -> tuple[dict, float]:
+    """The bank kernel on the operands a pipeline step builds from a
+    mid-stream state: its ms beside the plain version's, its bound, and
+    the library yardstick (one bf16 ``torch.bmm`` of the window matrix,
+    materialised outside the timed region, by the tap matrix: the GEMM
+    without the rotation, bf16 out). Returns (numbers, max |err|)."""
+    from radiocapture_tpu_torch.ops import channelizer_kernel as ck
+    p, d = bank.p, bank.decim
+    n = x2.shape[1] // d
+    z2, gk, step = bank.operands(state, x2, offs)
+    g2 = ck.tap_matrix(bank.device_taps(dev), offs, p, d, torch.bfloat16)
+    phase0 = state.phase
+    s, c = phase0.shape
+
+    def new():
+        return ck.bank_fused(z2, gk, phase0, step, n, p, d)
+
+    res = {"bank_ms": cuda_ms(new, 10), "bank_plain_ms": cuda_ms(
+        lambda: ck.bank_fused_plain(z2, g2, phase0, step, n, p, d), 3)}
+    got = new()
+    err = check_bank(got, ck.bank_fused_plain(z2, g2, phase0, step, n, p, d),
+                     f"{what} S={s} N={n} D={d} C={c}")
+    win = z2.as_strided((s, n, p * 2 * d), (z2.stride(0), 2 * d, 1)
+                        ).contiguous().to(torch.bfloat16)
+    res["bank_library_ms"] = cuda_ms(lambda: torch.bmm(win, g2), 10)
+    del win
+    flops = 2.0 * s * n * (p * 2 * d) * (2 * c)
+    res["bank_bound_ms"], res["bank_bound_by"] = bound(
+        flops, BF16_PEAK, tensor_bytes(z2, gk, phase0, step, got))
+    res["bank_share_of_bound"] = res["bank_bound_ms"] / res["bank_ms"]
+    res["bank_vs_wmma"] = compare_wmma(z2, g2, phase0, step, n, p, d, new)
+    log(f"bank kernel: {what} S={s} N={n} D={d} P={p} C={c}: "
+        f"{res['bank_ms']:.4f} ms, bound {res['bank_bound_ms']:.4f} ms "
+        f"({res['bank_bound_by']}, {flops:.4g} FLOP), share of bound "
+        f"{res['bank_share_of_bound']:.3f}; library (bf16 bmm, no "
+        f"rotation) {res['bank_library_ms']:.4f} ms; plain "
+        f"{res['bank_plain_ms']:.3f} ms; vs wmma {res['bank_vs_wmma']}")
+    return res, err
+
+
 def phase_bench(dev, pipe) -> tuple[dict, float, float]:
     """bench.py's shape: 128 sources × 64 slots × 240,000 bf16 samples.
     Times the step and each kernel beside its plain version, and holds
@@ -404,18 +541,13 @@ def phase_bench(dev, pipe) -> tuple[dict, float, float]:
 
     # each kernel beside its plain version, on the operands the step
     # builds, from the mid-stream state
-    bank = pipe.bank
-    p, d, n = bank.p, bank.decim, BLOCK // bank.decim
-    z2, g2, step = bank.operands(state.bank, x, offs)
-    phase0 = state.bank.phase
-    res["bank_ms"] = cuda_ms(
-        lambda: ck.bank_fused(z2, g2, phase0, step, n, p, d), 10)
-    res["bank_plain_ms"] = cuda_ms(
-        lambda: ck.bank_fused_plain(z2, g2, phase0, step, n, p, d), 3)
-    y_re, y_im = ck.bank_fused(z2, g2, phase0, step, n, p, d)
-    bank_err = check_bank(
-        (y_re, y_im), ck.bank_fused_plain(z2, g2, phase0, step, n, p, d),
-        f"bench shape S={s} N={n} C={SLOTS}")
+    bank_res, bank_err = bank_at_bench(dev, pipe.bank, state.bank, x, offs,
+                                       "c4fm bench shape")
+    res.update(bank_res)
+    n = BLOCK // pipe.decim
+    z2, gk, step = pipe.bank.operands(state.bank, x, offs)
+    y_re, y_im = ck.bank_fused(z2, gk, state.bank.phase, step, n,
+                               pipe.bank.p, pipe.decim)
     prm = pipe.track_params
 
     def lane_state():   # the kernel updates its lane state in place
@@ -431,6 +563,9 @@ def phase_bench(dev, pipe) -> tuple[dict, float, float]:
     want = tk.track_plain(y_re, y_im, *lane_state(), prm)
     torch.cuda.synchronize()
     res["track_plain_ms"] = (time.perf_counter() - t0) * 1e3
+    res["track_bound_ms"], res["track_bound_by"] = bound(
+        FSK_OPS * y_re.numel(), F32_PEAK,
+        tensor_bytes(y_re, y_im, lane_state(), got))
     track_err = check_track_noise(
         [o.cpu().numpy() for o in got[3:]],
         [o.cpu().numpy() for o in want[3:]],
@@ -443,8 +578,9 @@ def phase_bench(dev, pipe) -> tuple[dict, float, float]:
         f"{res['latency_p50_ms']:.3f} / p95 {res['latency_p95_ms']:.3f} ms "
         f"vs {DEADLINE_MS:.0f} ms deadline; bank {res['bank_ms']:.3f} ms "
         f"(plain {res['bank_plain_ms']:.3f}); track {res['track_ms']:.3f} "
-        f"ms (plain {res['track_plain_ms']:.1f}); peak "
-        f"{peak / 2 ** 30:.2f} GiB")
+        f"ms (plain {res['track_plain_ms']:.1f}); bank bound "
+        f"{res['bank_bound_ms']:.3f} ms, library "
+        f"{res['bank_library_ms']:.3f} ms; peak {peak / 2 ** 30:.2f} GiB")
     return res, bank_err, track_err
 
 
@@ -683,13 +819,13 @@ def phase_split2_decode(dev, sp) -> dict:
     return launches
 
 
-def phase_split2_bench(dev, sp) -> tuple[dict, float, float]:
+def phase_split2_bench(dev, sp) -> tuple[dict, float, float, float]:
     """The split2 → CQPSK bench shape: 128 physical sources × 240,000 bf16
     wire samples → 256 halves × 64 slots = 16384 CQPSK lanes × 2500
-    samples per step. Times the step and each new kernel beside its
-    plain version, and holds each kernel's output at this shape against
-    the plain version's. Returns (timings, complex bank max |err|,
-    CQPSK tracker max |err|)."""
+    samples per step. Times the step and each kernel of the path beside
+    its plain version, and holds each kernel's output at this shape
+    against the plain version's. Returns (timings, complex bank max |err|,
+    CQPSK tracker max |err|, wire bank max |err|)."""
     from radiocapture_tpu_torch.demod import cqpsk as cq_mod
     from radiocapture_tpu_torch.demod import cqpsk_kernel as cqk
     from radiocapture_tpu_torch.frontend.pipeline import (
@@ -742,10 +878,36 @@ def phase_split2_bench(dev, sp) -> tuple[dict, float, float]:
         lambda: ck.bank_complex(z, grev, phase0, step, n2, 2), 10)
     res["xlat_complex_plain_ms"] = cuda_ms(
         lambda: ck.bank_complex_plain(z, grev, phase0, step, n2, 2), 3)
+    y = ck.bank_complex(z, grev, phase0, step, n2, 2)
     cbank_err = check_complex_bank(
-        ck.bank_complex(z, grev, phase0, step, n2, 2),
-        ck.bank_complex_plain(z, grev, phase0, step, n2, 2),
+        y, ck.bank_complex_plain(z, grev, phase0, step, n2, 2),
         f"bench shape S={s} N={n2} K={bank.ntaps} D=2 C=2")
+    # library yardstick: one float32 bmm (no TF32) of the materialised
+    # window matrix [S, N, 2K] by the [2K, 2C] interleaved tap matrix
+    k = bank.ntaps
+    zr = torch.view_as_real(z).reshape(s, -1)
+    win = zr.as_strided((s, n2, 2 * k), (zr.stride(0), 4, 1)).contiguous()
+    gt = grev.transpose(1, 2)
+    g2c = torch.stack([torch.cat([gt.real, gt.imag], -1),
+                       torch.cat([-gt.imag, gt.real], -1)], 2).reshape(
+        s, 2 * k, 2 * grev.shape[1])
+    res["xlat_complex_library_ms"] = cuda_ms(lambda: torch.bmm(win, g2c), 10)
+    del win
+    res["xlat_complex_bound_ms"], res["xlat_complex_bound_by"] = bound(
+        8.0 * s * n2 * grev.shape[1] * k, F32_PEAK,
+        tensor_bytes(z, grev, phase0, step, y))
+    log(f"complex bank kernel: bench shape: {res['xlat_complex_ms']:.4f} ms, "
+        f"bound {res['xlat_complex_bound_ms']:.4f} ms "
+        f"({res['xlat_complex_bound_by']}), library (f32 bmm, no rotation) "
+        f"{res['xlat_complex_library_ms']:.4f} ms")
+
+    # the wire bank at this path's shape, on the operands the CQPSK step
+    # builds from its mid-stream state
+    box[0], halves = sp.step(box[0], x)
+    bank_res, bank_err = bank_at_bench(dev, cq.bank, box[1].bank,
+                                       split2_sources(halves), offs,
+                                       "cqpsk bench shape")
+    res.update(bank_res)
 
     # the tracker on the planes the CQPSK step's bank gives, mid-stream
     box[0], halves = sp.step(box[0], x)
@@ -767,6 +929,9 @@ def phase_split2_bench(dev, sp) -> tuple[dict, float, float]:
                                  CHANNEL_FS, baud)
     torch.cuda.synchronize()
     res["cqpsk_track_plain_ms"] = (time.perf_counter() - t0) * 1e3
+    res["cqpsk_track_bound_ms"], res["cqpsk_track_bound_by"] = bound(
+        CQPSK_OPS * y_re.numel(), F32_PEAK,
+        tensor_bytes(y_re, y_im, scale, lane_state(), got))
     cq_err = check_cqpsk_noise(
         [o.cpu().numpy() for o in got[1:3]],
         [o.cpu().numpy() for o in want[1:3]],
@@ -781,8 +946,11 @@ def phase_split2_bench(dev, sp) -> tuple[dict, float, float]:
         f"{res['xlat_complex_ms']:.3f} ms (plain "
         f"{res['xlat_complex_plain_ms']:.3f}); cqpsk_track "
         f"{res['cqpsk_track_ms']:.3f} ms (plain "
-        f"{res['cqpsk_track_plain_ms']:.1f}); peak {peak / 2 ** 30:.2f} GiB")
-    return res, cbank_err, cq_err
+        f"{res['cqpsk_track_plain_ms']:.1f}); xlat_bank "
+        f"{res['bank_ms']:.3f} ms (bound {res['bank_bound_ms']:.3f}, "
+        f"library {res['bank_library_ms']:.3f}); peak "
+        f"{peak / 2 ** 30:.2f} GiB")
+    return res, cbank_err, cq_err, bank_err
 
 
 def voice_planes(s: int, n: int, c: int, dev, seed: int):
@@ -869,9 +1037,13 @@ def phase_voice_kernel(dev) -> tuple[float, dict]:
                                 CHANNEL_FS)
     worst = max(worst, check_voice(got[2:], want[2:], sig,
                                    f"bench shape S={s} N={n} C={SLOTS}"))
+    res["fm_voice_bound_ms"], res["fm_voice_bound_by"] = bound(
+        VOICE_OPS * y_re.numel(), F32_PEAK,
+        tensor_bytes(y_re, y_im, fresh(s, SLOTS), got))
     log(f"voice kernel: bench shape {s * SLOTS} lanes x {n} samples: "
         f"kernel {res['fm_voice_ms']:.3f} ms, plain "
-        f"{res['fm_voice_plain_ms']:.3f} ms")
+        f"{res['fm_voice_plain_ms']:.3f} ms, bound "
+        f"{res['fm_voice_bound_ms']:.4f} ms ({res['fm_voice_bound_by']})")
     return worst, res
 
 
@@ -1128,9 +1300,11 @@ def main() -> None:
     cbank_err = phase_complex_bank(dev, sp)
     cq_err = phase_cqpsk_tracker(dev)
     launches2 = phase_split2_decode(dev, sp)
-    res2, bench_cbank_err, bench_cq_err = phase_split2_bench(dev, sp)
+    res2, bench_cbank_err, bench_cq_err, bench_bank_err = \
+        phase_split2_bench(dev, sp)
     cbank_err = max(cbank_err, bench_cbank_err)
     cq_err = max(cq_err, bench_cq_err)
+    bank_err = max(bank_err, bench_bank_err)
 
     voice_err, res3 = phase_voice_kernel(dev)
     launches3 = phase_runtime_decode(dev)
@@ -1144,29 +1318,40 @@ def main() -> None:
          "source": "radiocapture_tpu_torch/csrc/xlat_bank.cu",
          "replaces": "radiocapture_tpu/ops/pallas_channelizer.py:201",
          "launches": launches["xlat_bank"], "max_abs_err": bank_err,
-         "ms": res["bank_ms"], "plain_ms": res["bank_plain_ms"]},
+         "ms": res["bank_ms"], "plain_ms": res["bank_plain_ms"],
+         "bound_ms": res["bank_bound_ms"], "bound_by": res["bank_bound_by"],
+         "library_ms": res["bank_library_ms"]},
         {"name": "fsk_track", "route": "cuda",
          "source": "radiocapture_tpu_torch/csrc/fsk_track.cu",
          "replaces": "radiocapture_tpu/demod/fsk4.py:105",
          "launches": launches["fsk_track"], "max_abs_err": track_err,
-         "ms": res["track_ms"], "plain_ms": res["track_plain_ms"]},
+         "ms": res["track_ms"], "plain_ms": res["track_plain_ms"],
+         "bound_ms": res["track_bound_ms"],
+         "bound_by": res["track_bound_by"], "library_ms": None},
         {"name": "xlat_complex", "route": "cuda",
          "source": "radiocapture_tpu_torch/csrc/xlat_complex.cu",
          "replaces": "radiocapture_tpu/ops/pallas_channelizer.py:73",
          "launches": launches2["xlat_complex"], "max_abs_err": cbank_err,
          "ms": res2["xlat_complex_ms"],
-         "plain_ms": res2["xlat_complex_plain_ms"]},
+         "plain_ms": res2["xlat_complex_plain_ms"],
+         "bound_ms": res2["xlat_complex_bound_ms"],
+         "bound_by": res2["xlat_complex_bound_by"],
+         "library_ms": res2["xlat_complex_library_ms"]},
         {"name": "cqpsk_track", "route": "cuda",
          "source": "radiocapture_tpu_torch/csrc/cqpsk_track.cu",
          "replaces": "radiocapture_tpu/demod/cqpsk.py:133",
          "launches": launches2["cqpsk_track"], "max_abs_err": cq_err,
          "ms": res2["cqpsk_track_ms"],
-         "plain_ms": res2["cqpsk_track_plain_ms"]},
+         "plain_ms": res2["cqpsk_track_plain_ms"],
+         "bound_ms": res2["cqpsk_track_bound_ms"],
+         "bound_by": res2["cqpsk_track_bound_by"], "library_ms": None},
         {"name": "fm_voice", "route": "cuda",
          "source": "radiocapture_tpu_torch/csrc/fm_voice.cu",
          "replaces": "radiocapture_tpu/ops/fm.py:44",
          "launches": launches3["fm_voice"], "max_abs_err": voice_err,
-         "ms": res3["fm_voice_ms"], "plain_ms": res3["fm_voice_plain_ms"]},
+         "ms": res3["fm_voice_ms"], "plain_ms": res3["fm_voice_plain_ms"],
+         "bound_ms": res3["fm_voice_bound_ms"],
+         "bound_by": res3["fm_voice_bound_by"], "library_ms": None},
     ]}))
     log(smi_line())
     log(json.dumps({"ok": True, "device": {

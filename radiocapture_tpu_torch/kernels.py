@@ -34,8 +34,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # z2, g2, phase0, step, y_re, y_im, S, N, P, D, C, z_len, stream
-    "xlat_bank_launch": (_P,) * 6 + (_I,) * 5 + (ctypes.c_longlong, _P),
+    # zb, gk, phase0, step, y_re, y_im, S, N, P, W, C, rows, z_stride,
+    # stream
+    "xlat_bank_launch": (_P,) * 6 + (_I,) * 6 + (ctypes.c_longlong, _P),
     # y_re, y_im, prev, sym_hist, clock, ff, hist, syms, valid, dibits,
     # consts, S, N, C, ntaps, sym_decim, gain, step, lo, spacing,
     # nlevels, k_ff, k_t, stream

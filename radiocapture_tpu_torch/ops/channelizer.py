@@ -19,9 +19,8 @@ import numpy as np
 import torch
 
 from radiocapture_tpu_torch.ops import taps as _taps
-from radiocapture_tpu_torch.ops.channelizer_kernel import (bank_complex,
-                                                           bank_fused,
-                                                           tap_matrix)
+from radiocapture_tpu_torch.ops.channelizer_kernel import (
+    bank_complex, bank_fused, kernel_tap_matrix, tap_matrix)
 from radiocapture_tpu_torch.ops.fir import U32_MASK, phase_step_u32
 
 
@@ -69,18 +68,24 @@ class XlatBank:
                  offsets_norm: torch.Tensor
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """The fused bank's operands for one wire block x2 [S, T, 2]:
-        (z2 [S, (K-1+T)·2] history ++ block, g2 [S, P·2D, 2C] tap matrix,
-        step [S, C] uint32 phase step as int64).
+        (z2 [S, (K+T)·2] history ++ block ++ one zero sample, g2 the tap
+        matrix, step [S, C] uint32 phase step as int64).
 
-        On CUDA z2 and g2 are bf16, the kernel's operand type. On CPU z2
-        keeps the wire dtype and g2 is float32, the plain version's."""
+        The zero sample makes z2's row (N+P)·2D values long, N = T/D: a
+        whole number of 2D-value rows, which the kernel's tensor map reads
+        in place (its per-source stride must be a multiple of 16 bytes;
+        history ++ block alone is 2 values short of one). On CUDA z2 is
+        bf16 and g2 the bf16 tap matrix in the kernel's slot-group layout
+        (``kernel_tap_matrix``); on CPU z2 keeps the wire dtype and g2 is
+        the float32 [S, P·2D, 2C] ``tap_matrix``, the plain version's."""
         cuda = x2.device.type == "cuda"
-        z_dtype = torch.bfloat16 if cuda else x2.dtype
-        g_dtype = torch.bfloat16 if cuda else torch.float32
-        hist2 = torch.view_as_real(state.history).to(z_dtype)
-        z2 = torch.cat([hist2, x2.to(z_dtype)], dim=1)
-        g2 = tap_matrix(self.device_taps(x2.device), offsets_norm, self.p,
-                        self.decim, g_dtype)
+        hist2 = torch.view_as_real(state.history).to(
+            torch.bfloat16 if cuda else x2.dtype)
+        z2 = torch.cat([hist2, x2.to(hist2.dtype),
+                        hist2.new_zeros((x2.shape[0], 1, 2))], dim=1)
+        build = kernel_tap_matrix if cuda else tap_matrix
+        g2 = build(self.device_taps(x2.device), offsets_norm, self.p,
+                   self.decim)
         return (z2.reshape(x2.shape[0], -1), g2,
                 phase_step_u32(offsets_norm, self.decim))
 
@@ -91,8 +96,9 @@ class XlatBank:
         offsets_norm [S, C] float32 cycles/sample.
         Returns (state, y_re, y_im) with time-major planes [S, T//decim, C]
         float32 — the layout the tracker kernel reads. The new history is
-        taken from z2, so on CUDA it holds bf16 values, which the kernel
-        would round them to anyway."""
+        taken from z2 (its last K-1 samples before the zero pad), so on
+        CUDA it holds bf16 values, which the kernel would round them to
+        anyway."""
         k, d, p = self.ntaps, self.decim, self.p
         s, t = x2.shape[:2]
         if t % d or x2.shape[-1] != 2 or x2.dim() != 3:
@@ -102,7 +108,8 @@ class XlatBank:
         z2, g2, step = self.operands(state, x2, offsets_norm)
         y_re, y_im = bank_fused(z2, g2, state.phase, step, n_out, p, d)
         new_phase = (state.phase + step * n_out) & U32_MASK
-        nh = z2[:, z2.shape[1] - 2 * (k - 1):].to(torch.float32).contiguous()
+        end = 2 * (k - 1 + t)
+        nh = z2[:, end - 2 * (k - 1):end].to(torch.float32).contiguous()
         return (XlatBankState(history=torch.view_as_complex(
             nh.reshape(s, k - 1, 2)), phase=new_phase), y_re, y_im)
 

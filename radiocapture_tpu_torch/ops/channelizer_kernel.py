@@ -15,8 +15,9 @@ rotation ``y = (acc_re + i·acc_im) · e^{iθ}``,
 ``θ = u32_to_angle(phase0 + step·n mod 2^32)``.
 Outputs are time-major ``[S, N, C]`` float32 planes: the layout the
 tracker kernels read with coalesced loads, so the TPU kernel's transpose
-pass is gone. The window matrix is never materialized by the kernel:
-window row n is an overlapping slice of ``z2[s]``.
+pass is gone. The window matrix is never materialized: chunk q of window
+row n is row n+q of z2 viewed as rows of 2D values (``kernel_rows``), so
+the kernel reads each operand tile as a plain box of that matrix.
 
 **The complex bank** (``bank_complex``, ``csrc/xlat_complex.cu``)
 replaces ``bank_matmul_pallas`` (with ``_bank_kernel``) and the rotation
@@ -32,17 +33,11 @@ import torch
 from radiocapture_tpu_torch.ops.fir import U32_MASK, rotate
 
 
-def tap_matrix(taps: np.ndarray | torch.Tensor, offsets_norm: torch.Tensor,
-               p: int, d: int, dtype: torch.dtype = torch.float32
-               ) -> torch.Tensor:
-    """Per-source modulated, correlation-reversed, interleaved tap matrix.
-
-    ``taps`` [P·D] real (``XlatBank.device_taps`` passes them already on
-    the device); ``offsets_norm`` [S, C] cycles/sample.
-    Returns ``g2`` [S, P·2D, 2C] of ``dtype`` with, for reversed tap k,
-    row 2k = [g_re | g_im] and row 2k+1 = [-g_im | g_re]. The phasor is
-    computed in float32 and rounded once to ``dtype`` before the rows are
-    laid out.
+def _reversed_taps(taps: np.ndarray | torch.Tensor,
+                   offsets_norm: torch.Tensor, p: int, d: int
+                   ) -> torch.Tensor:
+    """Per-slot modulated taps in correlation order,
+    ``g[s, c, k] = h[K-1-k]·e^{j2πf(K-1-k)}``: [S, C, K] complex64.
 
     The phasor is factorized e^{j2πf(qD+j)} = e^{j2πf·qD}·e^{j2πf·j}
     (``XlatBank.call_wire`` in the JAX package): C·(P+D) sin/cos pairs
@@ -50,17 +45,33 @@ def tap_matrix(taps: np.ndarray | torch.Tensor, offsets_norm: torch.Tensor,
     dev = offsets_norm.device
     off = offsets_norm.to(torch.float32)
     s, c = off.shape
-    k = p * d
     two_pi = float(np.float32(2.0 * np.pi))
-    qd = torch.arange(p, dtype=torch.float32, device=dev) * d
-    jj = torch.arange(d, dtype=torch.float32, device=dev)
+    # tap K-1-k = (P-1-q)·D + (D-1-j) for k = q·D + j: the reversed index
+    # ramps give the reversed taps without a flip pass
+    qd = torch.arange(p - 1, -1, -1, dtype=torch.float32, device=dev) * d
+    jj = torch.arange(d - 1, -1, -1, dtype=torch.float32, device=dev)
     ac = two_pi * off[..., None] * qd                      # [S, C, P]
     af = two_pi * off[..., None] * jj                      # [S, C, D]
     ph = (torch.complex(torch.cos(ac), torch.sin(ac))[..., :, None]
           * torch.complex(torch.cos(af), torch.sin(af))[..., None, :])
-    h = torch.as_tensor(taps, dtype=torch.float32, device=dev).reshape(p, d)
-    g = (h * ph).reshape(s, c, k)
-    grev = g.flip(-1).transpose(1, 2)                      # [S, K, C]
+    h = torch.as_tensor(taps, dtype=torch.float32, device=dev).flip(0)
+    return (h.reshape(p, d) * ph).reshape(s, c, p * d)
+
+
+def tap_matrix(taps: np.ndarray | torch.Tensor, offsets_norm: torch.Tensor,
+               p: int, d: int, dtype: torch.dtype = torch.float32
+               ) -> torch.Tensor:
+    """Per-source modulated, correlation-reversed, interleaved tap matrix,
+    the layout the plain version reads.
+
+    ``taps`` [P·D] real (``XlatBank.device_taps`` passes them already on
+    the device); ``offsets_norm`` [S, C] cycles/sample.
+    Returns ``g2`` [S, P·2D, 2C] of ``dtype`` with, for reversed tap k,
+    row 2k = [g_re | g_im] and row 2k+1 = [-g_im | g_re]. The phasor is
+    computed in float32 and rounded once to ``dtype`` before the rows are
+    laid out."""
+    grev = _reversed_taps(taps, offsets_norm, p, d).transpose(1, 2)
+    s, k, c = grev.shape                                   # [S, K, C]
     gr, gi = grev.real.to(dtype), grev.imag.to(dtype)
     row_re = torch.cat([gr, gi], dim=-1)                   # [S, K, 2C]
     row_im = torch.cat([-gi, gr], dim=-1)
@@ -87,36 +98,106 @@ def bank_fused_plain(z2: torch.Tensor, g2: torch.Tensor,
     return y.real.contiguous(), y.imag.contiguous()
 
 
+SLOT_GROUP = 64     # slots per kernel block: its 128 GEMM columns
+
+
+def kernel_width(d: int) -> int:
+    """W: the kernel's row of 2D values, rounded up to a multiple of 8
+    (a tensor map's strides are multiples of 16 bytes)."""
+    return -(-2 * d // 8) * 8
+
+
+def kernel_rows(z2: torch.Tensor, n: int, p: int, d: int) -> torch.Tensor:
+    """The A operand of the bank kernel: ``z2`` [S, L] as rows of
+    W = ``kernel_width(d)`` values, [S, rows, W] with rows ≥ n+P-1, so
+    that window row m is rows m .. m+P-1.
+
+    When W = 2D, L is a multiple of 2D and z2 contiguous and 16-byte
+    aligned (``XlatBank.operands`` makes it so), this is a view;
+    otherwise the first n+P-1 rows are copied with each row zero-padded
+    to W."""
+    s, length = z2.shape
+    d2, w = 2 * d, kernel_width(d)
+    if (w == d2 and length % d2 == 0 and z2.is_contiguous()
+            and z2.data_ptr() % 16 == 0):
+        return z2.view(s, length // d2, d2)
+    rows = n + p - 1
+    zb = z2[:, :rows * d2].reshape(s, rows, d2)
+    return torch.nn.functional.pad(zb, (0, w - d2)).contiguous()
+
+
+def _slot_groups(x: torch.Tensor, w: int) -> torch.Tensor:
+    """[S, 2, C, P, 2D] (the re-column and im-column tap rows of each
+    slot) → [S, G, 128, P·W], zero for slots past C and pad values."""
+    s, _, c, p, d2 = x.shape
+    g = -(-c // SLOT_GROUP)
+    if g * SLOT_GROUP != c or w != d2:
+        x = torch.nn.functional.pad(x, (0, w - d2, 0, 0,
+                                        0, g * SLOT_GROUP - c))
+    x = x.reshape(s, 2, g, SLOT_GROUP, p * w).transpose(1, 2)
+    return x.reshape(s, g, 2 * SLOT_GROUP, p * w).contiguous()
+
+
+def kernel_taps(g2: torch.Tensor, p: int, d: int) -> torch.Tensor:
+    """The B operand of the bank kernel from ``g2`` [S, P·2D, 2C]
+    (``tap_matrix``, columns [re C | im C]): K-major slot groups
+    [S, G, 128, P·W], G = ceil(C/64), W = ``kernel_width(d)``. Row j < 64
+    of group g is the re column of slot 64g+j, row 64+j its im column;
+    zero for slots past C and for the W-2D pad values of each window
+    chunk."""
+    s, k2, c2 = g2.shape
+    x = g2.reshape(s, k2, 2, c2 // 2).permute(0, 2, 3, 1)
+    return _slot_groups(x.reshape(s, 2, c2 // 2, p, 2 * d), kernel_width(d))
+
+
+def kernel_tap_matrix(taps: np.ndarray | torch.Tensor,
+                      offsets_norm: torch.Tensor, p: int, d: int,
+                      dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """``kernel_taps(tap_matrix(taps, offsets_norm, p, d, dtype), p, d)``,
+    the same values, built in the kernel's layout directly: no [P·2D, 2C]
+    matrix to transpose."""
+    g = torch.view_as_real(_reversed_taps(taps, offsets_norm, p, d))
+    s, c, k, _ = g.shape                                   # [S, C, K, 2]
+    rows = torch.empty((s, 2, c, k, 2), dtype=dtype, device=g.device)
+    rows[:, 0].copy_(g)                                    # (g_re, g_im)
+    rows[:, 0, ..., 1].neg_()                              # (g_re, -g_im)
+    rows[:, 1, ..., 0].copy_(g[..., 1])
+    rows[:, 1, ..., 1].copy_(rows[:, 0, ..., 0])           # (g_im, g_re)
+    return _slot_groups(rows.reshape(s, 2, c, p, 2 * d), kernel_width(d))
+
+
 def bank_fused(z2: torch.Tensor, g2: torch.Tensor, phase0: torch.Tensor,
                step: torch.Tensor, n: int, p: int, d: int
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """The fused bank: ``bank_fused_plain`` on CPU tensors, the CUDA
     kernel ``csrc/xlat_bank.cu`` on CUDA tensors (bf16 operands, float32
-    accumulation, exact uint32 rotation). On CUDA, z2 and g2 must already
-    be bf16 (``XlatBank.operands`` makes them so); another dtype raises.
+    accumulation, exact uint32 rotation). On CPU g2 is ``tap_matrix``'s
+    [S, P·2D, 2C]; on CUDA it is the kernel's [S, G, 128, P·W]
+    (``kernel_tap_matrix``, or ``kernel_taps`` of ``tap_matrix``'s), and
+    z2 and g2 must be bf16 (``XlatBank.operands`` makes them so): another
+    dtype or layout raises.
 
     The kernel is compute-bound: per 100 ms source block at 2.4 MS/s with
     64 slots the GEMM is 2500·2880·128·2 ≈ 1.84 GFLOP on 1.0 MB of input,
     ~1.9 kFLOP per input byte, far above the H100's ~295 FLOP/byte bf16
-    ridge. Its design therefore spends nothing on data movement tricks:
-    bf16 tensor-core tiles (wmma 16×16×16, 64-row × 32-slot block tiles
-    with the re and im columns of the same slots together so the rotation
-    is a per-thread epilogue), A tiles loaded straight from the
-    overlapping-row view of z2 (no window matrix, no lane padding), and
-    sin/cos of the exact uint32 phase per output instead of the TPU's
-    phasor tables. wgmma, TMA and persistent blocks are later levers."""
+    ridge. It is a TMA-fed ``wgmma`` GEMM: window row n's chunk q is row
+    n+q of z2 viewed as rows of 2D values (``kernel_rows``), so a block's
+    P shifted operand tiles are row offsets into one span of that matrix,
+    loaded once by one tensor map; the taps go in K-major groups of 64
+    slots, re and im columns of a slot in one block so the rotation is a
+    per-thread epilogue."""
     if z2.device.type == "cpu":
         return bank_fused_plain(z2, g2, phase0, step, n, p, d)
     if z2.device.type != "cuda":
         raise ValueError(f"bank_fused: unsupported device {z2.device}")
     from radiocapture_tpu_torch import kernels
     s, length = z2.shape
-    c2 = g2.shape[-1]
-    c = c2 // 2
-    k2 = p * 2 * d
+    c = phase0.shape[-1]
+    w = kernel_width(d)
     for name, t, dt, shape in (
             ("z2", z2, torch.bfloat16, (s, length)),
-            ("g2", g2, torch.bfloat16, (s, k2, c2)),
+            ("g2", g2, torch.bfloat16,
+             (s, -(-c // SLOT_GROUP), 2 * SLOT_GROUP, p * w)),
             ("phase0", phase0, torch.int64, (s, c)),
             ("step", step, torch.int64, (s, c))):
         if (t.device != z2.device or t.dtype != dt
@@ -128,12 +209,13 @@ def bank_fused(z2: torch.Tensor, g2: torch.Tensor, phase0: torch.Tensor,
     if length < (n + p - 1) * 2 * d:
         raise ValueError(f"bank_fused: z2 rows hold {length} values, "
                          f"need {(n + p - 1) * 2 * d}")
+    zb = kernel_rows(z2, n, p, d)
     y_re = torch.empty((s, n, c), dtype=torch.float32, device=z2.device)
     y_im = torch.empty_like(y_re)
     err = kernels.load().xlat_bank_launch(
-        z2.data_ptr(), g2.data_ptr(), phase0.data_ptr(), step.data_ptr(),
-        y_re.data_ptr(), y_im.data_ptr(), s, n, p, d, c, length,
-        torch.cuda.current_stream(z2.device).cuda_stream)
+        zb.data_ptr(), g2.data_ptr(), phase0.data_ptr(), step.data_ptr(),
+        y_re.data_ptr(), y_im.data_ptr(), s, n, p, w, c, zb.shape[1],
+        zb.stride(0), torch.cuda.current_stream(z2.device).cuda_stream)
     kernels.check(err, "xlat_bank")
     bank_fused.launches += 1
     return y_re, y_im

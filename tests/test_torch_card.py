@@ -17,7 +17,8 @@ from radiocapture_tpu_torch.demod import cqpsk_kernel as cqk
 from radiocapture_tpu_torch.demod import fsk4 as K
 from radiocapture_tpu_torch.demod import track_kernel as tk
 from radiocapture_tpu_torch.device import complex_to_wire
-from radiocapture_tpu_torch.frontend.pipeline import (ControlPipeline,
+from radiocapture_tpu_torch.frontend.pipeline import (CqpskControlPipeline,
+                                                      ControlPipeline,
                                                       SpectrumSplit2)
 from radiocapture_tpu_torch.ops import channelizer_kernel as ck
 from radiocapture_tpu_torch.ops import fm
@@ -56,10 +57,10 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("s,n,c", [(1, 2500, 64), (2, 1001, 40),
-                                   (3, 37, 5)])
+                                   (3, 37, 5), (2, 777, 128)])
 def test_bank_kernel_matches_plain(cuda_device, s, n, c):
-    """Mid-stream inputs, ragged N and slot counts off the 32-slot tile:
-    within 0.03·max|y|."""
+    """Mid-stream inputs, ragged N (off the 128-row tile) and slot counts
+    off and over the 64-slot group: within 0.03·max|y|."""
     rng = np.random.default_rng(n + c)
     p, d = 15, 96
     z2 = torch.as_tensor(rng.standard_normal(
@@ -73,12 +74,51 @@ def test_bank_kernel_matches_plain(cuda_device, s, n, c):
                              dtype=torch.int64, device=cuda_device)
     step = phase_step_u32(offs, d)
     before = ck.bank_fused.launches
-    got = ck.bank_fused(z2, g2, phase0, step, n, p, d)
+    got = ck.bank_fused(z2, ck.kernel_taps(g2, p, d), phase0, step, n, p, d)
     assert ck.bank_fused.launches == before + 1
     want = ck.bank_fused_plain(z2, g2, phase0, step, n, p, d)
     scale = max(float(w.abs().max()) for w in want)
     for g_, w_ in zip(got, want):
         assert g_.shape == (s, n, c)
+        assert float((g_ - w_).abs().max()) <= FUSED_REL * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["c4fm", "cqpsk"])
+def test_bank_kernel_on_pipeline_operands(cuda_device, path):
+    """The pipelines' own operands (``XlatBank.operands``, 3 sources, a
+    100 ms bf16 block, a random history and phase): history ++ block is
+    not a multiple of 16 bytes per source, the zero-padded z2 is read in
+    place, the tap matrix comes in the kernel's layout; within
+    0.03·max|y| of the plain version on ``tap_matrix``."""
+    bank = (ControlPipeline.p25_c4fm(64, 2.4e6) if path == "c4fm" else
+            CqpskControlPipeline.p25_cqpsk(64, 1.2e6)).bank
+    rng = np.random.default_rng(bank.decim)
+    s, k, d = 3, bank.ntaps, bank.decim
+    n = 2500
+    assert (k - 1 + n * d) * 2 * 2 % 16 != 0
+    hist = torch.as_tensor(rng.standard_normal((s, k - 1, 2)).astype(
+        np.float32), device=cuda_device).to(torch.bfloat16).float()
+    st = bank.init(s, cuda_device)._replace(
+        history=torch.view_as_complex(hist.contiguous()),
+        phase=torch.as_tensor(rng.integers(0, 2 ** 32, (s, 64)),
+                              device=cuda_device))
+    x2 = torch.as_tensor(rng.standard_normal((s, n * d, 2)).astype(
+        np.float32), device=cuda_device).to(torch.bfloat16)
+    offs = torch.as_tensor(rng.uniform(-0.45, 0.45, (s, 64)).astype(
+        np.float32), device=cuda_device)
+    z2, gk, step = bank.operands(st, x2, offs)
+    assert ck.kernel_rows(z2, n, bank.p, d).data_ptr() == z2.data_ptr()
+    g2 = ck.tap_matrix(bank.device_taps(cuda_device), offs, bank.p, d,
+                       torch.bfloat16)
+    assert torch.equal(gk, ck.kernel_taps(g2, bank.p, d))
+    before = ck.bank_fused.launches
+    got = ck.bank_fused(z2, gk, st.phase, step, n, bank.p, d)
+    assert ck.bank_fused.launches == before + 1
+    want = ck.bank_fused_plain(z2, g2, st.phase, step, n, bank.p, d)
+    scale = max(float(w.abs().max()) for w in want)
+    for g_, w_ in zip(got, want):
+        assert g_.shape == (s, n, 64)
         assert float((g_ - w_).abs().max()) <= FUSED_REL * scale
 
 

@@ -180,8 +180,9 @@ def test_tap_matrix_bf16_is_the_rounded_float32_matrix():
 
 @pytest.mark.parametrize("wire", [torch.float32, torch.bfloat16])
 def test_bank_operands_on_cpu(wire):
-    """``XlatBank.operands`` on CPU: z2 is history ++ block in the wire
-    dtype, g2 the float32 tap matrix, step the uint32 phase step."""
+    """``XlatBank.operands`` on CPU: z2 is history ++ block ++ one zero
+    sample in the wire dtype, a whole number of 2D-value rows; g2 the
+    float32 tap matrix, step the uint32 phase step."""
     rng = np.random.default_rng(6)
     bank = XlatBank.for_rates(3, 400e3, 12500.0)
     s, t = 2, bank.decim * 8
@@ -193,8 +194,10 @@ def test_bank_operands_on_cpu(wire):
     offs = torch.from_numpy(rng.uniform(-0.4, 0.4, (s, 3)).astype(
         np.float32))
     z2, g2, step = bank.operands(st, x2, offs)
-    want = torch.cat([torch.view_as_real(st.history).to(wire), x2], 1)
+    want = torch.cat([torch.view_as_real(st.history).to(wire), x2,
+                      torch.zeros((s, 1, 2), dtype=wire)], 1)
     assert z2.dtype == wire and torch.equal(z2, want.reshape(s, -1))
+    assert z2.shape[1] == (bank.p + t // bank.decim) * 2 * bank.decim
     assert g2.dtype == torch.float32
     assert torch.equal(g2, ck.tap_matrix(bank.taps, offs, bank.p,
                                          bank.decim))
