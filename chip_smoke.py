@@ -3,9 +3,13 @@
 card: builds the five CUDA kernels and drives the port's three paths.
 
 1. P25 C4FM control: checks the bank and fsk tracker kernels against
-   their plain PyTorch versions, decodes a P25 grant through
-   ``ControlPipeline.step`` at 2.4 MS/s × 64 slots, and times the bench
-   shape (128 sources × 100 ms blocks).
+   their plain PyTorch versions (the tracker with the P25 and the EDACS
+   parameters, at lane counts on and off its 32-slot tile), decodes a P25
+   grant through ``ControlPipeline.step`` at 2.4 MS/s × 64 slots, and
+   times the bench shape (128 sources × 100 ms blocks), with the fsk
+   tracker's latency floor: the clock64() cycles of its feedback loop
+   alone (``track_kernel.chain_probe``) over the SM clock that
+   ``nvidia-smi`` reads while the tracker runs.
 2. ``receiver_split2`` → CQPSK: checks the complex bank and CQPSK
    tracker kernels against their plain versions, decodes two CQPSK
    control channels and a Phase 2 TDMA superframe through
@@ -25,9 +29,7 @@ card: builds the five CUDA kernels and drives the port's three paths.
 At both bench shapes the channelizer bank kernel is timed beside its
 bound (bf16 FLOP over the H100's 989 TFLOP/s, or bytes over 3.35 TB/s)
 and its library yardstick (one cuBLAS bf16 ``torch.bmm`` of the window
-matrix); where the earlier wmma kernel is present as
-``_chip/xlat_bank_wmma.cu`` (outside git), it is built and timed against
-the wgmma kernel in turns.
+matrix).
 
 Phases print one line each; any failure raises (non-zero exit). The
 lines before the last are the kernels' JSON summary (each kernel's ms,
@@ -37,12 +39,10 @@ Without a CUDA device it fails before printing any result. Imports no
 JAX and nothing of the JAX package ``radiocapture_tpu``.
 """
 
-import ctypes
 import json
 import subprocess
 import sys
 import time
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -105,9 +105,8 @@ HBM_RATE = 3.35e12         # bytes/s
 FSK_OPS = 20
 CQPSK_OPS = 40
 VOICE_OPS = 10
-# The earlier wmma bank kernel, kept outside git while the wgmma kernel is
-# compared with it; without the file the comparison is skipped.
-WMMA_BANK = Path(__file__).resolve().parent / "_chip" / "xlat_bank_wmma.cu"
+RAGGED_SLOTS = 40          # a lane count off the fsk tracker's 32-slot tile
+CLOCK_RUN_S = 1.0          # fsk tracker run while nvidia-smi samples clocks
 
 
 def log(*parts):
@@ -265,22 +264,27 @@ def run_tracker(track_fn, planes, state, prm):
             for i in range(3)]
 
 
+def fresh_lanes(s, c, prm, dev):
+    """Zero tracker lane state for [S, C] lanes of ``prm``."""
+    from radiocapture_tpu_torch.demod import fsk4 as K
+    from radiocapture_tpu_torch.ops import fm
+    return (fm.quad_demod_init((s, c), dev),
+            torch.zeros((s, c, len(prm.sym_taps) - 1), device=dev),
+            K.fsk4_init((s, c), dev))
+
+
 def phase_tracker(dev, pipe) -> float:
     """Tracker kernel vs plain: identical dibits on a modulated P25
-    fixture, stated agreement on noise. Returns max |err| of syms over
-    the compared ranges."""
-    from radiocapture_tpu_torch.demod import fsk4 as K
+    fixture (four blocks in a row); stated agreement on noise with the
+    P25 and the EDACS parameters (NT 3 at sym_decim 2, NT 1 at 1) and at
+    a lane count off the 32-slot tile. Returns max |err| of syms over the
+    compared ranges."""
     from radiocapture_tpu_torch.demod import track_kernel as tk
-    from radiocapture_tpu_torch.ops import fm
+    from radiocapture_tpu_torch.frontend.pipeline import ControlPipeline
     from radiocapture_tpu_torch.testing import modulators as M
     from radiocapture_tpu_torch.testing import streams
     prm = pipe.track_params
     nb = BLOCK // pipe.decim
-
-    def fresh(s, c):
-        return (fm.quad_demod_init((s, c), dev),
-                torch.zeros((s, c, len(prm.sym_taps) - 1), device=dev),
-                K.fsk4_init((s, c), dev))
 
     dibits, expected = streams.p25_control_stream(
         8, channel=0x1000, group=100, source=555000)
@@ -291,8 +295,9 @@ def phase_tracker(dev, pipe) -> float:
     planes = [(torch.as_tensor(lanes[:, i:i + nb].real.copy(), device=dev),
                torch.as_tensor(lanes[:, i:i + nb].imag.copy(), device=dev))
               for i in range(0, n, nb)]
-    got = run_tracker(tk.track, planes, fresh(1, 2), prm)
-    want = run_tracker(tk.track_plain, planes, fresh(1, 2), prm)
+    got = run_tracker(tk.track, planes, fresh_lanes(1, 2, prm, dev), prm)
+    want = run_tracker(tk.track_plain, planes, fresh_lanes(1, 2, prm, dev),
+                       prm)
     for lane in range(2):
         gd = got[2][0, lane][got[1][0, lane].astype(bool)]
         wd = want[2][0, lane][want[1][0, lane].astype(bool)]
@@ -308,14 +313,20 @@ def phase_tracker(dev, pipe) -> float:
         f"{len(g)} grants, max_abs_err(syms)={err:.3e} ok")
 
     rng = np.random.default_rng(2)
-    s, c = 2, SLOTS
-    noise = [(torch.as_tensor(rng.standard_normal((s, nb, c)).astype(
-        np.float32), device=dev), torch.as_tensor(
-        rng.standard_normal((s, nb, c)).astype(np.float32), device=dev))]
-    got = run_tracker(tk.track, noise, fresh(s, c), prm)
-    want = run_tracker(tk.track_plain, noise, fresh(s, c), prm)
-    head = check_track_noise(got, want, f"noise S={s} C={c} N={nb}")
-    return max(err, head)
+    edacs = ControlPipeline.edacs(SLOTS, SAMP_RATE).track_params
+    # the ragged case has enough lanes (320) that BENCH_SYM_LANES lets one
+    # drift past NOISE_SYM_ATOL, as lanes do at the bench shape
+    for name, p, s, c, share in (
+            ("P25", prm, 2, SLOTS, 1.0), ("EDACS", edacs, 2, SLOTS, 1.0),
+            ("P25", prm, 8, RAGGED_SLOTS, BENCH_SYM_LANES)):
+        noise = [tuple(torch.as_tensor(rng.standard_normal(
+            (s, nb, c)).astype(np.float32), device=dev) for _ in range(2))]
+        got = run_tracker(tk.track, noise, fresh_lanes(s, c, p, dev), p)
+        want = run_tracker(tk.track_plain, noise, fresh_lanes(s, c, p, dev),
+                           p)
+        err = max(err, check_track_noise(
+            got, want, f"{name} noise S={s} C={c} N={nb}", share))
+    return err
 
 
 def phase_decode(dev, pipe) -> dict:
@@ -409,52 +420,6 @@ def profile_steps(step, what: str) -> float:
     return dev_ms / wall_ms
 
 
-def wmma_bank():
-    """The earlier wmma bank kernel built from WMMA_BANK, or None."""
-    from radiocapture_tpu_torch import kernels
-    if not WMMA_BANK.exists():
-        return None
-    out = WMMA_BANK.parent / "_build" / "libxlat_bank_wmma.so"
-    out.parent.mkdir(exist_ok=True)
-    subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-shared",
-                    "-o", str(out), str(WMMA_BANK)], check=True,
-                   capture_output=True, timeout=300)
-    lib = ctypes.CDLL(str(out))
-    lib.xlat_bank_launch.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_void_p]
-    return lib
-
-
-def compare_wmma(z2, g2, phase0, step, n, p, d, new_fn) -> dict | None:
-    """The earlier wmma kernel and the wgmma kernel on the same operands, timed
-    in turns (wmma, wgmma, wgmma, wmma); None without WMMA_BANK."""
-    lib = wmma_bank()
-    if lib is None:
-        log(f"bank wmma vs wgmma: skipped ({WMMA_BANK} not present)")
-        return None
-    s, c = phase0.shape
-
-    def old():
-        y = torch.empty((2, s, n, c), dtype=torch.float32, device=z2.device)
-        err = lib.xlat_bank_launch(
-            z2.data_ptr(), g2.data_ptr(), phase0.data_ptr(),
-            step.data_ptr(), y[0].data_ptr(), y[1].data_ptr(), s, n, p, d,
-            c, z2.shape[1], torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise AssertionError(f"wmma bank launch failed: {err}")
-        return y
-
-    want = old()
-    got = new_fn()
-    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    times = {"wmma": [], "wgmma": []}
-    for k in ("wmma", "wgmma", "wgmma", "wmma"):
-        times[k].append(cuda_ms(old if k == "wmma" else new_fn, 10))
-    return {"wmma_ms": times["wmma"], "wgmma_ms": times["wgmma"],
-            "speedup": sum(times["wmma"]) / sum(times["wgmma"]),
-            "max_abs_diff": err}
-
-
 def bank_at_bench(dev, bank, state, x2, offs, what: str
                   ) -> tuple[dict, float]:
     """The bank kernel on the operands a pipeline step builds from a
@@ -486,14 +451,92 @@ def bank_at_bench(dev, bank, state, x2, offs, what: str
     res["bank_bound_ms"], res["bank_bound_by"] = bound(
         flops, BF16_PEAK, tensor_bytes(z2, gk, phase0, step, got))
     res["bank_share_of_bound"] = res["bank_bound_ms"] / res["bank_ms"]
-    res["bank_vs_wmma"] = compare_wmma(z2, g2, phase0, step, n, p, d, new)
     log(f"bank kernel: {what} S={s} N={n} D={d} P={p} C={c}: "
         f"{res['bank_ms']:.4f} ms, bound {res['bank_bound_ms']:.4f} ms "
         f"({res['bank_bound_by']}, {flops:.4g} FLOP), share of bound "
         f"{res['bank_share_of_bound']:.3f}; library (bf16 bmm, no "
         f"rotation) {res['bank_library_ms']:.4f} ms; plain "
-        f"{res['bank_plain_ms']:.3f} ms; vs wmma {res['bank_vs_wmma']}")
+        f"{res['bank_plain_ms']:.3f} ms")
     return res, err
+
+
+def track_vs_plain(y_re, y_im, state_fn, prm, what: str):
+    """The fsk tracker kernel on [S, N, C] planes from ``state_fn()``
+    (fresh copies: the kernel updates lane state in place), timed by CUDA
+    events, and its plain version timed by the host clock; the noise
+    checks at BENCH_SYM_LANES. Returns (kernel ms, plain ms, max |err|,
+    the kernel's outputs)."""
+    from radiocapture_tpu_torch.demod import track_kernel as tk
+    timed = state_fn()
+    ms = cuda_ms(lambda: tk.track(y_re, y_im, *timed, prm), 5)
+    got = tk.track(y_re, y_im, *state_fn(), prm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = tk.track_plain(y_re, y_im, *state_fn(), prm)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = check_track_noise([o.cpu().numpy() for o in got[3:]],
+                            [o.cpu().numpy() for o in want[3:]], what,
+                            BENCH_SYM_LANES)
+    return ms, plain_ms, err, got
+
+
+def sm_clock_mhz(run) -> list:
+    """SM clock readings (MHz) that ``nvidia-smi`` takes every 50 ms while
+    ``run()`` keeps the card busy."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits", "-lms", "50"], stdout=subprocess.PIPE, text=True)
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out = smi.communicate(timeout=60)[0]
+    return [float(v) for v in out.split() if v.replace(".", "").isdigit()]
+
+
+def track_floor(y_re, y_im, state_fn, prm) -> dict:
+    """The fsk tracker's latency floor at this shape: the clock64() cycles
+    of its feedback loop alone (``chain_probe``: one warp, the boxcar
+    outputs of 32 bench lanes already in shared memory) for the block's
+    M tracked samples, over the SM clock ``nvidia-smi`` reads while the
+    kernel runs for CLOCK_RUN_S (a lone warp runs the card at a lower
+    clock, so the probe's own time would not say it)."""
+    from radiocapture_tpu_torch.demod import track_kernel as tk
+    from radiocapture_tpu_torch.ops import fm
+    from radiocapture_tpu_torch.ops.fir import batched_fir
+    quad, sym_hist, _ = state_fn()
+    m = y_re.shape[1] // prm.sym_decim
+    x = torch.complex(y_re[0, :, :32], y_im[0, :, :32]).T     # [32, N]
+    _, disc = fm.quadrature_demod(fm.QuadDemodState(quad.prev[0, :32]), x,
+                                  prm.gain)
+    _, xn = batched_fir(sym_hist[0, :32], disc, prm.sym_taps, prm.sym_decim)
+    rows = xn[:, :tk.PROBE_ROWS].T.contiguous()
+    tk.chain_probe(rows, m, prm)                              # warm-up
+    cycles = sorted(tk.chain_probe(rows, m, prm) for _ in range(5))
+    timed = state_fn()
+    once = cuda_ms(lambda: tk.track(y_re, y_im, *timed, prm), 3)
+    reps = max(1, int(CLOCK_RUN_S * 1e3 / once))
+
+    def run():          # outputs dropped as they come: ~120 MB a launch
+        for _ in range(reps):
+            tk.track(y_re, y_im, *timed, prm)
+
+    clocks = sm_clock_mhz(run)
+    if not clocks:
+        raise AssertionError("nvidia-smi read no SM clock")
+    mhz = float(np.median(clocks))
+    cyc = cycles[len(cycles) // 2]
+    floor_ms = cyc / (mhz * 1e6) * 1e3
+    how = (f"clock64 probe: {cyc} cycles for {m} tracked samples "
+           f"({cyc / m:.1f} per sample) / {mhz:.0f} MHz SM clock "
+           f"(nvidia-smi median of {len(clocks)} readings during the "
+           f"kernel)")
+    log(f"tracker floor: {how} = {floor_ms:.4f} ms; cycles of 5 runs "
+        f"{cycles}")
+    return {"track_floor_ms": floor_ms, "track_floor_how": how,
+            "track_chain_cycles": cyc, "sm_clock_mhz": clocks}
 
 
 def phase_bench(dev, pipe) -> tuple[dict, float, float]:
@@ -501,7 +544,7 @@ def phase_bench(dev, pipe) -> tuple[dict, float, float]:
     Times the step and each kernel beside its plain version, and holds
     each kernel's output at this shape against the plain version's.
     Returns (timings, bank max |err|, tracker max |err|)."""
-    from radiocapture_tpu_torch.demod import track_kernel as tk
+    from radiocapture_tpu_torch.frontend.pipeline import ControlPipeline
     from radiocapture_tpu_torch.ops import channelizer_kernel as ck
     s = BENCH_SOURCES
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -555,21 +598,36 @@ def phase_bench(dev, pipe) -> tuple[dict, float, float]:
                 state.sym_hist.clone(),
                 type(state.fsk4)(*(t.clone() for t in state.fsk4)))
 
-    timed = lane_state()
-    res["track_ms"] = cuda_ms(lambda: tk.track(y_re, y_im, *timed, prm), 5)
-    got = tk.track(y_re, y_im, *lane_state(), prm)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    want = tk.track_plain(y_re, y_im, *lane_state(), prm)
-    torch.cuda.synchronize()
-    res["track_plain_ms"] = (time.perf_counter() - t0) * 1e3
+    (res["track_ms"], res["track_plain_ms"], track_err,
+     got) = track_vs_plain(y_re, y_im, lane_state, prm,
+                           f"bench shape S={s} C={SLOTS} N={n}")
     res["track_bound_ms"], res["track_bound_by"] = bound(
         FSK_OPS * y_re.numel(), F32_PEAK,
         tensor_bytes(y_re, y_im, lane_state(), got))
-    track_err = check_track_noise(
-        [o.cpu().numpy() for o in got[3:]],
-        [o.cpu().numpy() for o in want[3:]],
-        f"bench shape S={s} C={SLOTS} N={n}", BENCH_SYM_LANES)
+    res.update(track_floor(y_re, y_im, lane_state, prm))
+    # the EDACS parameters (NT 1, sym_decim 1: 2500 tracked samples per
+    # lane) and a lane count off the 32-slot tile, on the same planes
+    edacs = ControlPipeline.edacs(SLOTS, SAMP_RATE).track_params
+    (res["track_edacs_ms"], res["track_edacs_plain_ms"], err,
+     _) = track_vs_plain(y_re, y_im,
+                         lambda: fresh_lanes(s, SLOTS, edacs, dev), edacs,
+                         f"EDACS bench shape S={s} C={SLOTS} N={n}")
+    track_err = max(track_err, err)
+    res["track_edacs_floor_ms"] = track_floor(
+        y_re, y_im, lambda: fresh_lanes(s, SLOTS, edacs, dev),
+        edacs)["track_floor_ms"]
+    c = RAGGED_SLOTS
+    r_re, r_im = (y[..., :c].contiguous() for y in (y_re, y_im))
+
+    def ragged_state():
+        return tuple(type(t)(*(v[:, :c].contiguous() for v in t))
+                     if isinstance(t, tuple) else t[:, :c].contiguous()
+                     for t in lane_state())
+
+    (res["track_ragged_ms"], res["track_ragged_plain_ms"], err,
+     _) = track_vs_plain(r_re, r_im, ragged_state, prm,
+                         f"bench shape S={s} C={c} N={n}")
+    track_err = max(track_err, err)
     log("bench: " + json.dumps({"sources": s, "slots": SLOTS,
                                 "block": BLOCK, "wire": "bf16",
                                 "window_step_ms": win_ms, **res}))
@@ -578,7 +636,10 @@ def phase_bench(dev, pipe) -> tuple[dict, float, float]:
         f"{res['latency_p50_ms']:.3f} / p95 {res['latency_p95_ms']:.3f} ms "
         f"vs {DEADLINE_MS:.0f} ms deadline; bank {res['bank_ms']:.3f} ms "
         f"(plain {res['bank_plain_ms']:.3f}); track {res['track_ms']:.3f} "
-        f"ms (plain {res['track_plain_ms']:.1f}); bank bound "
+        f"ms (plain {res['track_plain_ms']:.1f}, bound "
+        f"{res['track_bound_ms']:.3f}, floor {res['track_floor_ms']:.3f}); "
+        f"EDACS track {res['track_edacs_ms']:.3f} ms (floor "
+        f"{res['track_edacs_floor_ms']:.3f}); bank bound "
         f"{res['bank_bound_ms']:.3f} ms, library "
         f"{res['bank_library_ms']:.3f} ms; peak {peak / 2 ** 30:.2f} GiB")
     return res, bank_err, track_err
@@ -1327,7 +1388,9 @@ def main() -> None:
          "launches": launches["fsk_track"], "max_abs_err": track_err,
          "ms": res["track_ms"], "plain_ms": res["track_plain_ms"],
          "bound_ms": res["track_bound_ms"],
-         "bound_by": res["track_bound_by"], "library_ms": None},
+         "bound_by": res["track_bound_by"], "library_ms": None,
+         "floor_ms": res["track_floor_ms"],
+         "floor_how": res["track_floor_how"]},
         {"name": "xlat_complex", "route": "cuda",
          "source": "radiocapture_tpu_torch/csrc/xlat_complex.cu",
          "replaces": "radiocapture_tpu/ops/pallas_channelizer.py:73",

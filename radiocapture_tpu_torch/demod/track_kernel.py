@@ -6,8 +6,10 @@ pipeline.ControlPipeline._step_impl`` (pipeline.py:198-212):
 ``fm.quadrature_demod``, ``_batched_fir``, the ``fsk4.fsk4_demod``
 ``lax.scan`` and ``slice_dibits_jax``. In eager PyTorch the scan would
 launch ~30 tiny kernels per sample; the CUDA kernel
-(``csrc/fsk_track.cu``) runs one thread per lane with the lane's whole
-state in registers and reads the time-major bank planes once.
+(``csrc/fsk_track.cu``) gives each block a tile of 32 neighbouring slots
+of one source: one warp runs the fsk4 feedback loop, one lane per thread,
+while producer warps load the time-major bank planes and compute the
+discriminator and boxcar into a shared-memory ring ahead of it.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from radiocapture_tpu_torch.ops import fm as _fm
 from radiocapture_tpu_torch.ops.fir import batched_fir
 
 MAX_SYM_TAPS = 8   # the kernel keeps the boxcar window in registers
+SEGMENT = 16       # input samples per producer segment (csrc SEG)
+PROBE_ROWS = 64    # boxcar outputs the chain probe replays (csrc)
 
 
 class TrackParams(NamedTuple):
@@ -55,34 +59,22 @@ def track_plain(y_re: torch.Tensor, y_im: torch.Tensor,
     return quad, sym_hist, fsk4, syms, valid.to(torch.int32), dibits
 
 
-def track(y_re: torch.Tensor, y_im: torch.Tensor,
-          quad: _fm.QuadDemodState, sym_hist: torch.Tensor,
-          fsk4: _fsk4.Fsk4State, prm: TrackParams):
-    """The fused tracker: ``track_plain`` on CPU tensors, the CUDA kernel
-    on CUDA tensors. On CUDA the lane state (``quad.prev``, ``sym_hist``,
-    ``fsk4.*``) is updated IN PLACE and the same tensors are returned;
-    the outputs are [S, C, M] views of time-major [S, M, C] buffers.
-
-    What bounds the kernel on the H100 is latency, not bytes or FLOPs:
-    each lane is a serial feedback chain (atan2 → boxcar → Farrow Horner
-    → decision → tanh → clock/ff update) of ~1250 steps per 100 ms
-    block, and 8192 lanes fill only ~64 blocks of 128 threads — under
-    half of the 132 SMs. The design keeps every lane variable in
-    registers, reads the bank planes with coalesced loads (neighbouring
-    threads are neighbouring slots of the time-major planes) and writes
-    time-major outputs, so memory stays off the critical path. Splitting
-    lanes finer or interleaving independent lanes per thread to hide
-    the chain latency is a later lever."""
-    if y_re.device.type == "cpu":
-        return track_plain(y_re, y_im, quad, sym_hist, fsk4, prm)
-    if y_re.device.type != "cuda":
-        raise ValueError(f"track: unsupported device {y_re.device}")
-    from radiocapture_tpu_torch import kernels
+def kernel_args(y_re: torch.Tensor, y_im: torch.Tensor,
+                quad: _fm.QuadDemodState, sym_hist: torch.Tensor,
+                fsk4: _fsk4.Fsk4State, prm: TrackParams):
+    """Validate CUDA operands and allocate the outputs: (the arguments of
+    the C entry point ``fsk_track_launch``, (syms, valid, dibits)
+    time-major [S, M, C]). The constants go as the numpy array's ctypes
+    view, which keeps the array alive as long as the arguments. Raises
+    ValueError on what the kernel does not take."""
     s, n, c = y_re.shape
     nt = len(prm.sym_taps)
     if not 1 <= nt <= MAX_SYM_TAPS:
         raise ValueError(f"track: {nt} symbol taps, kernel takes "
                          f"1..{MAX_SYM_TAPS}")
+    if prm.sym_decim < 1 or SEGMENT % prm.sym_decim:
+        raise ValueError(f"track: sym_decim {prm.sym_decim} must divide "
+                         f"{SEGMENT}")
     if n % prm.sym_decim:
         raise ValueError(f"track: N={n} not a multiple of sym_decim "
                          f"{prm.sym_decim}")
@@ -104,25 +96,85 @@ def track(y_re: torch.Tensor, y_im: torch.Tensor,
     syms = torch.empty((s, m, c), dtype=torch.float32, device=y_re.device)
     valid = torch.empty((s, m, c), dtype=torch.int32, device=y_re.device)
     dibits = torch.empty_like(valid)
-    # Farrow table then boxcar taps: passed by value, so the kernel reads
-    # them from the constant bank with no copy on the stream.
-    consts = np.zeros(_fsk4._FARROW.size + MAX_SYM_TAPS, np.float32)
-    consts[:_fsk4._FARROW.size] = _fsk4._FARROW.ravel()
-    consts[_fsk4._FARROW.size:_fsk4._FARROW.size + nt] = prm.sym_taps
-    err = kernels.load().fsk_track_launch(
-        y_re.data_ptr(), y_im.data_ptr(), prev.data_ptr(),
-        sym_hist.data_ptr(), fsk4.clock.data_ptr(),
-        fsk4.fine_freq.data_ptr(), fsk4.hist.data_ptr(),
-        syms.data_ptr(), valid.data_ptr(), dibits.data_ptr(),
-        consts.ctypes.data, s, n, c, nt, prm.sym_decim,
-        _fsk4.f32(prm.gain), _fsk4.f32(prm.symbol_rate / prm.track_fs),
-        lo, spacing, len(prm.levels), _fsk4.f32(_fsk4.K_FINE_FREQ),
-        _fsk4.f32(_fsk4.K_TIMING),
-        torch.cuda.current_stream(y_re.device).cuda_stream)
-    kernels.check(err, "fsk_track")
+    args = (y_re.data_ptr(), y_im.data_ptr(), prev.data_ptr(),
+            sym_hist.data_ptr(), fsk4.clock.data_ptr(),
+            fsk4.fine_freq.data_ptr(), fsk4.hist.data_ptr(),
+            syms.data_ptr(), valid.data_ptr(), dibits.data_ptr(),
+            consts(prm).ctypes, s, n, c, nt, prm.sym_decim,
+            _fsk4.f32(prm.gain), _fsk4.f32(prm.symbol_rate / prm.track_fs),
+            lo, spacing, len(prm.levels), _fsk4.f32(_fsk4.K_FINE_FREQ),
+            _fsk4.f32(_fsk4.K_TIMING),
+            torch.cuda.current_stream(y_re.device).cuda_stream)
+    return args, (syms, valid, dibits)
+
+
+def consts(prm: TrackParams) -> np.ndarray:
+    """The Farrow table then the boxcar taps, as the kernel takes them by
+    value (its constant bank: no copy on the stream)."""
+    out = np.zeros(_fsk4._FARROW.size + MAX_SYM_TAPS, np.float32)
+    out[:_fsk4._FARROW.size] = _fsk4._FARROW.ravel()
+    out[_fsk4._FARROW.size:_fsk4._FARROW.size + len(prm.sym_taps)] = \
+        prm.sym_taps
+    return out
+
+
+def track(y_re: torch.Tensor, y_im: torch.Tensor,
+          quad: _fm.QuadDemodState, sym_hist: torch.Tensor,
+          fsk4: _fsk4.Fsk4State, prm: TrackParams):
+    """The fused tracker: ``track_plain`` on CPU tensors, the CUDA kernel
+    on CUDA tensors. On CUDA the lane state (``quad.prev``, ``sym_hist``,
+    ``fsk4.*``) is updated IN PLACE and the same tensors are returned;
+    the outputs are [S, C, M] views of time-major [S, M, C] buffers.
+
+    What bounds the kernel on the H100 is the latency of the fsk4
+    feedback chain, not bytes or FLOPs: ~1250 dependent steps per lane
+    per 100 ms block. The kernel keeps that chain alone on one warp per
+    32-lane tile and feeds it from a shared-memory ring that producer
+    warps fill (loads, atan2 discriminator, boxcar), so neither memory
+    latency nor the feed-forward arithmetic sits on it; S·⌈C/32⌉ blocks
+    spread the tiles over every SM. ``sym_decim`` must divide 16."""
+    if y_re.device.type == "cpu":
+        return track_plain(y_re, y_im, quad, sym_hist, fsk4, prm)
+    if y_re.device.type != "cuda":
+        raise ValueError(f"track: unsupported device {y_re.device}")
+    from radiocapture_tpu_torch import kernels
+    args, (syms, valid, dibits) = kernel_args(y_re, y_im, quad, sym_hist,
+                                              fsk4, prm)
+    kernels.check(kernels.load().fsk_track_launch(*args), "fsk_track")
     track.launches += 1
     return (quad, sym_hist, fsk4, syms.transpose(1, 2),
             valid.transpose(1, 2), dibits.transpose(1, 2))
 
 
 track.launches = 0
+
+
+def chain_probe(xn: torch.Tensor, steps: int, prm: TrackParams) -> int:
+    """The fsk4 loop of the kernel alone: one warp of 32 lanes, from a
+    zero state, replays the boxcar outputs ``xn`` [PROBE_ROWS, 32] (CUDA
+    float32, rows in time) from shared memory for ``steps`` tracked
+    samples.
+    Returns the clock64() cycles of that loop: the latency floor of the
+    tracker's serial chain, with no load, discriminator or hand-off on
+    it. A measurement aid; not a launch of ``track``."""
+    from radiocapture_tpu_torch import kernels
+    if (xn.device.type != "cuda" or xn.dtype != torch.float32
+            or tuple(xn.shape) != (PROBE_ROWS, 32)
+            or not xn.is_contiguous()):
+        raise ValueError(f"chain_probe: xn must be a contiguous CUDA "
+                         f"float32 [{PROBE_ROWS}, 32] tensor")
+    dev = xn.device
+    syms = torch.empty((steps, 32), dtype=torch.float32, device=dev)
+    valid = torch.empty((steps, 32), dtype=torch.int32, device=dev)
+    dibits = torch.empty_like(valid)
+    state = torch.empty((2, 32), dtype=torch.float32, device=dev)
+    cycles = torch.zeros(1, dtype=torch.int64, device=dev)
+    lo, spacing = _fsk4.uniform_alphabet(prm.levels)
+    kernels.check(kernels.load().fsk_chain_probe_launch(
+        xn.data_ptr(), steps, syms.data_ptr(), valid.data_ptr(),
+        dibits.data_ptr(), state.data_ptr(), cycles.data_ptr(),
+        consts(prm).ctypes, _fsk4.f32(prm.symbol_rate / prm.track_fs), lo,
+        spacing, len(prm.levels), _fsk4.f32(_fsk4.K_FINE_FREQ),
+        _fsk4.f32(_fsk4.K_TIMING),
+        torch.cuda.current_stream(dev).cuda_stream), "fsk_chain_probe")
+    return int(cycles.item())

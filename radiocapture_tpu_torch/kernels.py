@@ -42,6 +42,10 @@ _SIGNATURES = {
     # nlevels, k_ff, k_t, stream
     "fsk_track_launch": (_P,) * 11 + (_I,) * 5 + (_F,) * 4 + (_I, _F, _F,
                                                                 _P),
+    # xn, steps, syms, valid, dibits, state_out, cycles, consts, step, lo,
+    # spacing, nlevels, k_ff, k_t, stream
+    "fsk_chain_probe_launch": (_P, _I) + (_P,) * 6 + (_F,) * 3 + (_I, _F,
+                                                                   _F, _P),
     # z, g, phase0, step, y, S, N, K, D, C, z_len, stream
     "xlat_complex_launch": (_P,) * 5 + (_I,) * 5 + (ctypes.c_longlong, _P),
     # y_re, y_im, scale, t, omega, freq, phase, hist_re, hist_im, prev_re,

@@ -29,6 +29,27 @@ class XlatBankState(NamedTuple):
     phase: torch.Tensor    # [S, num_slots] int64: uint32 mixer phase
 
 
+def carried_history(history: torch.Tensor, x2: torch.Tensor
+                     ) -> torch.Tensor:
+    """The wire bank's new history: the last K-1 samples of history ++ x2
+    [S, T, 2], with the history first taken to the wire's dtype, as
+    complex64 [S, K-1] (the JAX ``XlatBank.call_wire``,
+    channelizer.py:218-231). For T ≥ K-1 that is the block's last K-1
+    samples; a shorter block keeps the history's tail in front. Device
+    independent: the kernel's bf16 z2 never feeds it, so a float32 wire
+    carries its float32 samples exactly. Always a copy: the caller may
+    reuse x2's memory for the next block."""
+    k1 = history.shape[1]
+    t = x2.shape[1]
+    if t >= k1:
+        tail = x2[:, t - k1:]
+    else:
+        hist2 = torch.view_as_real(history).to(x2.dtype)
+        tail = torch.cat([hist2[:, t:], x2], dim=1)
+    return torch.view_as_complex(
+        tail.to(torch.float32, copy=True).contiguous())
+
+
 class XlatBank:
     """A bank of ``num_slots`` freq-xlating decimating FIR channels per
     source. All slots share taps and decimation (every channel is 12.5 kHz
@@ -96,11 +117,10 @@ class XlatBank:
         offsets_norm [S, C] float32 cycles/sample.
         Returns (state, y_re, y_im) with time-major planes [S, T//decim, C]
         float32 — the layout the tracker kernel reads. The new history is
-        taken from z2 (its last K-1 samples before the zero pad), so on
-        CUDA it holds bf16 values, which the kernel would round them to
-        anyway."""
-        k, d, p = self.ntaps, self.decim, self.p
-        s, t = x2.shape[:2]
+        ``carried_history``: history ++ x2 in the wire's dtype, not the
+        kernel's bf16 z2."""
+        d, p = self.decim, self.p
+        t = x2.shape[1]
         if t % d or x2.shape[-1] != 2 or x2.dim() != 3:
             raise ValueError(f"x2 must be [S, T, 2] with T % {d} == 0, "
                              f"got {tuple(x2.shape)}")
@@ -108,10 +128,8 @@ class XlatBank:
         z2, g2, step = self.operands(state, x2, offsets_norm)
         y_re, y_im = bank_fused(z2, g2, state.phase, step, n_out, p, d)
         new_phase = (state.phase + step * n_out) & U32_MASK
-        end = 2 * (k - 1 + t)
-        nh = z2[:, end - 2 * (k - 1):end].to(torch.float32).contiguous()
-        return (XlatBankState(history=torch.view_as_complex(
-            nh.reshape(s, k - 1, 2)), phase=new_phase), y_re, y_im)
+        return (XlatBankState(history=carried_history(state.history, x2),
+                              phase=new_phase), y_re, y_im)
 
     def call_wire(self, state: XlatBankState, x2: torch.Tensor,
                   offsets_norm: torch.Tensor

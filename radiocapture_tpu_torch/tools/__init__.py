@@ -1,0 +1,1 @@
+"""tools of the PyTorch port (see the package docstring)."""

@@ -19,7 +19,8 @@ from radiocapture_tpu_torch.demod import track_kernel as tk
 from radiocapture_tpu_torch.device import complex_to_wire
 from radiocapture_tpu_torch.frontend.pipeline import (CqpskControlPipeline,
                                                       ControlPipeline,
-                                                      SpectrumSplit2)
+                                                      SpectrumSplit2,
+                                                      split2_sources)
 from radiocapture_tpu_torch.ops import channelizer_kernel as ck
 from radiocapture_tpu_torch.ops import fm
 from radiocapture_tpu_torch.ops import fm_kernel as fk
@@ -135,36 +136,62 @@ def test_bank_kernel_refuses_float32_operands(cuda_device):
         ck.bank_fused(z2, g2, ph, ph, n, p, d)
 
 
+def _track_lanes(pipe, ctor, s, c, n, rng):
+    """[S, n, C] complex64 modulated lanes at the channel rate: three
+    streams of random symbols, each lane one of them at its own amplitude
+    (0.3 to 1) and carrier phase."""
+    sps = pipe.channel_fs / pipe.symbol_rate
+    nsym = int(n / sps) + 16
+    if ctor == "p25_c4fm":
+        sigs = [M.c4fm_modulate(rng.integers(0, 4, nsym), fs=pipe.channel_fs)
+                for _ in range(3)]
+    else:
+        sigs = [M.fsk2_modulate(rng.integers(0, 2, nsym), pipe.channel_fs,
+                                pipe.symbol_rate, 3000.0) for _ in range(3)]
+    lanes = np.zeros((s, n, c), np.complex64)
+    for i in range(s):
+        for j in range(c):
+            amp = 0.3 + 0.7 * ((i * c + j) % 5) / 4
+            rot = np.exp(2j * np.pi * ((i * c + j) % 7) / 7)
+            lanes[i, :, j] = amp * rot * sigs[(i * c + j) % 3][:n]
+    return lanes
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("s,c,nb", [(1, 2, 2000), (3, 5, 1998), (2, 40, 50),
+                                    (1, 64, 8)])
 @pytest.mark.parametrize("ctor", ["p25_c4fm", "edacs", "moto"])
-def test_track_kernel_matches_plain(cuda_device, ctor):
-    """Identical valid masks and dibits on a modulated lane and a 0.3×
-    copy, two blocks in a row (state written back in place)."""
+def test_track_kernel_matches_plain(cuda_device, ctor, s, c, nb):
+    """Modulated lanes, three blocks in a row (state written back in
+    place): identical valid masks and dibits, syms within 1e-3; after
+    each block ``prev`` and the boxcar history identical, clock, fine
+    frequency and the 8-sample history within 1e-3. Lane counts off the
+    32-slot tile (5, 40); N off the kernel's 128-sample ring stage (2000,
+    1998), shorter than one (50) and than one 16-sample producer segment
+    (8); EDACS runs NT 1 at sym_decim 1, P25 and Moto NT 3 at 2."""
     pipe = getattr(ControlPipeline, ctor)(2, 200e3)
     prm = pipe.track_params
-    rng = np.random.default_rng(0)
-    if ctor == "p25_c4fm":
-        iq = M.c4fm_modulate(rng.integers(0, 4, 1200), fs=pipe.channel_fs)
-    else:
-        iq = M.fsk2_modulate(rng.integers(0, 2, 1200), pipe.channel_fs,
-                             pipe.symbol_rate, 3000.0)
-    nb = 2000
-    lanes = np.stack([iq[:2 * nb], 0.3 * iq[:2 * nb]], -1)[None]
-    st = [(fm.quad_demod_init((1, 2), cuda_device),
-           torch.zeros((1, 2, len(prm.sym_taps) - 1), device=cuda_device),
-           K.fsk4_init((1, 2), cuda_device)) for _ in range(2)]
-    for b in range(2):
+    lanes = _track_lanes(pipe, ctor, s, c, 3 * nb, np.random.default_rng(c))
+    st = [(fm.quad_demod_init((s, c), cuda_device),
+           torch.zeros((s, c, len(prm.sym_taps) - 1), device=cuda_device),
+           K.fsk4_init((s, c), cuda_device)) for _ in range(2)]
+    before = tk.track.launches
+    for b in range(3):
         blk = lanes[:, b * nb:(b + 1) * nb]
-        y_re = torch.as_tensor(blk.real.astype(np.float32),
-                               device=cuda_device)
-        y_im = torch.as_tensor(blk.imag.astype(np.float32),
-                               device=cuda_device)
+        y_re = torch.as_tensor(blk.real.copy(), device=cuda_device)
+        y_im = torch.as_tensor(blk.imag.copy(), device=cuda_device)
         got = tk.track(y_re, y_im, *st[0], prm)
         want = tk.track_plain(y_re, y_im, *st[1], prm)
         st = [got[:3], want[:3]]
+        assert got[3].shape == (s, c, nb // prm.sym_decim)
         assert torch.equal(got[4], want[4])
         assert torch.equal(got[5], want[5])
         assert float((got[3] - want[3]).abs().max()) <= 1e-3
+        assert torch.equal(got[0].prev, want[0].prev)
+        assert torch.equal(got[1], want[1])
+        for g_, w_ in zip(got[2], want[2]):
+            assert float((g_ - w_).abs().max()) <= 1e-3
+    assert tk.track.launches == before + 3
 
 
 @pytest.mark.cuda
@@ -249,6 +276,44 @@ def test_complex_call_carries_complex64_history(cuda_device):
     assert back.phase.shape == (2, 2) and back.phase.dtype == np.int32
     np.testing.assert_array_equal(
         back.history, torch.view_as_real(xs[-1][:, -(k - 1):]).cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["c4fm", "split2+cqpsk"])
+def test_wire_call_carries_float32_history(cuda_device, path):
+    """A float32 wire on the card: ``ControlPipeline.step``, and
+    ``CqpskControlPipeline.step`` behind ``SpectrumSplit2`` (whose halves
+    are float32), carry the bank history as the block's float32 tail
+    exactly, not the kernel's bf16 z2; ``convert.state_to_jax`` gives it
+    unchanged."""
+    rng = np.random.default_rng(8)
+    pipe = (ControlPipeline.p25_c4fm(8, 2.4e6) if path == "c4fm" else
+            CqpskControlPipeline.p25_cqpsk(8, 1.2e6))
+    k, bm = pipe.bank.ntaps, pipe.block_multiple
+    t = bm * (-(-(k - 1) // bm) + 1)             # a block longer than K-1
+    st = pipe.init(2, cuda_device)
+    offs = torch.as_tensor(rng.uniform(-0.4, 0.4, (2, 8)).astype(
+        np.float32), device=cuda_device)
+    if path == "c4fm":
+        xs = [torch.as_tensor(rng.standard_normal((2, t, 2)).astype(
+            np.float32), device=cuda_device) for _ in range(2)]
+    else:
+        sp = SpectrumSplit2(2.4e6)
+        sst, xs = sp.init(1, cuda_device), []
+        for _ in range(2):
+            sst, halves = sp.step(sst, torch.as_tensor(
+                _complex_normal(rng, (1, 2 * t)), device=cuda_device))
+            xs.append(split2_sources(halves))
+    for x in xs:
+        assert x.dtype == torch.float32 and x.shape[1] == t
+        st, _ = pipe.step(st, x, offs)
+        want = torch.view_as_complex(x[:, x.shape[1] - (k - 1):].contiguous())
+        assert st.bank.history.dtype == torch.complex64
+        assert torch.equal(st.bank.history, want)
+    back = convert.state_to_jax(pipe, st)
+    np.testing.assert_array_equal(
+        back.bank.history,
+        xs[-1][:, xs[-1].shape[1] - (k - 1):].cpu().numpy())
 
 
 @pytest.mark.cuda

@@ -14,7 +14,8 @@ from radiocapture_tpu.ops.channelizer import XlatBankState as JState
 from radiocapture_tpu.ops.fir import _phase_step_u32
 from radiocapture_tpu_torch.device import wire_from_numpy
 from radiocapture_tpu_torch.ops import channelizer_kernel as ck
-from radiocapture_tpu_torch.ops.channelizer import XlatBank, XlatBankState
+from radiocapture_tpu_torch.ops.channelizer import (XlatBank, XlatBankState,
+                                                    carried_history)
 from radiocapture_tpu_torch.ops.fir import phase_step_u32
 
 torch.set_num_threads(1)   # six test workers share the machine
@@ -212,3 +213,45 @@ def test_bank_wrapper_rejects_other_devices():
     ph = torch.zeros((1, 2), dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         ck.bank_fused(z, g, ph, ph, 2, 2, 8)
+
+
+@pytest.mark.parametrize("wire", ["float32", "bfloat16"])
+def test_carried_history_matches_jax_call_wire(wire):
+    """The wire bank's new history (``carried_history``, which the CPU
+    and CUDA paths both take) over a block longer than K-1 and one
+    shorter, from a random mid-stream state: exactly the JAX
+    ``call_wire``'s, and what the port's ``call_wire`` carries. A bf16
+    stream's history is bf16-exact."""
+    rng = np.random.default_rng(21 if wire == "float32" else 22)
+    bank = XlatBank.for_rates(3, 400e3, 12500.0)
+    jbank = JBank.for_rates(3, 400e3, 12500.0)
+    s, d, k = 2, bank.decim, bank.ntaps
+    hist, phase = _mid_stream(rng, k, 3, s)
+    if wire == "bfloat16":
+        hist = (hist.real.astype(ml_dtypes.bfloat16).astype(np.float32)
+                + 1j * hist.imag.astype(ml_dtypes.bfloat16)
+                .astype(np.float32)).astype(np.complex64)
+    offs = rng.uniform(-0.45, 0.45, (s, 3)).astype(np.float32)
+    lengths = (d * (-(-(k - 1) // d) + 3), 2 * d)
+    assert lengths[1] < k - 1 <= lengths[0]
+    st = XlatBankState(history=torch.from_numpy(hist),
+                       phase=torch.from_numpy(phase.astype(np.int64)))
+    jst = [JState(history=jnp.asarray(hist[i]), phase=jnp.asarray(phase[i]))
+           for i in range(s)]
+    for t in lengths:
+        x2 = rng.standard_normal((s, t, 2)).astype(np.float32)
+        if wire == "bfloat16":
+            x2 = x2.astype(ml_dtypes.bfloat16)
+        xw = wire_from_numpy(x2, "cpu")
+        got = carried_history(st.history, xw)
+        st, _ = bank.call_wire(st, xw, torch.from_numpy(offs))
+        assert got.dtype == torch.complex64 and got.shape == (s, k - 1)
+        assert torch.equal(st.history, got)
+        for i in range(s):
+            jst[i], _ = jbank.call_wire(jst[i], jnp.asarray(x2[i]),
+                                        jnp.asarray(offs[i]))
+            np.testing.assert_array_equal(got[i].numpy(),
+                                          np.asarray(jst[i].history))
+        one = carried_history(got[:1], xw[:1])   # one source: contiguous
+        xw.zero_()                  # the history does not alias the block
+        assert torch.equal(st.history, got) and bool(one.abs().all())
