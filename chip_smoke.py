@@ -17,7 +17,11 @@ card: builds the five CUDA kernels and drives the port's three paths.
    sources → four 1.2 MS/s halves × 64 slots), and times its bench shape
    (128 physical sources → 256 halves × 64 slots = 16384 CQPSK lanes).
 3. The site runtime: checks the fused analog voice kernel against its
-   plain version (small, ragged and bench shapes), runs ``SiteRuntime``
+   plain version (small, ragged and bench shapes; audio, power and the
+   de-emphasis output within tolerance, the carried discriminator value
+   bit for bit), times it in turns with the one-thread-per-lane kernel it
+   replaced (``radiocapture_tpu_torch/tools/fm_voice_334afe8.cu``, built
+   with the package's flags), runs ``SiteRuntime``
    on the card (two 2.4 MS/s sources × 64 slots, 100 ms blocks) through
    a P25 C4FM grant → recorded LDU call and an EDACS grant → recorded
    analog call, with one block where a source delivers nothing, and times
@@ -43,6 +47,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1056,20 +1061,38 @@ def check_voice(got, want, sig, what: str) -> float:
     return sig_err
 
 
+def check_voice_state(got, want, what: str) -> None:
+    """The carried discriminator value ``x_last`` and last sample
+    ``prev`` of the kernel and the plain version, bit for bit (the
+    kernel's discriminator rounds as PyTorch's complex multiply)."""
+    same_x = torch.equal(got[1].x_last, want[1].x_last)
+    same_p = torch.equal(got[0].prev, want[0].prev)
+    log(f"voice kernel vs plain: {what}: x_last identical {same_x}, prev "
+        f"identical {same_p} {'ok' if same_x and same_p else 'FAIL'}")
+    if not (same_x and same_p):
+        raise AssertionError("voice kernel's carried state is not exact")
+
+
 def phase_voice_kernel(dev) -> tuple[float, dict]:
     """fm_voice kernel vs plain: small and ragged shapes over two blocks
     (lane state carried, written in place by the kernel), then the bench
-    shape (128 sources × 64 slots × 2500 samples) with both timed.
+    shape (128 sources × 64 slots × 2500 samples) with both timed, and
+    the kernel in turns with the one-thread-per-lane kernel it replaced
+    (``tools/fm_voice_334afe8.cu``, built with the package's flags).
     Returns (max |err| on signal lanes, timings)."""
     from radiocapture_tpu_torch.ops import fm
     from radiocapture_tpu_torch.ops import fm_kernel as fk
+    from radiocapture_tpu_torch.tools import track_turns
     gain = CHANNEL_FS / (2 * np.pi * VOICE_MAX_DEV)
 
     def fresh(s, c):
         return (fm.quad_demod_init((s, c), dev), fm.deemph_init((s, c), dev))
 
     worst = 0.0
-    for s, n, c in ((1, 2500, SLOTS), (3, 1001, 40), (2, 37, 5)):
+    # N off the 256-sample time tile, within one, shorter than a 16-sample
+    # chunk, a whole number of tiles; C on, off and under the 32-slot tile
+    for s, n, c in ((1, 2500, SLOTS), (3, 1001, 40), (2, 37, 5), (2, 9, 33),
+                    (1, 512, 32)):
         y_re, y_im, sig = voice_planes(s, 2 * n, c, dev, seed=n + c)
         st_k, st_p = fresh(s, c), fresh(s, c)
         for b in range(2):
@@ -1080,8 +1103,9 @@ def phase_voice_kernel(dev) -> tuple[float, dict]:
             if [t.data_ptr() for t in (got[0].prev, *got[1])] != ptrs:
                 raise AssertionError("voice kernel did not update in place")
             st_k, st_p = got[:2], want[:2]
-            worst = max(worst, check_voice(got[2:], want[2:], sig,
-                                           f"S={s} N={n} C={c} block {b}"))
+            what = f"S={s} N={n} C={c} block {b}"
+            worst = max(worst, check_voice(got[2:], want[2:], sig, what))
+            check_voice_state(got, want, what)
         ds = float((st_k[1].y_last - st_p[1].y_last)[sig].abs().max())
         if ds > VOICE_REL_TOL * float(want[2][sig].abs().max()):
             raise AssertionError(f"voice kernel state differs by {ds}")
@@ -1096,15 +1120,32 @@ def phase_voice_kernel(dev) -> tuple[float, dict]:
     got = fk.voice_track(y_re, y_im, *fresh(s, SLOTS), gain, CHANNEL_FS)
     want = fk.voice_track_plain(y_re, y_im, *fresh(s, SLOTS), gain,
                                 CHANNEL_FS)
-    worst = max(worst, check_voice(got[2:], want[2:], sig,
-                                   f"bench shape S={s} N={n} C={SLOTS}"))
+    what = f"bench shape S={s} N={n} C={SLOTS}"
+    worst = max(worst, check_voice(got[2:], want[2:], sig, what))
+    check_voice_state(got, want, what)
     res["fm_voice_bound_ms"], res["fm_voice_bound_by"] = bound(
         VOICE_OPS * y_re.numel(), F32_PEAK,
         tensor_bytes(y_re, y_im, fresh(s, SLOTS), got))
+    # the same traffic (both planes read once, one plane written) with no
+    # arithmetic to speak of: the bandwidth this card reaches in practice
+    summed = torch.empty_like(y_re)
+    res["fm_voice_traffic_ms"] = cuda_ms(
+        lambda: torch.add(y_re, y_im, out=summed), 10)
     log(f"voice kernel: bench shape {s * SLOTS} lanes x {n} samples: "
-        f"kernel {res['fm_voice_ms']:.3f} ms, plain "
+        f"kernel {res['fm_voice_ms']:.4f} ms, plain "
         f"{res['fm_voice_plain_ms']:.3f} ms, bound "
-        f"{res['fm_voice_bound_ms']:.4f} ms ({res['fm_voice_bound_by']})")
+        f"{res['fm_voice_bound_ms']:.4f} ms ({res['fm_voice_bound_by']}), "
+        f"{res['fm_voice_bound_ms'] / res['fm_voice_ms']:.3f} of it; "
+        f"torch.add of the two planes (same bytes) "
+        f"{res['fm_voice_traffic_ms']:.4f} ms")
+    turns = track_turns.voice_turns(track_turns.EARLIER_VOICE, y_re, y_im,
+                                    gain, CHANNEL_FS)
+    res["fm_voice_turns"] = turns
+    log("voice kernel turns: " + json.dumps(turns))
+    log(f"voice kernel turns: {Path(turns['other']).name} "
+        f"{turns['other_ms'][0]:.4f}, kernel {turns['package_ms'][0]:.4f}, "
+        f"{turns['package_ms'][1]:.4f}, {Path(turns['other']).name} "
+        f"{turns['other_ms'][1]:.4f} ms: {turns['speedup']:.2f}x")
     return worst, res
 
 
@@ -1414,7 +1455,8 @@ def main() -> None:
          "launches": launches3["fm_voice"], "max_abs_err": voice_err,
          "ms": res3["fm_voice_ms"], "plain_ms": res3["fm_voice_plain_ms"],
          "bound_ms": res3["fm_voice_bound_ms"],
-         "bound_by": res3["fm_voice_bound_by"], "library_ms": None},
+         "bound_by": res3["fm_voice_bound_by"], "library_ms": None,
+         "traffic_ms": res3["fm_voice_traffic_ms"]},
     ]}))
     log(smi_line())
     log(json.dumps({"ok": True, "device": {

@@ -53,8 +53,8 @@ _SIGNATURES = {
     # omega_lo, omega_hi, fmax, k_mu, k_om, k_f, stream
     "cqpsk_track_launch": (_P,) * 15 + (_I,) * 5 + (_F,) * 6 + (_P,),
     # y_re, y_im, prev, y_last, x_last, audio, power, S, N, C, gain, z1,
-    # b0, stream
-    "fm_voice_launch": (_P,) * 7 + (_I,) * 3 + (_F,) * 3 + (_P,),
+    # b0, chunk, warps, stream
+    "fm_voice_launch": (_P,) * 7 + (_I,) * 3 + (_F,) * 3 + (_I, _I, _P),
 }
 
 

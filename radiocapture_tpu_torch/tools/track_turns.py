@@ -1,17 +1,29 @@
-"""Time another build of the fsk tracker kernel against the package's,
-in turns, on one CUDA card at the C4FM bench shape, and count the lanes
-whose outputs and carried state are bit-identical between the two (and
-the share of samples whose symbol, emit flag and dibit agree).
+"""Time another build of a tracker kernel against the package's, in
+turns, on one CUDA card at the bench shape, and compare their outputs.
 
-The other source (an earlier ``csrc/fsk_track.cu``, for instance) must
-export ``fsk_track_launch`` with the package's C signature::
+``--kernel fsk_track`` (the default): the other source (an earlier
+``csrc/fsk_track.cu``, for instance) must export ``fsk_track_launch``
+with the package's C signature; the tool counts the lanes whose outputs
+and carried state are bit-identical between the two (and the share of
+samples whose symbol, emit flag and dibit agree)::
 
     git show <commit>:radiocapture_tpu_torch/csrc/fsk_track.cu > old.cu
     python3 -m radiocapture_tpu_torch.tools.track_turns old.cu
 
+``--kernel fm_voice``: the other source must export ``fm_voice_launch``
+with the one-thread-per-lane kernel's signature (the package's without
+``chunk`` and ``warps``); ``fm_voice_334afe8.cu`` beside this module is
+that kernel as commit 334afe8 had it. The tool gives the largest audio
+difference over max|audio|, the share of lanes whose ``x_last`` is
+bit-identical and the largest relative power difference::
+
+    python3 -m radiocapture_tpu_torch.tools.track_turns --kernel fm_voice \
+        radiocapture_tpu_torch/tools/fm_voice_334afe8.cu
+
 The planes are the bank's output at the bench shape (128 sources × 64
 slots × 2500 samples, random-normal bf16 wire, mid-stream after three
-steps), as ``chip_smoke.py`` times them. Kernels run in the order other,
+steps), as ``chip_smoke.py`` times them; ``chip_smoke.py`` calls
+``voice_turns`` on its own voice planes. Kernels run in the order other,
 package, package, other, each over ITERS launches timed by CUDA events.
 Prints the card's ``nvidia-smi`` name and power limit, then one JSON line.
 """
@@ -30,23 +42,33 @@ import torch
 from radiocapture_tpu_torch import kernels
 from radiocapture_tpu_torch.demod import track_kernel as tk
 from radiocapture_tpu_torch.device import require_cuda
-from radiocapture_tpu_torch.frontend.pipeline import ControlPipeline
+from radiocapture_tpu_torch.frontend.pipeline import (AnalogVoicePipeline,
+                                                      ControlPipeline)
 from radiocapture_tpu_torch.ops import channelizer_kernel as ck
+from radiocapture_tpu_torch.ops import fm
+from radiocapture_tpu_torch.ops import fm_kernel as fk
 
 SOURCES, SLOTS, BLOCK, SAMP_RATE = 128, 64, 240_000, 2.4e6
 ITERS = 10
+EARLIER_VOICE = Path(__file__).with_name("fm_voice_334afe8.cu")
+# fm_voice_launch of the one-thread-per-lane kernel: y_re, y_im, prev,
+# y_last, x_last, audio, power, S, N, C, gain, z1, b0, stream
+VOICE_LANE_SIGNATURE = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 3
+                        + (ctypes.c_float,) * 3 + (ctypes.c_void_p,))
 
 
-def build_other(src: Path):
+def build_other(src: Path, entry: str = "fsk_track_launch",
+                argtypes: tuple | None = None):
     """``src`` compiled with the package's flags into its own library;
-    its ``fsk_track_launch`` bound with the package's signature."""
+    its ``entry`` bound with ``argtypes`` (the package's signature of
+    ``entry`` by default)."""
     tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    out = kernels.BUILD_DIR / "turns" / f"libfsk_track_{tag}.so"
+    out = kernels.BUILD_DIR / "turns" / f"lib{Path(src).stem}_{tag}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-shared",
                     "-o", str(out), str(src)], check=True, timeout=600)
-    fn = ctypes.CDLL(str(out)).fsk_track_launch
-    fn.argtypes = list(kernels._SIGNATURES["fsk_track_launch"])
+    fn = getattr(ctypes.CDLL(str(out)), entry)
+    fn.argtypes = list(argtypes or kernels._SIGNATURES[entry])
     fn.restype = ctypes.c_int
     return fn
 
@@ -69,16 +91,58 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def main(argv: list[str]) -> None:
-    if len(argv) != 1:
-        raise SystemExit(__doc__)
-    dev = require_cuda()
-    card = subprocess.run(
+def voice_turns(src: Path, y_re: torch.Tensor, y_im: torch.Tensor,
+                gain: float, samp_rate: float, iters: int = ITERS) -> dict:
+    """The fm_voice kernel built from ``src`` (the one-thread-per-lane
+    signature) against the package's on the CUDA planes y_re, y_im
+    [S, N, C], each from a zero lane state: ms of each in turns (other,
+    package, package, other), the speedup, the largest audio difference
+    over max|audio|, the share of lanes whose ``x_last`` is bit-identical
+    and the largest relative power difference."""
+    other = build_other(Path(src), "fm_voice_launch", VOICE_LANE_SIGNATURE)
+    launch = {"other": other, "package": kernels.load().fm_voice_launch}
+    s, _n, c = y_re.shape
+
+    def fresh():
+        return (fm.quad_demod_init((s, c), y_re.device),
+                fm.deemph_init((s, c), y_re.device))
+
+    def run(k, st):
+        args, outs = fk.kernel_args(y_re, y_im, *st, gain, samp_rate)
+        if k == "other":            # no chunk, warps
+            args = args[:13] + args[15:]
+        kernels.check(launch[k](*args), "fm_voice")
+        return outs
+
+    timed = {k: fresh() for k in launch}
+    ms = {"other": [], "package": []}
+    for k in ("other", "package", "package", "other"):
+        ms[k].append(cuda_ms(lambda: run(k, timed[k]), iters))
+    st = {k: fresh() for k in launch}
+    outs = {k: run(k, st[k]) for k in launch}
+    torch.cuda.synchronize()
+    (a_o, p_o), (a_p, p_p) = outs["other"], outs["package"]
+    return {"shape": list(y_re.shape), "other": str(src),
+            "other_ms": ms["other"], "package_ms": ms["package"],
+            "speedup": sum(ms["other"]) / sum(ms["package"]),
+            "audio_rel_diff": float((a_o - a_p).abs().max()
+                                    / a_p.abs().max()),
+            "x_last_identical_share": float(
+                (st["other"][1].x_last == st["package"][1].x_last)
+                .float().mean()),
+            "power_rel_diff": float(((p_o - p_p).abs() / p_p.abs()).max())}
+
+
+def card_line() -> str:
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    other = build_other(Path(argv[0]))
-    pipe = ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE)
+
+
+def bench_state(pipe, dev):
+    """(state, wire block, offsets) of ``pipe`` at the bench shape after
+    three steps of one random-normal bf16 block on the 25 kHz slot grid."""
     gen = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn((SOURCES, BLOCK, 2), generator=gen, device=dev).to(
         torch.bfloat16)
@@ -87,6 +151,40 @@ def main(argv: list[str]) -> None:
     state = pipe.init(SOURCES, dev)
     for _ in range(3):
         state, _ = pipe.step(state, x, offs)
+    return state, x, offs
+
+
+def voice_bench_planes(dev):
+    """The analog bank's planes (y_re, y_im) [S, N, C] at the bench
+    shape, and the pipeline (its ``gain`` and ``channel_fs``)."""
+    pipe = AnalogVoicePipeline(SLOTS, SAMP_RATE)
+    state, x, offs = bench_state(pipe, dev)
+    _bs, y_re, y_im = pipe.bank.call_planes(state.bank, x, offs)
+    return y_re, y_im, pipe
+
+
+def main_voice(src: str) -> None:
+    y_re, y_im, pipe = voice_bench_planes(require_cuda())
+    res = voice_turns(Path(src), y_re, y_im, pipe.gain, pipe.channel_fs)
+    print(card_line())
+    print(json.dumps(res))
+
+
+def main(argv: list[str]) -> None:
+    if argv[:1] == ["--kernel"] and len(argv) == 3 \
+            and argv[1] in ("fsk_track", "fm_voice"):
+        kernel, argv = argv[1], argv[2:]
+    else:
+        kernel = "fsk_track"
+    if len(argv) != 1:
+        raise SystemExit(__doc__)
+    if kernel == "fm_voice":
+        return main_voice(argv[0])
+    dev = require_cuda()
+    card = card_line()
+    other = build_other(Path(argv[0]))
+    pipe = ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE)
+    state, x, offs = bench_state(pipe, dev)
     n = BLOCK // pipe.decim
     z2, gk, step = pipe.bank.operands(state.bank, x, offs)
     y_re, y_im = ck.bank_fused(z2, gk, state.bank.phase, step, n,
