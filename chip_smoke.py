@@ -15,7 +15,11 @@ card: builds the five CUDA kernels and drives the port's three paths.
    control channels and a Phase 2 TDMA superframe through
    ``SpectrumSplit2.step`` → ``CqpskControlPipeline.step`` (two 2.4 MS/s
    sources → four 1.2 MS/s halves × 64 slots), and times its bench shape
-   (128 physical sources → 256 halves × 64 slots = 16384 CQPSK lanes).
+   (128 physical sources → 256 halves × 64 slots = 16384 CQPSK lanes),
+   with the CQPSK tracker in turns with the per-sample-loop kernel it
+   replaced (``radiocapture_tpu_torch/tools/cqpsk_track_54b2cf5.cu``;
+   every lane's outputs and state must be bit-identical) and its chain's
+   floor (``cqpsk_kernel.chain_probe``, as for the fsk tracker).
 3. The site runtime: checks the fused analog voice kernel against its
    plain version (small, ragged and bench shapes; audio, power and the
    de-emphasis output within tolerance, the carried discriminator value
@@ -111,7 +115,7 @@ FSK_OPS = 20
 CQPSK_OPS = 40
 VOICE_OPS = 10
 RAGGED_SLOTS = 40          # a lane count off the fsk tracker's 32-slot tile
-CLOCK_RUN_S = 1.0          # fsk tracker run while nvidia-smi samples clocks
+CLOCK_RUN_S = 1.0          # tracker run while nvidia-smi samples clocks
 
 
 def log(*parts):
@@ -501,13 +505,41 @@ def sm_clock_mhz(run) -> list:
     return [float(v) for v in out.split() if v.replace(".", "").isdigit()]
 
 
+def chain_floor(name: str, probe, n: int, unit: str, launch) -> tuple:
+    """A tracker's latency floor: the median of 5 runs of ``probe()`` (the
+    clock64() cycles of its feedback loop alone, one warp, for n ``unit``)
+    over the median SM clock that ``nvidia-smi`` reads while ``launch()``
+    runs the tracker back to back for CLOCK_RUN_S (a lone warp runs the
+    card at a lower clock, so the probe's own time would not say it).
+    Returns (floor ms, how it was computed, cycles, the clock readings)."""
+    probe()                                                   # warm-up
+    cycles = sorted(probe() for _ in range(5))
+    once = cuda_ms(launch, 3)
+    reps = max(1, int(CLOCK_RUN_S * 1e3 / once))
+
+    def run():          # outputs dropped as they come
+        for _ in range(reps):
+            launch()
+
+    clocks = sm_clock_mhz(run)
+    if not clocks:
+        raise AssertionError("nvidia-smi read no SM clock")
+    mhz = float(np.median(clocks))
+    cyc = cycles[len(cycles) // 2]
+    floor_ms = cyc / (mhz * 1e6) * 1e3
+    how = (f"clock64 probe: {cyc} cycles for {n} {unit} "
+           f"({cyc / n:.1f} per sample) / {mhz:.0f} MHz SM clock "
+           f"(nvidia-smi median of {len(clocks)} readings during the "
+           f"kernel)")
+    log(f"tracker floor: {name}: {how} = {floor_ms:.4f} ms; cycles of 5 "
+        f"runs {cycles}")
+    return floor_ms, how, cyc, clocks
+
+
 def track_floor(y_re, y_im, state_fn, prm) -> dict:
-    """The fsk tracker's latency floor at this shape: the clock64() cycles
-    of its feedback loop alone (``chain_probe``: one warp, the boxcar
-    outputs of 32 bench lanes already in shared memory) for the block's
-    M tracked samples, over the SM clock ``nvidia-smi`` reads while the
-    kernel runs for CLOCK_RUN_S (a lone warp runs the card at a lower
-    clock, so the probe's own time would not say it)."""
+    """The fsk tracker's latency floor at this shape (``chain_floor``):
+    ``track_kernel.chain_probe`` replays the boxcar outputs of 32 bench
+    lanes from shared memory for the block's M tracked samples."""
     from radiocapture_tpu_torch.demod import track_kernel as tk
     from radiocapture_tpu_torch.ops import fm
     from radiocapture_tpu_torch.ops.fir import batched_fir
@@ -518,28 +550,10 @@ def track_floor(y_re, y_im, state_fn, prm) -> dict:
                                   prm.gain)
     _, xn = batched_fir(sym_hist[0, :32], disc, prm.sym_taps, prm.sym_decim)
     rows = xn[:, :tk.PROBE_ROWS].T.contiguous()
-    tk.chain_probe(rows, m, prm)                              # warm-up
-    cycles = sorted(tk.chain_probe(rows, m, prm) for _ in range(5))
     timed = state_fn()
-    once = cuda_ms(lambda: tk.track(y_re, y_im, *timed, prm), 3)
-    reps = max(1, int(CLOCK_RUN_S * 1e3 / once))
-
-    def run():          # outputs dropped as they come: ~120 MB a launch
-        for _ in range(reps):
-            tk.track(y_re, y_im, *timed, prm)
-
-    clocks = sm_clock_mhz(run)
-    if not clocks:
-        raise AssertionError("nvidia-smi read no SM clock")
-    mhz = float(np.median(clocks))
-    cyc = cycles[len(cycles) // 2]
-    floor_ms = cyc / (mhz * 1e6) * 1e3
-    how = (f"clock64 probe: {cyc} cycles for {m} tracked samples "
-           f"({cyc / m:.1f} per sample) / {mhz:.0f} MHz SM clock "
-           f"(nvidia-smi median of {len(clocks)} readings during the "
-           f"kernel)")
-    log(f"tracker floor: {how} = {floor_ms:.4f} ms; cycles of 5 runs "
-        f"{cycles}")
+    floor_ms, how, cyc, clocks = chain_floor(
+        "fsk_track", lambda: tk.chain_probe(rows, m, prm), m,
+        "tracked samples", lambda: tk.track(y_re, y_im, *timed, prm))
     return {"track_floor_ms": floor_ms, "track_floor_how": how,
             "track_chain_cycles": cyc, "sm_clock_mhz": clocks}
 
@@ -648,6 +662,31 @@ def phase_bench(dev, pipe) -> tuple[dict, float, float]:
         f"{res['bank_bound_ms']:.3f} ms, library "
         f"{res['bank_library_ms']:.3f} ms; peak {peak / 2 ** 30:.2f} GiB")
     return res, bank_err, track_err
+
+
+def cqpsk_floor(y_re, y_im, scale, state_fn, baud) -> dict:
+    """The CQPSK tracker's latency floor at this shape (``chain_floor``):
+    ``cqpsk_kernel.chain_probe`` runs the first 32 lanes from their state
+    over PROBE_ROWS gained samples each, replayed from shared memory, for
+    the block's N samples: the NCO on every sample and the emit step once
+    per symbol."""
+    from radiocapture_tpu_torch.demod import cqpsk_kernel as cqk
+    n = y_re.shape[1]
+    st = state_fn()
+    lanes = type(st)(*(t[0, :32].contiguous() for t in st))
+    rows = [(p[0, :cqk.PROBE_ROWS, :32] * scale[0, None, :32]).contiguous()
+            for p in (y_re, y_im)]
+
+    def probe():
+        return cqk.chain_probe(*rows, type(lanes)(*(t.clone() for t in lanes)),
+                               n, CHANNEL_FS, baud)
+
+    timed = state_fn()
+    floor_ms, how, cyc, clocks = chain_floor(
+        "cqpsk_track", probe, n, "samples", lambda: cqk.track_cqpsk(
+            y_re, y_im, scale, timed, CHANNEL_FS, baud))
+    return {"cqpsk_track_floor_ms": floor_ms, "cqpsk_track_floor_how": how,
+            "cqpsk_chain_cycles": cyc, "cqpsk_sm_clock_mhz": clocks}
 
 
 def cq_offsets(n_sources: int, dev) -> torch.Tensor:
@@ -898,6 +937,7 @@ def phase_split2_bench(dev, sp) -> tuple[dict, float, float, float]:
         CqpskControlPipeline, split2_sources)
     from radiocapture_tpu_torch.ops import channelizer_kernel as ck
     from radiocapture_tpu_torch.ops.fir import phase_step_u32
+    from radiocapture_tpu_torch.tools import track_turns
     s = BENCH_SOURCES
     cq = CqpskControlPipeline.p25_cqpsk(SLOTS, HALF_RATE)
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -1002,6 +1042,20 @@ def phase_split2_bench(dev, sp) -> tuple[dict, float, float, float]:
         [o.cpu().numpy() for o in got[1:3]],
         [o.cpu().numpy() for o in want[1:3]],
         f"bench shape S={2 * s} C={SLOTS} N={y_re.shape[1]}")
+    turns = track_turns.cqpsk_turns(track_turns.EARLIER_CQPSK, y_re, y_im,
+                                    scale, lane_state, CHANNEL_FS, baud)
+    res["cqpsk_track_turns"] = turns
+    old = Path(turns["other"]).name
+    log("cqpsk kernel turns: " + json.dumps(turns))
+    log(f"cqpsk kernel turns: {old} {turns['other_ms'][0]:.4f}, kernel "
+        f"{turns['package_ms'][0]:.4f}, {turns['package_ms'][1]:.4f}, {old} "
+        f"{turns['other_ms'][1]:.4f} ms: {turns['speedup']:.2f}x; "
+        f"{turns['identical_lanes']} of {turns['lanes']} lanes "
+        f"bit-identical (3 outputs, 8 state tensors)")
+    if turns["identical_lanes"] != turns["lanes"]:
+        raise AssertionError("cqpsk kernel differs from the per-sample "
+                             "loop's")
+    res.update(cqpsk_floor(y_re, y_im, scale, lane_state, baud))
     log("split2 bench: " + json.dumps({
         "phys_sources": s, "halves": 2 * s, "slots": SLOTS, "block": BLOCK,
         "wire": "bf16", "window_step_ms": win_ms, **res}))
@@ -1012,7 +1066,10 @@ def phase_split2_bench(dev, sp) -> tuple[dict, float, float, float]:
         f"{res['xlat_complex_ms']:.3f} ms (plain "
         f"{res['xlat_complex_plain_ms']:.3f}); cqpsk_track "
         f"{res['cqpsk_track_ms']:.3f} ms (plain "
-        f"{res['cqpsk_track_plain_ms']:.1f}); xlat_bank "
+        f"{res['cqpsk_track_plain_ms']:.1f}, bound "
+        f"{res['cqpsk_track_bound_ms']:.3f}, floor "
+        f"{res['cqpsk_track_floor_ms']:.3f}, {turns['speedup']:.2f}x the "
+        f"per-sample loop); xlat_bank "
         f"{res['bank_ms']:.3f} ms (bound {res['bank_bound_ms']:.3f}, "
         f"library {res['bank_library_ms']:.3f}); peak "
         f"{peak / 2 ** 30:.2f} GiB")
@@ -1448,7 +1505,9 @@ def main() -> None:
          "ms": res2["cqpsk_track_ms"],
          "plain_ms": res2["cqpsk_track_plain_ms"],
          "bound_ms": res2["cqpsk_track_bound_ms"],
-         "bound_by": res2["cqpsk_track_bound_by"], "library_ms": None},
+         "bound_by": res2["cqpsk_track_bound_by"], "library_ms": None,
+         "floor_ms": res2["cqpsk_track_floor_ms"],
+         "floor_how": res2["cqpsk_track_floor_how"]},
         {"name": "fm_voice", "route": "cuda",
          "source": "radiocapture_tpu_torch/csrc/fm_voice.cu",
          "replaces": "radiocapture_tpu/ops/fm.py:44",

@@ -52,6 +52,10 @@ _SIGNATURES = {
     # prev_im, syms, valid, dibits, consts, S, N, C, n0_first, n0_count,
     # omega_lo, omega_hi, fmax, k_mu, k_om, k_f, stream
     "cqpsk_track_launch": (_P,) * 15 + (_I,) * 5 + (_F,) * 6 + (_P,),
+    # x_re, x_im, t, omega, freq, phase, hist_re, hist_im, prev_re,
+    # prev_im, cycles, consts, steps, n0_first, n0_count, omega_lo,
+    # omega_hi, fmax, k_mu, k_om, k_f, stream
+    "cqpsk_chain_probe_launch": (_P,) * 12 + (_I,) * 3 + (_F,) * 6 + (_P,),
     # y_re, y_im, prev, y_last, x_last, audio, power, S, N, C, gain, z1,
     # b0, chunk, warps, stream
     "fm_voice_launch": (_P,) * 7 + (_I,) * 3 + (_F,) * 3 + (_I, _I, _P),

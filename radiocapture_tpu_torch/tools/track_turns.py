@@ -20,12 +20,23 @@ bit-identical and the largest relative power difference::
     python3 -m radiocapture_tpu_torch.tools.track_turns --kernel fm_voice \
         radiocapture_tpu_torch/tools/fm_voice_334afe8.cu
 
+``--kernel cqpsk_track``: the other source must export
+``cqpsk_track_launch`` with the package's C signature;
+``cqpsk_track_54b2cf5.cu`` beside this module is the per-sample-loop
+kernel as commit 54b2cf5 had it. The tool counts the lanes whose three
+outputs and eight state tensors are bit-identical::
+
+    python3 -m radiocapture_tpu_torch.tools.track_turns --kernel \
+        cqpsk_track radiocapture_tpu_torch/tools/cqpsk_track_54b2cf5.cu
+
 The planes are the bank's output at the bench shape (128 sources × 64
 slots × 2500 samples, random-normal bf16 wire, mid-stream after three
-steps), as ``chip_smoke.py`` times them; ``chip_smoke.py`` calls
-``voice_turns`` on its own voice planes. Kernels run in the order other,
-package, package, other, each over ITERS launches timed by CUDA events.
-Prints the card's ``nvidia-smi`` name and power limit, then one JSON line.
+steps; for ``cqpsk_track`` the split2 → CQPSK shape, 256 halves × 64
+slots × 2500 samples), as ``chip_smoke.py`` times them; ``chip_smoke.py``
+calls ``voice_turns`` and ``cqpsk_turns`` on its own planes. Kernels run
+in the order other, package, package, other, each over ITERS launches
+timed by CUDA events. Prints the card's ``nvidia-smi`` name and power
+limit, then one JSON line.
 """
 
 from __future__ import annotations
@@ -40,10 +51,15 @@ from pathlib import Path
 import torch
 
 from radiocapture_tpu_torch import kernels
+from radiocapture_tpu_torch.demod import cqpsk as cq
+from radiocapture_tpu_torch.demod import cqpsk_kernel as cqk
 from radiocapture_tpu_torch.demod import track_kernel as tk
 from radiocapture_tpu_torch.device import require_cuda
 from radiocapture_tpu_torch.frontend.pipeline import (AnalogVoicePipeline,
-                                                      ControlPipeline)
+                                                      ControlPipeline,
+                                                      CqpskControlPipeline,
+                                                      SpectrumSplit2,
+                                                      split2_sources)
 from radiocapture_tpu_torch.ops import channelizer_kernel as ck
 from radiocapture_tpu_torch.ops import fm
 from radiocapture_tpu_torch.ops import fm_kernel as fk
@@ -51,6 +67,8 @@ from radiocapture_tpu_torch.ops import fm_kernel as fk
 SOURCES, SLOTS, BLOCK, SAMP_RATE = 128, 64, 240_000, 2.4e6
 ITERS = 10
 EARLIER_VOICE = Path(__file__).with_name("fm_voice_334afe8.cu")
+EARLIER_CQPSK = Path(__file__).with_name("cqpsk_track_54b2cf5.cu")
+CQ_GRID_HZ = 12.5e3      # the CQPSK slot grid around each split2 half
 # fm_voice_launch of the one-thread-per-lane kernel: y_re, y_im, prev,
 # y_last, x_last, audio, power, S, N, C, gain, z1, b0, stream
 VOICE_LANE_SIGNATURE = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 3
@@ -133,6 +151,62 @@ def voice_turns(src: Path, y_re: torch.Tensor, y_im: torch.Tensor,
             "power_rel_diff": float(((p_o - p_p).abs() / p_p.abs()).max())}
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """float32 as its int32 bits, so that -0.0 and 0.0 differ."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def cqpsk_same_lanes(outs_a, st_a, outs_b, st_b) -> torch.Tensor:
+    """[S, C] bool: the lanes whose three outputs (time-major [S, N, C])
+    and eight state tensors ([S, C, ...]) are bit-identical in two runs."""
+    s, _n, c = outs_a[0].shape
+    same = torch.ones((s, c), dtype=torch.bool, device=outs_a[0].device)
+    for a, b in zip(outs_a, outs_b):
+        same &= (_bits(a) == _bits(b)).all(1)
+    for a, b in zip(st_a, st_b):
+        same &= (_bits(a) == _bits(b)).reshape(s, c, -1).all(-1)
+    return same
+
+
+def cqpsk_turns(src: Path, y_re: torch.Tensor, y_im: torch.Tensor,
+                scale: torch.Tensor, state_fn, samp_rate: float,
+                symbol_rate: float, iters: int = ITERS) -> dict:
+    """The cqpsk_track kernel built from ``src`` (the package's C
+    signature) against the package's on the CUDA planes y_re, y_im
+    [S, N, C] with AGC gain ``scale`` [S, C], each from a fresh copy ``state_fn()`` of the lane state (both update it in
+    place): ms of each in turns (other, package, package, other), the
+    speedup, the lanes whose three outputs and eight state tensors are
+    bit-identical, and the share of samples whose outputs are."""
+    other = build_other(Path(src), "cqpsk_track_launch")
+    launch = {"other": other, "package": kernels.load().cqpsk_track_launch}
+    s, n, c = y_re.shape
+
+    def run(k, st):
+        args, outs = cqk.kernel_args(y_re, y_im, scale, st, samp_rate,
+                                     symbol_rate)
+        kernels.check(launch[k](*args), "cqpsk_track")
+        return outs
+
+    timed = {k: state_fn() for k in launch}
+    ms = {"other": [], "package": []}
+    for k in ("other", "package", "package", "other"):
+        ms[k].append(cuda_ms(lambda: run(k, timed[k]), iters))
+    st = {k: state_fn() for k in launch}
+    outs = {k: run(k, st[k]) for k in launch}
+    torch.cuda.synchronize()
+    same = cqpsk_same_lanes(outs["other"], st["other"], outs["package"],
+                            st["package"])
+    return {"shape": [s, n, c], "other": str(src),
+            "other_ms": ms["other"], "package_ms": ms["package"],
+            "speedup": sum(ms["other"]) / sum(ms["package"]),
+            "identical_lanes": int(same.sum()), "lanes": same.numel(),
+            "identical_lane_share": float(same.float().mean()),
+            "sample_agreement": {
+                name: float((_bits(a) == _bits(b)).float().mean())
+                for name, a, b in zip(("syms", "valid", "dibits"),
+                                      outs["other"], outs["package"])}}
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -163,6 +237,28 @@ def voice_bench_planes(dev):
     return y_re, y_im, pipe
 
 
+def cqpsk_bench_planes(dev):
+    """The CQPSK bank's planes (y_re, y_im) [S, N, C], their AGC gain
+    [S, C], the lane state and the pipeline at the split2 → CQPSK bench
+    shape (the sources split into 256 halves × 64 slots on a 12.5 kHz
+    grid), mid-stream after three steps of one random-normal bf16 block."""
+    sp = SpectrumSplit2(SAMP_RATE)
+    pipe = CqpskControlPipeline.p25_cqpsk(SLOTS, SAMP_RATE / 2)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((SOURCES, BLOCK, 2), generator=gen, device=dev).to(
+        torch.bfloat16)
+    offs = ((torch.arange(SLOTS, device=dev) - SLOTS // 2) * CQ_GRID_HZ
+            / (SAMP_RATE / 2)).expand(2 * SOURCES, SLOTS).contiguous()
+    sst, cst = sp.init(SOURCES, dev), pipe.init(2 * SOURCES, dev)
+    for _ in range(3):
+        sst, halves = sp.step(sst, x)
+        cst, _ = pipe.step(cst, split2_sources(halves), offs)
+    sst, halves = sp.step(sst, x)
+    _bs, y_re, y_im = pipe.bank.call_planes(cst.bank, split2_sources(halves),
+                                            offs)
+    return y_re, y_im, cq.agc_scale(y_re, y_im, dim=1), cst.cqpsk, pipe
+
+
 def main_voice(src: str) -> None:
     y_re, y_im, pipe = voice_bench_planes(require_cuda())
     res = voice_turns(Path(src), y_re, y_im, pipe.gain, pipe.channel_fs)
@@ -170,9 +266,18 @@ def main_voice(src: str) -> None:
     print(json.dumps(res))
 
 
+def main_cqpsk(src: str) -> None:
+    y_re, y_im, scale, state, pipe = cqpsk_bench_planes(require_cuda())
+    res = cqpsk_turns(Path(src), y_re, y_im, scale,
+                      lambda: type(state)(*(t.clone() for t in state)),
+                      pipe.channel_fs, pipe.symbol_rate)
+    print(card_line())
+    print(json.dumps(res))
+
+
 def main(argv: list[str]) -> None:
     if argv[:1] == ["--kernel"] and len(argv) == 3 \
-            and argv[1] in ("fsk_track", "fm_voice"):
+            and argv[1] in ("fsk_track", "fm_voice", "cqpsk_track"):
         kernel, argv = argv[1], argv[2:]
     else:
         kernel = "fsk_track"
@@ -180,6 +285,8 @@ def main(argv: list[str]) -> None:
         raise SystemExit(__doc__)
     if kernel == "fm_voice":
         return main_voice(argv[0])
+    if kernel == "cqpsk_track":
+        return main_cqpsk(argv[0])
     dev = require_cuda()
     card = card_line()
     other = build_other(Path(argv[0]))

@@ -5,13 +5,14 @@ This file imports no JAX, so on a machine without it run
     python -m pytest --noconftest -m cuda tests/test_torch_card.py -q
 """
 
+import functools
 import time
 
 import numpy as np
 import pytest
 import torch
 
-from radiocapture_tpu_torch import convert
+from radiocapture_tpu_torch import convert, kernels
 from radiocapture_tpu_torch.demod import cqpsk as CQ
 from radiocapture_tpu_torch.demod import cqpsk_kernel as cqk
 from radiocapture_tpu_torch.demod import fsk4 as K
@@ -382,6 +383,106 @@ def test_cqpsk_track_kernel_matches_plain(cuda_device, baud):
     head = np.abs(got[0][noise][..., :CQPSK_SYM_N]
                   - want[0][noise][..., :CQPSK_SYM_N])
     assert float(head.max()) <= CQPSK_SYM_ATOL
+
+
+@functools.cache
+def _per_sample_cqpsk():
+    """The per-sample-loop CQPSK kernel the symbol-major one replaced
+    (``tools/cqpsk_track_54b2cf5.cu``), built with the package's flags."""
+    from radiocapture_tpu_torch.tools import track_turns
+    return track_turns.build_other(track_turns.EARLIER_CQPSK,
+                                   "cqpsk_track_launch")
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("baud,s,n,c", [
+    (4800.0, 2, 2500, 40), (6000.0, 2, 2500, 40), (6000.0, 3, 37, 40),
+    (4800.0, 3, 37, 33), (6000.0, 2, 1, 40), (4800.0, 2, 1, 64)])
+def test_cqpsk_track_kernel_edges(cuda_device, baud, s, n, c):
+    """Noise lanes, silent lanes, and CQPSK streams 5% fast and 5% slow
+    whose omega starts at the low and the high clamp and stays pinned
+    there (the most drift between the lanes of a warp), in two blocks
+    with the state carried in place. Against the plain version: emit
+    masks agree on CQPSK_NOISE_AGREE of the samples and the first
+    CQPSK_SYM_N symbols lie within CQPSK_SYM_ATOL, measured on the circle
+    of ±4 (a ~1e-7 difference across the branch cut moves a symbol by 8).
+    Against the per-sample-loop kernel it replaced: outputs and all eight
+    state tensors bit for bit. C = 40 and 33 leave part of a warp idle;
+    N = 37 and 1 end blocks mid-symbol."""
+    fs = 25000.0
+    prm = CQ.cqpsk_params(fs, baud)
+    rng = np.random.default_rng(n + c)
+    lanes = _complex_normal(rng, (s, 2 * n, c)).astype(np.complex64)
+    kinds = np.arange(s * c).reshape(s, c) % 4
+    by_lane = lanes.transpose(0, 2, 1)                  # a view, [S, C, n]
+    by_lane[kinds == 1] = 0.0
+    nsym = int(2 * n * 1.05 * baud / fs) + 16
+    for kind, rate in ((2, 1.05), (3, 0.95)):
+        by_lane[kinds == kind] = M.cqpsk_modulate(
+            rng.integers(0, 4, nsym), fs=fs, symbol_rate=baud * rate)[:2 * n]
+    omega0 = np.where(kinds == 2, prm.omega_lo, np.where(
+        kinds == 3, prm.omega_hi, fs / baud)).astype(np.float32)
+
+    def fresh():
+        return CQ.cqpsk_init(fs, baud, (s, c), cuda_device)._replace(
+            omega=torch.as_tensor(omega0, device=cuda_device))
+
+    st = {"kernel": fresh(), "earlier": fresh(), "plain": fresh()}
+    outs = {k: [] for k in st}
+    for b in range(2):
+        y_re, y_im = (torch.as_tensor(np.ascontiguousarray(
+            p(lanes[:, b * n:(b + 1) * n])), device=cuda_device)
+            for p in (np.real, np.imag))
+        scale = CQ.agc_scale(y_re, y_im, dim=1)
+        outs["kernel"].append(cqk.track_cqpsk(y_re, y_im, scale,
+                                              st["kernel"], fs, baud)[1:])
+        args, old = cqk.kernel_args(y_re, y_im, scale, st["earlier"], fs,
+                                    baud)
+        kernels.check(_per_sample_cqpsk()(*args), "cqpsk_track")
+        outs["earlier"].append([o.transpose(1, 2) for o in old])
+        want = cqk.track_cqpsk_plain(y_re, y_im, scale, st["plain"], fs,
+                                     baud)
+        st["plain"] = want[0]
+        outs["plain"].append(want[1:])
+    torch.cuda.synchronize()
+    got = {k: [torch.cat([o[i] for o in v], -1) for i in range(3)]
+           for k, v in outs.items()}
+    for a, w in zip(got["kernel"], got["earlier"]):
+        assert torch.equal(_bits(a), _bits(w))
+    for a, w in zip(st["kernel"], st["earlier"]):
+        assert torch.equal(_bits(a), _bits(w))
+    valid = [v.cpu().numpy() for v in (got["kernel"][1], got["plain"][1])]
+    assert np.mean(valid[0] == valid[1]) >= CQPSK_NOISE_AGREE
+    d = (got["kernel"][0] - got["plain"][0])[..., :CQPSK_SYM_N].cpu().numpy()
+    assert float(np.abs((d + 4.0) % 8.0 - 4.0).max()) <= CQPSK_SYM_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("baud", [4800.0, 6000.0])
+def test_cqpsk_chain_probe_runs_the_trackers_loop(cuda_device, baud):
+    """The chain probe takes the tracker's feedback loop alone: on planes
+    that repeat its PROBE_ROWS rows, with unit gain, its final lane state
+    equals the tracker kernel's bit for bit, and it counts cycles."""
+    fs, n = 25000.0, 1001
+    rows = _complex_normal(np.random.default_rng(3),
+                           (cqk.PROBE_ROWS, 32)).astype(np.complex64)
+    planes = np.tile(rows, (-(-n // cqk.PROBE_ROWS), 1))[None, :n]
+
+    def dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=cuda_device)
+
+    st_k = CQ.cqpsk_init(fs, baud, (1, 32), cuda_device)
+    cqk.track_cqpsk(dev(planes.real), dev(planes.imag),
+                    torch.ones((1, 32), device=cuda_device), st_k, fs, baud)
+    st_p = CQ.cqpsk_init(fs, baud, (32,), cuda_device)
+    assert cqk.chain_probe(dev(rows.real), dev(rows.imag), st_p, n, fs,
+                           baud) > 0
+    for a, w in zip(st_k, st_p):
+        assert torch.equal(_bits(a.reshape(w.shape)), _bits(w))
 
 
 def _voice_planes(rng, s, n, c):
