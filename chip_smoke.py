@@ -16,10 +16,15 @@ card: builds the five CUDA kernels and drives the port's three paths.
    ``SpectrumSplit2.step`` → ``CqpskControlPipeline.step`` (two 2.4 MS/s
    sources → four 1.2 MS/s halves × 64 slots), and times its bench shape
    (128 physical sources → 256 halves × 64 slots = 16384 CQPSK lanes),
-   with the CQPSK tracker in turns with the per-sample-loop kernel it
-   replaced (``radiocapture_tpu_torch/tools/cqpsk_track_54b2cf5.cu``;
-   every lane's outputs and state must be bit-identical) and its chain's
-   floor (``cqpsk_kernel.chain_probe``, as for the fsk tracker).
+   with the complex bank on the bf16 wire block and history in place
+   beside ``SpectrumSplit2.step`` alone, in turns with the chain it
+   replaced (the block converted and concatenated, then the kernel of
+   ``radiocapture_tpu_torch/tools/xlat_complex_54b2cf5.cu``; every output
+   must be bit-identical), the CQPSK tracker in turns with the
+   per-sample-loop kernel it replaced
+   (``radiocapture_tpu_torch/tools/cqpsk_track_54b2cf5.cu``; every lane's
+   outputs and state must be bit-identical) and its chain's floor
+   (``cqpsk_kernel.chain_probe``, as for the fsk tracker).
 3. The site runtime: checks the fused analog voice kernel against its
    plain version (small, ragged and bench shapes; audio, power and the
    de-emphasis output within tolerance, the carried discriminator value
@@ -711,23 +716,35 @@ def check_complex_bank(got, want, what: str) -> float:
 
 
 def phase_complex_bank(dev, sp) -> float:
-    """Complex bank kernel vs plain: split2's taps on two sources of one
-    block, and a ragged wide case; returns max |err|."""
+    """Complex bank kernel vs plain on the operands the split2 step passes
+    (the wire block read in place, the complex64 history): split2's taps
+    and phase step on one 100 ms block at S = 1 and 2, bf16, float32 and
+    complex64 blocks, a ragged N off the kernel's warp tile, and a ragged
+    wide case on the kernel's general path; returns max |err|."""
     from radiocapture_tpu_torch.ops import channelizer_kernel as ck
     from radiocapture_tpu_torch.ops.fir import phase_step_u32
     rng = np.random.default_rng(5)
     worst = 0.0
-    for s, n, k, d, c in ((2, BLOCK // 2, sp.bank.ntaps, 2, 2),
-                          (3, 1001, 1440, 96, 40)):
-        shape = (s, (n - 1) * d + k)
-        z = torch.as_tensor((rng.standard_normal(shape)
-                             + 1j * rng.standard_normal(shape)).astype(
-            np.complex64), device=dev)
-        offs = torch.as_tensor(rng.uniform(-0.45, 0.45, (s, c)).astype(
+    for s, n, k, d, c, wire in ((1, BLOCK // 2, sp.bank.ntaps, 2, 2, "bf16"),
+                                (2, BLOCK // 2, sp.bank.ntaps, 2, 2, "f32"),
+                                (2, BLOCK // 2, sp.bank.ntaps, 2, 2, "c64"),
+                                (3, 1001, sp.bank.ntaps, 2, 2, "bf16"),
+                                (3, 1001, 1440, 96, 40, "bf16")):
+        x = torch.as_tensor(rng.standard_normal((s, n * d, 2)).astype(
             np.float32), device=dev)
+        if wire == "bf16":
+            x = x.to(torch.bfloat16)
+        elif wire == "c64":
+            x = torch.view_as_real(torch.view_as_complex(x))
+        hist = torch.as_tensor((rng.standard_normal((s, k - 1))
+                                + 1j * rng.standard_normal((s, k - 1))
+                                ).astype(np.complex64), device=dev)
         if k == sp.bank.ntaps:
+            offs = torch.as_tensor(np.tile(sp.offsets, (s, 1)), device=dev)
             grev = sp.bank.modulated_taps(offs)
         else:
+            offs = torch.as_tensor(rng.uniform(-0.45, 0.45, (s, c)).astype(
+                np.float32), device=dev)
             grev = torch.as_tensor(((rng.standard_normal((s, c, k))
                                      + 1j * rng.standard_normal((s, c, k)))
                                     / np.sqrt(k)).astype(np.complex64),
@@ -736,9 +753,10 @@ def phase_complex_bank(dev, sp) -> float:
                                  dtype=torch.int64, device=dev)
         step = phase_step_u32(offs, d)
         worst = max(worst, check_complex_bank(
-            ck.bank_complex(z, grev, phase0, step, n, d),
-            ck.bank_complex_plain(z, grev, phase0, step, n, d),
-            f"S={s} N={n} K={k} D={d} C={c}"))
+            ck.bank_complex(x, hist, grev, phase0, step, d),
+            ck.bank_complex_plain(ck.complex_z(x, hist), grev, phase0, step,
+                                  n, d),
+            f"S={s} N={n} K={k} D={d} C={c} {wire} block"))
     return worst
 
 
@@ -973,21 +991,23 @@ def phase_split2_bench(dev, sp) -> tuple[dict, float, float, float]:
            "latency_p95_ms": lat[int(len(lat) * 0.95)],
            "peak_mem_bytes": peak, "profile_busy_share": busy}
 
-    # the complex bank on the operands the split2 step builds, mid-stream
+    # the complex bank on the operands the split2 step passes, mid-stream:
+    # the bf16 wire block and the complex64 history, read in place
     bank = sp.bank
     offs2 = torch.as_tensor(np.tile(sp.offsets, (s, 1)), device=dev)
-    z = torch.cat([box[0].history, torch.view_as_complex(
-        x.to(torch.float32))], dim=1)
+    hist, phase0 = box[0].history, box[0].phase
     grev, step = bank.modulated_taps(offs2), phase_step_u32(offs2, 2)
-    phase0, n2 = box[0].phase, BLOCK // 2
+    n2 = BLOCK // 2
     res["xlat_complex_ms"] = cuda_ms(
-        lambda: ck.bank_complex(z, grev, phase0, step, n2, 2), 10)
+        lambda: ck.bank_complex(x, hist, grev, phase0, step, 2), 10)
     res["xlat_complex_plain_ms"] = cuda_ms(
-        lambda: ck.bank_complex_plain(z, grev, phase0, step, n2, 2), 3)
-    y = ck.bank_complex(z, grev, phase0, step, n2, 2)
+        lambda: ck.bank_complex_plain(ck.complex_z(x, hist), grev, phase0,
+                                      step, n2, 2), 3)
+    y = ck.bank_complex(x, hist, grev, phase0, step, 2)
+    z = ck.complex_z(x, hist)
     cbank_err = check_complex_bank(
         y, ck.bank_complex_plain(z, grev, phase0, step, n2, 2),
-        f"bench shape S={s} N={n2} K={bank.ntaps} D=2 C=2")
+        f"bench shape S={s} N={n2} K={bank.ntaps} D=2 C=2 bf16 block")
     # library yardstick: one float32 bmm (no TF32) of the materialised
     # window matrix [S, N, 2K] by the [2K, 2C] interleaved tap matrix
     k = bank.ntaps
@@ -998,14 +1018,38 @@ def phase_split2_bench(dev, sp) -> tuple[dict, float, float, float]:
                        torch.cat([-gt.imag, gt.real], -1)], 2).reshape(
         s, 2 * k, 2 * grev.shape[1])
     res["xlat_complex_library_ms"] = cuda_ms(lambda: torch.bmm(win, g2c), 10)
-    del win
+    del win, z
     res["xlat_complex_bound_ms"], res["xlat_complex_bound_by"] = bound(
         8.0 * s * n2 * grev.shape[1] * k, F32_PEAK,
-        tensor_bytes(z, grev, phase0, step, y))
+        tensor_bytes(hist, x, grev, phase0, step, y))
+    res["split2_step_ms"] = cuda_ms(lambda: sp.step(box[0], x), 10)
     log(f"complex bank kernel: bench shape: {res['xlat_complex_ms']:.4f} ms, "
         f"bound {res['xlat_complex_bound_ms']:.4f} ms "
         f"({res['xlat_complex_bound_by']}), library (f32 bmm, no rotation) "
-        f"{res['xlat_complex_library_ms']:.4f} ms")
+        f"{res['xlat_complex_library_ms']:.4f} ms; split2 stage "
+        f"(SpectrumSplit2.step) {res['split2_step_ms']:.4f} ms")
+    turns = track_turns.complex_turns(track_turns.EARLIER_COMPLEX, x, hist,
+                                      grev, phase0, step, 2)
+    res["xlat_complex_turns"] = turns
+    old = Path(turns["other"]).name
+    log("complex bank turns: " + json.dumps(turns))
+    log(f"complex bank turns: bf16 cast + cat + {old} "
+        f"{turns['chain_other_ms'][0]:.4f}, bank_complex in place "
+        f"{turns['chain_package_ms'][0]:.4f}, "
+        f"{turns['chain_package_ms'][1]:.4f}, chain "
+        f"{turns['chain_other_ms'][1]:.4f} ms: {turns['chain_speedup']:.2f}x; "
+        f"kernels alone on the same complex64 values: {old} "
+        f"{turns['kernel_other_ms'][0]:.4f}, kernel "
+        f"{turns['kernel_package_ms'][0]:.4f}, "
+        f"{turns['kernel_package_ms'][1]:.4f}, {old} "
+        f"{turns['kernel_other_ms'][1]:.4f} ms: "
+        f"{turns['kernel_speedup']:.2f}x; bit-identical outputs "
+        f"{turns['chain_identical_outputs']} / "
+        f"{turns['kernel_identical_outputs']} of {turns['outputs']}")
+    if min(turns["chain_identical_outputs"],
+           turns["kernel_identical_outputs"]) != turns["outputs"]:
+        raise AssertionError("complex bank differs from the kernel it "
+                             "replaced")
 
     # the wire bank at this path's shape, on the operands the CQPSK step
     # builds from its mid-stream state
@@ -1064,7 +1108,8 @@ def phase_split2_bench(dev, sp) -> tuple[dict, float, float, float]:
         f"{res['latency_p50_ms']:.3f} / p95 {res['latency_p95_ms']:.3f} ms "
         f"vs {DEADLINE_MS:.0f} ms deadline; xlat_complex "
         f"{res['xlat_complex_ms']:.3f} ms (plain "
-        f"{res['xlat_complex_plain_ms']:.3f}); cqpsk_track "
+        f"{res['xlat_complex_plain_ms']:.3f}, split2 stage "
+        f"{res['split2_step_ms']:.3f}); cqpsk_track "
         f"{res['cqpsk_track_ms']:.3f} ms (plain "
         f"{res['cqpsk_track_plain_ms']:.1f}, bound "
         f"{res['cqpsk_track_bound_ms']:.3f}, floor "

@@ -38,6 +38,7 @@ from radiocapture_tpu_torch.demod.track_kernel import TrackParams, track
 from radiocapture_tpu_torch.ops import taps as _taps
 from radiocapture_tpu_torch.ops import fm as _fm
 from radiocapture_tpu_torch.ops.channelizer import XlatBank, XlatBankState
+from radiocapture_tpu_torch.ops.fir import phase_step_u32
 from radiocapture_tpu_torch.ops.fm_kernel import voice_track
 
 _UNPORTED_FRONTENDS = {
@@ -338,9 +339,10 @@ class SpectrumSplit2:
         # halves at centre - fs/4 (index 0) and centre + fs/4 (index 1),
         # the reference's newsource1/newsource2 ordering
         self.offsets = np.array([-0.25, 0.25], np.float32)
-        # (device, S) -> [S, 2] offsets tensor, built once: a host→device
-        # copy per step would synchronize the stream
-        self._offs: dict = {}
+        # (device, S) -> the bank's taps [S, 2, K] and phase steps [S, 2]
+        # for these fixed offsets, built once: a host→device copy per step
+        # would synchronize the stream, and the taps never change
+        self._ops: dict = {}
 
     def init(self, n_sources: int, device) -> XlatBankState:
         return self.bank.init(n_sources, device)
@@ -349,15 +351,16 @@ class SpectrumSplit2:
         return center_freq + (idx * 2 - 1) * self.samp_rate / 4.0
 
     def step(self, state: XlatBankState, x: torch.Tensor):
-        """x: [S, T] complex64, or an [S, T, 2] float32/bf16 wire block;
-        T % 2 == 0 → (state, halves [S, 2, T//2, 2] float32 re/im)."""
-        if not x.is_complex():
-            x = torch.view_as_complex(x.to(torch.float32).contiguous())
+        """x: [S, T] complex64, or an [S, T, 2] float32/bf16 wire block,
+        read in place by the bank; T % 2 == 0 → (state, halves
+        [S, 2, T//2, 2] float32 re/im)."""
         key = (x.device, x.shape[0])
-        if key not in self._offs:
-            self._offs[key] = torch.as_tensor(
-                np.tile(self.offsets, (x.shape[0], 1)), device=x.device)
-        state, y = self.bank(state, x, self._offs[key])     # [S, 2, T/2]
+        if key not in self._ops:
+            offs = torch.as_tensor(np.tile(self.offsets, (x.shape[0], 1)),
+                                   device=x.device)
+            self._ops[key] = (self.bank.modulated_taps(offs),
+                              phase_step_u32(offs, self.bank.decim))
+        state, y = self.bank.call_taps(state, x, *self._ops[key])  # [S,2,T/2]
         return state, torch.view_as_real(y)
 
 

@@ -6,9 +6,10 @@ Slot offsets are runtime data, so channel create/release/retune needs no
 rebuild. The JAX package vmaps one source; here the source axis ``S``
 leads every tensor. The wire entry points (``call_wire``,
 ``call_planes``) go through the fused bf16 bank (kernel
-``csrc/xlat_bank.cu``); the complex entry point ``__call__`` goes through
-the float32 complex bank (kernel ``csrc/xlat_complex.cu``) and carries
-its history in complex64, as the JAX ``__call__`` does.
+``csrc/xlat_bank.cu``); the entry point ``__call__`` (complex or wire
+blocks) goes through the float32 complex bank (kernel
+``csrc/xlat_complex.cu``) and carries its history in complex64, as the
+JAX ``__call__`` does.
 """
 
 from __future__ import annotations
@@ -48,6 +49,22 @@ def carried_history(history: torch.Tensor, x2: torch.Tensor
         tail = torch.cat([hist2[:, t:], x2], dim=1)
     return torch.view_as_complex(
         tail.to(torch.float32, copy=True).contiguous())
+
+
+def complex_history(history: torch.Tensor, x2: torch.Tensor
+                    ) -> torch.Tensor:
+    """``XlatBank.__call__``'s new history: the last K-1 samples of
+    history ++ x2 [S, T, 2] as complex64 [S, K-1], exactly (the JAX
+    ``__call__``, channelizer.py:123, 171). A block shorter than K-1 keeps
+    the history's own float32 samples in front, where
+    ``carried_history`` would round them to the wire's dtype. Always a
+    copy."""
+    k1, t = history.shape[1], x2.shape[1]
+    tail = torch.view_as_complex(
+        x2[:, max(t - k1, 0):].to(torch.float32, copy=True).contiguous())
+    if t >= k1:
+        return tail
+    return torch.cat([history[:, t:], tail], dim=1)
 
 
 class XlatBank:
@@ -165,21 +182,29 @@ class XlatBank:
     def __call__(self, state: XlatBankState, x: torch.Tensor,
                  offsets_norm: torch.Tensor
                  ) -> tuple[XlatBankState, torch.Tensor]:
-        """x [S, T] complex64, T % decim == 0; offsets_norm [S, C] float32
-        cycles/sample → channels [S, C, T//decim] complex64, in float32
-        throughout; the new history is the last K-1 complex64 samples of
-        history ++ x, exactly."""
-        k, d = self.ntaps, self.decim
-        x = x.to(torch.complex64)
-        if x.dim() != 2 or x.shape[1] % d:
-            raise ValueError(f"x must be [S, T] with T % {d} == 0, "
-                             f"got {tuple(x.shape)}")
-        n_out = x.shape[1] // d
-        z = torch.cat([state.history, x], dim=1)
-        step = phase_step_u32(offsets_norm, d)
-        y = bank_complex(z, self.modulated_taps(offsets_norm), state.phase,
-                         step, n_out, d)
-        new_phase = (state.phase + step * n_out) & U32_MASK
-        nh = z[:, z.shape[1] - (k - 1):].clone(
-            memory_format=torch.contiguous_format)
-        return XlatBankState(history=nh, phase=new_phase), y
+        """x [S, T] complex64, or an [S, T, 2] bf16/float32 wire block,
+        T % decim == 0; offsets_norm [S, C] float32 cycles/sample →
+        channels [S, C, T//decim] complex64, in float32 throughout. The
+        block and the history go to the kernel as they are (a complex64
+        block as its float32 view); the new history is the last K-1
+        samples of history ++ x as complex64, exactly
+        (``complex_history``)."""
+        return self.call_taps(state, x, self.modulated_taps(offsets_norm),
+                              phase_step_u32(offsets_norm, self.decim))
+
+    def call_taps(self, state: XlatBankState, x: torch.Tensor,
+                  grev: torch.Tensor, step: torch.Tensor
+                  ) -> tuple[XlatBankState, torch.Tensor]:
+        """``__call__`` with the offsets' operands given: grev [S, C, K]
+        (``modulated_taps``) and step [S, C] (``phase_step_u32``), which a
+        caller whose offsets never change builds once."""
+        d = self.decim
+        if x.is_complex():
+            x = torch.view_as_real(x.to(torch.complex64))
+        if x.dim() != 3 or x.shape[-1] != 2 or x.shape[1] % d:
+            raise ValueError(f"x must be [S, T] complex or [S, T, 2] wire "
+                             f"with T % {d} == 0, got {tuple(x.shape)}")
+        y = bank_complex(x, state.history, grev, state.phase, step, d)
+        new_phase = (state.phase + step * (x.shape[1] // d)) & U32_MASK
+        return XlatBankState(history=complex_history(state.history, x),
+                             phase=new_phase), y

@@ -21,8 +21,10 @@ the kernel reads each operand tile as a plain box of that matrix.
 
 **The complex bank** (``bank_complex``, ``csrc/xlat_complex.cu``)
 replaces ``bank_matmul_pallas`` (with ``_bank_kernel``) and the rotation
-after it in ``XlatBank.__call__``: the same correlation on complex64
-input, in float32 throughout, with outputs ``[S, C, N]`` complex64.
+after it in ``XlatBank.__call__``: the same correlation on history ++
+block, in float32 throughout, with outputs ``[S, C, N]`` complex64. The
+kernel reads the wire block (bf16 or float32) and the complex64 history
+where they lie.
 """
 
 from __future__ import annotations
@@ -250,45 +252,71 @@ def bank_complex_plain(z: torch.Tensor, grev: torch.Tensor,
     return rotate(y, ramp).contiguous()
 
 
-def bank_complex(z: torch.Tensor, grev: torch.Tensor, phase0: torch.Tensor,
-                 step: torch.Tensor, n: int, d: int) -> torch.Tensor:
-    """The complex bank: ``bank_complex_plain`` on CPU tensors, the CUDA
-    kernel ``csrc/xlat_complex.cu`` on CUDA tensors (float32 operands and
-    accumulation, exact uint32 rotation). Returns y [S, C, n] complex64.
+def complex_z(x: torch.Tensor, history: torch.Tensor) -> torch.Tensor:
+    """history ++ block as complex64 [S, K-1+T]: what the plain version
+    reads, from the [S, T, 2] wire block ``x`` (bf16 → float32 is exact)
+    and the [S, K-1] complex64 ``history``."""
+    xc = torch.view_as_complex(x.to(torch.float32).contiguous())
+    return torch.cat([history, xc], dim=1)
+
+
+def bank_complex(x: torch.Tensor, history: torch.Tensor, grev: torch.Tensor,
+                 phase0: torch.Tensor, step: torch.Tensor, d: int
+                 ) -> torch.Tensor:
+    """The complex bank on one block: ``bank_complex_plain`` of
+    ``complex_z(x, history)`` on CPU tensors, the CUDA kernel
+    ``csrc/xlat_complex.cu`` on CUDA tensors. Returns y [S, C, T//d]
+    complex64.
+
+    x [S, T, 2] is the block as it arrives, a bf16 or float32 wire block
+    (a complex64 block as ``torch.view_as_real``, a view); history
+    [S, K-1] complex64; grev [S, C, K] complex64; phase0, step [S, C]
+    int64 uint32 values. On CUDA the kernel reads x and history in place
+    (no conversion, no concatenation); another dtype, a non-contiguous
+    tensor or a shape that does not match raises.
 
     At the shape ``SpectrumSplit2`` sends (D=2, K=20, C=2) the kernel is
-    memory-bound, ~5 FLOP per byte moved: each block stages the input
-    span of BM consecutive outputs of one source in shared memory once
-    and computes every slot from it, so each input sample is read from
-    device memory once and each output written once. Wide C is bound by
-    CUDA-core FMAs; the pipelines send their wire planes to
-    ``bank_fused`` instead."""
-    if z.device.type == "cpu":
-        return bank_complex_plain(z, grev, phase0, step, n, d)
-    if z.device.type != "cuda":
-        raise ValueError(f"bank_complex: unsupported device {z.device}")
+    memory-bound: each warp stages the spans of its tiles of 32·R outputs
+    in shared memory by ``cp.async``, one tile ahead, as float32
+    polyphase planes, and each lane computes R consecutive outputs of
+    every slot from the planes' rows with the taps in registers. Other
+    shapes take a general path: one thread per output and slot over a
+    block's staged span."""
+    if x.device.type == "cpu":
+        return bank_complex_plain(complex_z(x, history), grev, phase0, step,
+                                  x.shape[1] // d, d)
+    if x.device.type != "cuda":
+        raise ValueError(f"bank_complex: unsupported device {x.device}")
     from radiocapture_tpu_torch import kernels
-    s, length = z.shape
+    if (x.dtype not in (torch.bfloat16, torch.float32) or x.dim() != 3
+            or x.shape[-1] != 2 or not x.is_contiguous()
+            or x.data_ptr() % (2 * x.element_size())):
+        raise ValueError(f"bank_complex: x must be a contiguous [S, T, 2] "
+                         f"bf16 or float32 wire block, got {x.dtype} "
+                         f"{tuple(x.shape)} (contiguous: "
+                         f"{x.is_contiguous()})")
+    s, t = x.shape[:2]
     c, k = grev.shape[1:]
-    for name, t, dt, shape in (
-            ("z", z, torch.complex64, (s, length)),
+    n = t // d
+    for name, v, dt, shape in (
+            ("history", history, torch.complex64, (s, k - 1)),
             ("grev", grev, torch.complex64, (s, c, k)),
             ("phase0", phase0, torch.int64, (s, c)),
             ("step", step, torch.int64, (s, c))):
-        if (t.device != z.device or t.dtype != dt
-                or tuple(t.shape) != shape or not t.is_contiguous()):
+        if (v.device != x.device or v.dtype != dt
+                or tuple(v.shape) != shape or not v.is_contiguous()):
             raise ValueError(f"bank_complex: {name} must be a contiguous "
                              f"{dt} tensor of shape {shape} on "
-                             f"{z.device}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
-    if n > 0 and length < (n - 1) * d + k:
-        raise ValueError(f"bank_complex: z rows hold {length} samples, "
-                         f"need {(n - 1) * d + k}")
-    y = torch.empty((s, c, n), dtype=torch.complex64, device=z.device)
+                             f"{x.device}, got {v.dtype} "
+                             f"{tuple(v.shape)} on {v.device}")
+    y = torch.empty((s, c, n), dtype=torch.complex64, device=x.device)
+    if n == 0:
+        return y
     err = kernels.load().xlat_complex_launch(
-        z.data_ptr(), grev.data_ptr(), phase0.data_ptr(), step.data_ptr(),
-        y.data_ptr(), s, n, k, d, c, length,
-        torch.cuda.current_stream(z.device).cuda_stream)
+        x.data_ptr(), history.data_ptr(), grev.data_ptr(), phase0.data_ptr(),
+        step.data_ptr(), y.data_ptr(), s, t, n, k, d, c,
+        int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(err, "xlat_complex")
     bank_complex.launches += 1
     return y

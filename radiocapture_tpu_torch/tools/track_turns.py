@@ -29,14 +29,29 @@ outputs and eight state tensors are bit-identical::
     python3 -m radiocapture_tpu_torch.tools.track_turns --kernel \
         cqpsk_track radiocapture_tpu_torch/tools/cqpsk_track_54b2cf5.cu
 
+``--kernel xlat_complex``: the other source must export
+``xlat_complex_launch`` with the signature of the kernel the package's
+replaced, which reads history ++ block as one complex64 ``z``
+(``COMPLEX_Z_SIGNATURE``); ``xlat_complex_54b2cf5.cu`` beside this module
+is that kernel as commit 54b2cf5 had it. The tool times that kernel's
+chain (the block converted to float32, concatenated behind the history,
+then the other kernel) against the package's ``bank_complex`` on the
+block in place, then the two kernels alone on the same complex64 values,
+and counts the outputs that are bit-identical::
+
+    python3 -m radiocapture_tpu_torch.tools.track_turns --kernel \
+        xlat_complex radiocapture_tpu_torch/tools/xlat_complex_54b2cf5.cu
+
 The planes are the bank's output at the bench shape (128 sources × 64
 slots × 2500 samples, random-normal bf16 wire, mid-stream after three
 steps; for ``cqpsk_track`` the split2 → CQPSK shape, 256 halves × 64
-slots × 2500 samples), as ``chip_smoke.py`` times them; ``chip_smoke.py``
-calls ``voice_turns`` and ``cqpsk_turns`` on its own planes. Kernels run
-in the order other, package, package, other, each over ITERS launches
-timed by CUDA events. Prints the card's ``nvidia-smi`` name and power
-limit, then one JSON line.
+slots × 2500 samples; for ``xlat_complex`` split2's own operands, 128
+sources × 240,000 bf16 wire samples), as ``chip_smoke.py`` times them;
+``chip_smoke.py`` calls ``voice_turns``, ``cqpsk_turns`` and
+``complex_turns`` on its own operands. Kernels run in the order other,
+package, package, other, each over ITERS launches timed by CUDA events.
+Prints the card's ``nvidia-smi`` name and power limit, then one JSON
+line.
 """
 
 from __future__ import annotations
@@ -63,16 +78,22 @@ from radiocapture_tpu_torch.frontend.pipeline import (AnalogVoicePipeline,
 from radiocapture_tpu_torch.ops import channelizer_kernel as ck
 from radiocapture_tpu_torch.ops import fm
 from radiocapture_tpu_torch.ops import fm_kernel as fk
+from radiocapture_tpu_torch.ops.fir import phase_step_u32
 
 SOURCES, SLOTS, BLOCK, SAMP_RATE = 128, 64, 240_000, 2.4e6
 ITERS = 10
 EARLIER_VOICE = Path(__file__).with_name("fm_voice_334afe8.cu")
 EARLIER_CQPSK = Path(__file__).with_name("cqpsk_track_54b2cf5.cu")
+EARLIER_COMPLEX = Path(__file__).with_name("xlat_complex_54b2cf5.cu")
 CQ_GRID_HZ = 12.5e3      # the CQPSK slot grid around each split2 half
 # fm_voice_launch of the one-thread-per-lane kernel: y_re, y_im, prev,
 # y_last, x_last, audio, power, S, N, C, gain, z1, b0, stream
 VOICE_LANE_SIGNATURE = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 3
                         + (ctypes.c_float,) * 3 + (ctypes.c_void_p,))
+# xlat_complex_launch of commit 54b2cf5: z, g, phase0, step, y, S, N, K, D,
+# C, z_len, stream
+COMPLEX_Z_SIGNATURE = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5
+                       + (ctypes.c_longlong, ctypes.c_void_p))
 
 
 def build_other(src: Path, entry: str = "fsk_track_launch",
@@ -207,6 +228,77 @@ def cqpsk_turns(src: Path, y_re: torch.Tensor, y_im: torch.Tensor,
                                       outs["other"], outs["package"])}}
 
 
+def identical_outputs(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The complex64 outputs whose real and imaginary bits both agree."""
+    return int((_bits(torch.view_as_real(a)) == _bits(torch.view_as_real(b)))
+               .all(-1).sum())
+
+
+def complex_turns(src: Path, x: torch.Tensor, history: torch.Tensor,
+                  grev: torch.Tensor, phase0: torch.Tensor,
+                  step: torch.Tensor, d: int, iters: int = ITERS) -> dict:
+    """The complex bank built from ``src`` (commit 54b2cf5's signature, one
+    complex64 z) against the package's on the CUDA operands of one split2
+    step: the wire block x [S, T, 2] and the history [S, K-1]. In turns
+    (other, package, package, other): that kernel's chain (x to float32,
+    history ++ block, the other kernel) against ``bank_complex`` on x in
+    place; then the two kernels alone on the same complex64 values (the
+    other on z, the package on the block's float32 view and the
+    history). Counts the outputs that are bit-identical in both
+    pairings."""
+    other = build_other(Path(src), "xlat_complex_launch",
+                        COMPLEX_Z_SIGNATURE)
+    s, t = x.shape[:2]
+    c, k = grev.shape[1:]
+    n = t // d
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+
+    def old_kernel(z):
+        y = torch.empty((s, c, n), dtype=torch.complex64, device=x.device)
+        kernels.check(other(z.data_ptr(), grev.data_ptr(), phase0.data_ptr(),
+                            step.data_ptr(), y.data_ptr(), s, n, k, d, c,
+                            z.shape[1], stream), "xlat_complex")
+        return y
+
+    z = ck.complex_z(x, history)
+    xz = torch.view_as_real(z[:, k - 1:].contiguous())   # z's block, f32
+    pairs = {"chain": (lambda: old_kernel(ck.complex_z(x, history)),
+                       lambda: ck.bank_complex(x, history, grev, phase0,
+                                               step, d)),
+             "kernel": (lambda: old_kernel(z),
+                        lambda: ck.bank_complex(xz, history, grev, phase0,
+                                                step, d))}
+    res = {"shape": [s, t, c, k, d], "wire": str(x.dtype).split(".")[-1],
+           "other": str(src), "outputs": s * c * n}
+    for name, (old, new) in pairs.items():
+        ms = {"other": [], "package": []}
+        for who, fn in (("other", old), ("package", new), ("package", new),
+                        ("other", old)):
+            ms[who].append(cuda_ms(fn, iters))
+        res[f"{name}_other_ms"] = ms["other"]
+        res[f"{name}_package_ms"] = ms["package"]
+        res[f"{name}_speedup"] = sum(ms["other"]) / sum(ms["package"])
+        res[f"{name}_identical_outputs"] = identical_outputs(old(), new())
+    return res
+
+
+def complex_bench_operands(dev):
+    """The complex bank's operands at the split2 bench shape (128 sources
+    × 240,000 random-normal bf16 wire samples), mid-stream after three
+    steps: (x, history, grev, phase0, step, D)."""
+    sp = SpectrumSplit2(SAMP_RATE)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((SOURCES, BLOCK, 2), generator=gen, device=dev).to(
+        torch.bfloat16)
+    st = sp.init(SOURCES, dev)
+    for _ in range(3):
+        st, _ = sp.step(st, x)
+    offs = torch.as_tensor(sp.offsets, device=dev).expand(SOURCES, 2)
+    offs = offs.contiguous()
+    return (x, st.history, sp.bank.modulated_taps(offs), st.phase,
+            phase_step_u32(offs, sp.bank.decim), sp.bank.decim)
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -275,9 +367,15 @@ def main_cqpsk(src: str) -> None:
     print(json.dumps(res))
 
 
+def main_complex(src: str) -> None:
+    res = complex_turns(Path(src), *complex_bench_operands(require_cuda()))
+    print(card_line())
+    print(json.dumps(res))
+
+
 def main(argv: list[str]) -> None:
-    if argv[:1] == ["--kernel"] and len(argv) == 3 \
-            and argv[1] in ("fsk_track", "fm_voice", "cqpsk_track"):
+    if argv[:1] == ["--kernel"] and len(argv) == 3 and argv[1] in (
+            "fsk_track", "fm_voice", "cqpsk_track", "xlat_complex"):
         kernel, argv = argv[1], argv[2:]
     else:
         kernel = "fsk_track"
@@ -287,6 +385,8 @@ def main(argv: list[str]) -> None:
         return main_voice(argv[0])
     if kernel == "cqpsk_track":
         return main_cqpsk(argv[0])
+    if kernel == "xlat_complex":
+        return main_complex(argv[0])
     dev = require_cuda()
     card = card_line()
     other = build_other(Path(argv[0]))

@@ -225,49 +225,136 @@ def _complex_normal(rng, shape, scale=1.0):
             * scale).astype(np.complex64)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("s,n,p,d,c", [(4, 120000, 10, 2, 2),
-                                       (3, 1001, 15, 96, 40)])
-def test_complex_bank_kernel_matches_plain(cuda_device, s, n, p, d, c):
-    """Split2's shape (one 100 ms block of 2.4 MS/s, 20 taps, 2 slots) and
-    a ragged wide shape: within 1e-4·max|y|, from a random uint32 phase."""
-    rng = np.random.default_rng(n + c)
-    k = p * d
-    z = torch.as_tensor(_complex_normal(rng, (s, (n - 1) * d + k)),
-                        device=cuda_device)
-    grev = torch.as_tensor(_complex_normal(rng, (s, c, k), k ** -0.5),
-                           device=cuda_device)
-    offs = torch.as_tensor(rng.uniform(-0.45, 0.45, (s, c)).astype(
-        np.float32), device=cuda_device)
+def _complex_operands(rng, s, n, k, d, c, wire, dev, split2=False):
+    """The complex bank's operands for an N-output block: the wire block
+    as the wrapper takes it (bf16 or float32 [S, T, 2], or a complex64
+    block's float32 view), a random history [S, K-1], taps [S, C, K]
+    (split2's own when ``split2``), a random uint32 phase and the phase
+    step of random offsets (split2's ±1/4 when ``split2``)."""
+    t = n * d
+    x = torch.as_tensor(rng.standard_normal((s, t, 2)).astype(np.float32),
+                        device=dev)
+    if wire == "bf16":
+        x = x.to(torch.bfloat16)
+    elif wire == "complex64":
+        x = torch.view_as_real(torch.view_as_complex(x))
+    hist = torch.as_tensor(_complex_normal(rng, (s, k - 1)), device=dev)
+    if split2:
+        sp = SpectrumSplit2(2.4e6)
+        offs = torch.as_tensor(np.tile(sp.offsets, (s, 1)), device=dev)
+        grev = sp.bank.modulated_taps(offs)
+    else:
+        offs = torch.as_tensor(rng.uniform(-0.45, 0.45, (s, c)).astype(
+            np.float32), device=dev)
+        grev = torch.as_tensor(_complex_normal(rng, (s, c, k), k ** -0.5),
+                               device=dev)
     phase0 = torch.as_tensor(rng.integers(0, 2 ** 32, (s, c)),
-                             dtype=torch.int64, device=cuda_device)
-    step = phase_step_u32(offs, d)
+                             dtype=torch.int64, device=dev)
+    return x, hist, grev, phase0, phase_step_u32(offs, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,n,p,d,c,wire,split2", [
+    (1, 120000, 10, 2, 2, "bf16", True), (4, 120000, 10, 2, 2, "bf16", True),
+    (1, 120000, 10, 2, 2, "float32", True),
+    (4, 120000, 10, 2, 2, "float32", False),
+    (1, 120000, 10, 2, 2, "complex64", False),
+    (4, 120000, 10, 2, 2, "complex64", True),
+    (3, 1001, 10, 2, 2, "bf16", True), (2, 5, 10, 2, 2, "float32", True),
+    (3, 1001, 15, 96, 40, "bf16", False),
+    (2, 37, 15, 96, 40, "float32", False)])
+def test_complex_bank_kernel_matches_plain(cuda_device, s, n, p, d, c, wire,
+                                           split2):
+    """Split2's shape (one 100 ms block of 2.4 MS/s, 20 taps, 2 slots) at
+    S = 1 and 4 on bf16, float32 and complex64 blocks read in place, with
+    split2's taps and phase step (π per output) or random ones; a ragged
+    N off the 224-output warp tile, a block shorter than K-1 (N = 5), and
+    the wide C = 40 / K = 1440 / D = 96 case at ragged N: within
+    1e-4·max|y| of the plain version on history ++ block, from a random
+    history and uint32 phase."""
+    rng = np.random.default_rng(n + c + s)
+    k = p * d
+    x, hist, grev, phase0, step = _complex_operands(
+        rng, s, n, k, d, c, wire, cuda_device, split2)
     before = ck.bank_complex.launches
-    got = ck.bank_complex(z, grev, phase0, step, n, d)
+    got = ck.bank_complex(x, hist, grev, phase0, step, d)
     assert ck.bank_complex.launches == before + 1
-    want = ck.bank_complex_plain(z, grev, phase0, step, n, d)
+    want = ck.bank_complex_plain(ck.complex_z(x, hist), grev, phase0, step,
+                                 n, d)
     assert got.shape == (s, c, n) and got.dtype == torch.complex64
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= COMPLEX_REL * scale
 
 
+@functools.cache
+def _earlier_complex():
+    """The complex bank as commit 54b2cf5 had it
+    (``tools/xlat_complex_54b2cf5.cu``, one complex64 z per source), built
+    with the package's flags."""
+    from radiocapture_tpu_torch.tools import track_turns
+    return track_turns.build_other(track_turns.EARLIER_COMPLEX,
+                                   "xlat_complex_launch",
+                                   track_turns.COMPLEX_Z_SIGNATURE)
+
+
 @pytest.mark.cuda
-def test_complex_call_carries_complex64_history(cuda_device):
-    """``XlatBank.__call__`` on the card (through ``SpectrumSplit2``):
-    after each block the history is the block's last K-1 complex64
-    samples exactly, ``convert.state_to_jax`` gives the JAX wire layout,
-    and the halves agree with the CPU's plain path."""
+@pytest.mark.parametrize("s,n,p,d,c,wire,split2", [
+    (4, 120000, 10, 2, 2, "bf16", True), (3, 1001, 10, 2, 2, "float32", False),
+    (2, 5, 10, 2, 2, "bf16", True), (3, 1001, 15, 96, 40, "bf16", False)])
+def test_complex_bank_matches_earlier_kernel(cuda_device, s, n, p, d, c,
+                                             wire, split2):
+    """The kernel against the one it replaced on the same values (that one
+    on history ++ block as complex64): every output bit-identical, on
+    split2's fast path (its two phasors per slot, and ``sincosf`` per
+    output for other offsets) and on the general path."""
+    from radiocapture_tpu_torch.tools import track_turns
+    rng = np.random.default_rng(n + s)
+    k = p * d
+    x, hist, grev, phase0, step = _complex_operands(
+        rng, s, n, k, d, c, wire, cuda_device, split2)
+    got = ck.bank_complex(x, hist, grev, phase0, step, d)
+    z = ck.complex_z(x, hist)
+    old = torch.empty_like(got)
+    kernels.check(_earlier_complex()(
+        z.data_ptr(), grev.data_ptr(), phase0.data_ptr(), step.data_ptr(),
+        old.data_ptr(), s, n, k, d, c, z.shape[1],
+        torch.cuda.current_stream(cuda_device).cuda_stream), "xlat_complex")
+    torch.cuda.synchronize()
+    assert track_turns.identical_outputs(got, old) == s * c * n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["complex64", "float32", "bf16"])
+def test_complex_call_carries_complex64_history(cuda_device, wire):
+    """``XlatBank.__call__`` on the card (through ``SpectrumSplit2``), on
+    complex64 blocks and on float32 and bf16 wire blocks read in place:
+    after each block, 4800 samples or fewer than K-1, the history is the
+    last K-1 samples of history ++ block as complex64 exactly (a short
+    block keeps the history's float32 samples in front) and equals the
+    CPU's, ``convert.state_to_jax`` gives the JAX wire layout, and the
+    halves agree with the CPU's plain path."""
     sp = SpectrumSplit2(2.4e6)
     k = sp.bank.ntaps
     rng = np.random.default_rng(3)
-    xs = [torch.as_tensor(_complex_normal(rng, (2, 4800)),
-                          device=cuda_device) for _ in range(2)]
-    st, st_cpu = sp.init(2, cuda_device), sp.init(2, "cpu")
+    xs = []
+    for t in (4800, 10, 4800):
+        x = torch.as_tensor(rng.standard_normal((2, t, 2)).astype(
+            np.float32), device=cuda_device)
+        xs.append(torch.view_as_complex(x) if wire == "complex64" else
+                  x.to(torch.bfloat16) if wire == "bf16" else x)
+    hist = torch.as_tensor(_complex_normal(rng, (2, k - 1)),
+                           device=cuda_device)
+    st = sp.init(2, cuda_device)._replace(history=hist)
+    st_cpu = sp.init(2, "cpu")._replace(history=hist.cpu())
     for x in xs:
+        zc = ck.complex_z(torch.view_as_real(x) if x.is_complex() else x,
+                          st.history)
         st, halves = sp.step(st, x)
         st_cpu, want = sp.step(st_cpu, x.cpu())
         assert st.history.dtype == torch.complex64
-        assert torch.equal(st.history, x[:, x.shape[1] - (k - 1):])
+        assert torch.equal(torch.view_as_real(st.history),
+                           torch.view_as_real(zc[:, zc.shape[1] - (k - 1):]))
+        assert torch.equal(st.history.cpu(), st_cpu.history)
         assert torch.equal(st.phase.cpu(), st_cpu.phase)
         err = float((halves.cpu() - want).abs().max())
         assert err <= COMPLEX_REL * float(want.abs().max())
@@ -276,7 +363,7 @@ def test_complex_call_carries_complex64_history(cuda_device):
     assert back.history.dtype == np.float32
     assert back.phase.shape == (2, 2) and back.phase.dtype == np.int32
     np.testing.assert_array_equal(
-        back.history, torch.view_as_real(xs[-1][:, -(k - 1):]).cpu().numpy())
+        back.history, torch.view_as_real(st.history).cpu().numpy())
 
 
 @pytest.mark.cuda
@@ -319,12 +406,19 @@ def test_wire_call_carries_float32_history(cuda_device, path):
 
 @pytest.mark.cuda
 def test_new_wrappers_refuse_wrong_dtypes(cuda_device):
-    """The complex bank and CQPSK tracker validate and never convert."""
-    z = torch.zeros((1, 30), dtype=torch.complex128, device=cuda_device)
+    """The complex bank and CQPSK tracker validate and never convert: a
+    float64 or float16 wire block, a non-contiguous one and a complex128
+    history are refused."""
+    x = torch.zeros((1, 30, 2), dtype=torch.float64, device=cuda_device)
+    h = torch.zeros((1, 3), dtype=torch.complex64, device=cuda_device)
     g = torch.zeros((1, 2, 4), dtype=torch.complex64, device=cuda_device)
     ph = torch.zeros((1, 2), dtype=torch.int64, device=cuda_device)
-    with pytest.raises(ValueError, match="z must be"):
-        ck.bank_complex(z, g, ph, ph, 4, 2)
+    wide = torch.zeros((1, 30, 4), device=cuda_device)
+    for bad in (x, x.half(), wide[..., :2], wide[:, ::2, :2]):
+        with pytest.raises(ValueError, match="x must be"):
+            ck.bank_complex(bad, h, g, ph, ph, 2)
+    with pytest.raises(ValueError, match="history must be"):
+        ck.bank_complex(x.float(), h.to(torch.complex128), g, ph, ph, 2)
     y = torch.zeros((1, 10, 2), dtype=torch.float64, device=cuda_device)
     st = CQ.cqpsk_init(25000.0, 4800.0, (1, 2), cuda_device)
     with pytest.raises(ValueError, match="y_re must be"):

@@ -198,8 +198,9 @@ def test_convert_round_trips():
 def test_complex_bank_rejects_other_devices():
     """A tensor on neither the CPU nor a CUDA card is refused, never
     silently computed by the plain version."""
-    z = torch.zeros((1, 30), dtype=torch.complex64, device="meta")
+    x = torch.zeros((1, 30, 2), dtype=torch.bfloat16, device="meta")
+    h = torch.zeros((1, 3), dtype=torch.complex64, device="meta")
     g = torch.zeros((1, 2, 4), dtype=torch.complex64, device="meta")
     ph = torch.zeros((1, 2), dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        ck.bank_complex(z, g, ph, ph, 4, 2)
+        ck.bank_complex(x, h, g, ph, ph, 2)
