@@ -25,6 +25,15 @@ card: builds the five CUDA kernels and drives the port's three paths.
    (``radiocapture_tpu_torch/tools/cqpsk_track_54b2cf5.cu``; every lane's
    outputs and state must be bit-identical) and its chain's floor
    (``cqpsk_kernel.chain_probe``, as for the fsk tracker).
+   Then the ``pfb`` and ``fft`` frontend modes: a P25 grant through
+   ``ControlPipeline.p25_c4fm(64, 2.4e6, frontend=...)`` for each, the
+   pfb fine stage (``PfbXlatBank``: one K2 = 467-tap filter per slot on
+   the complex bank kernel's general path) against its plain version
+   and timed at 8192 rows beside its bound and a grouped ``conv1d``
+   (``pfb fine bank:``), both modes' step at 128 sources (``bench
+   pfb:``, ``bench fft:``; fft's block is 390336 samples, 162.6 ms), and
+   the step with ``fsk4_block = 10`` against the tracker kernel's
+   (``fsk4 block:``).
 3. The site runtime: checks the fused analog voice kernel against its
    plain version (small, ragged and bench shapes; audio, power and the
    de-emphasis output within tolerance, the carried discriminator value
@@ -35,7 +44,8 @@ card: builds the five CUDA kernels and drives the port's three paths.
    a P25 C4FM grant → recorded LDU call and an EDACS grant → recorded
    analog call, with one block where a source delivers nothing, and times
    ``SiteRuntime.step`` at 128 sources × 64 slots (groups ``c4fm`` and
-   ``analog``).
+   ``analog``); the decode and the timing again with ``frontend_mode:
+   pfb`` (``runtime decode pfb:``, ``runtime bench pfb:``).
 
     python3 chip_smoke.py
 
@@ -120,6 +130,7 @@ FSK_OPS = 20
 CQPSK_OPS = 40
 VOICE_OPS = 10
 RAGGED_SLOTS = 40          # a lane count off the fsk tracker's 32-slot tile
+PFB_ROWS = 64              # pfb fine-stage rows held to the plain version
 CLOCK_RUN_S = 1.0          # tracker run while nvidia-smi samples clocks
 
 
@@ -343,20 +354,31 @@ def phase_tracker(dev, pipe) -> float:
     return err
 
 
-def phase_decode(dev, pipe) -> dict:
+def frontend_block(pipe) -> int:
+    """The pipeline's block: BLOCK where its block multiple divides it
+    (xlat, pfb), else one multiple (fft: 390336 samples, 162.6 ms)."""
+    bm = pipe.block_multiple
+    return bm * max(1, BLOCK // bm)
+
+
+def phase_decode(dev, pipe, what: str = "decode",
+                 need=("xlat_bank", "fsk_track")) -> dict:
     """The port's main path: 4 sources × 64 slots at 2.4 MS/s, bf16 wire
     blocks, P25 control channel at +50 kHz on source 0 and −300 kHz on
-    source 3. Returns the kernels' launch counts of this run."""
+    source 3, through ``pipe`` (its frontend's bank). Fails unless every
+    kernel in ``need`` ran. Returns the kernels' launch counts of this
+    run."""
     from radiocapture_tpu_torch.device import complex_to_wire
     from radiocapture_tpu_torch.testing import modulators as M
     from radiocapture_tpu_torch.testing import streams
     n_src = 4
+    blk = frontend_block(pipe)
     dibits, expected = streams.p25_control_stream(
         8, channel=0x1000, group=100, source=555000)
     up = M.upsample_to(M.c4fm_modulate(dibits, fs=25000.0), 25000.0,
                        SAMP_RATE)
-    n_blocks = -(-len(up) // BLOCK) + 1
-    n = n_blocks * BLOCK
+    n_blocks = -(-len(up) // blk) + 1
+    n = n_blocks * blk
     placed = {0: 50e3, 3: -300e3}
     wide = np.stack([
         M.multi_channel(SAMP_RATE, [(placed[i], up)] if i in placed else [],
@@ -369,7 +391,7 @@ def phase_decode(dev, pipe) -> dict:
     dib, val = [], []
     t0 = time.perf_counter()
     for b in range(n_blocks):
-        xb = complex_to_wire(wide[:, b * BLOCK:(b + 1) * BLOCK], dev)
+        xb = complex_to_wire(wide[:, b * blk:(b + 1) * blk], dev)
         state, (syms, valid, dibs) = pipe.step(state, xb, offs)
         dib.append(dibs.cpu().numpy())
         val.append(valid.cpu().numpy())
@@ -379,18 +401,19 @@ def phase_decode(dev, pipe) -> dict:
     launches = kernel_counts()
     dt = time.perf_counter() - t0
     dib, val = np.concatenate(dib, -1), np.concatenate(val, -1)
-    if dib.shape != (n_src, SLOTS, n // pipe.block_multiple):
+    if dib.shape != (n_src, SLOTS, n // (pipe.decim * pipe.sym_decim)):
         raise AssertionError(f"output shape {dib.shape}")
     for i, c in slot.items():
         g = streams.grants(dib[i, c][val[i, c].astype(bool)])
         if len(g) < 4 or not all(e in expected for e in g):
             raise AssertionError(f"source {i} slot {c}: grants {g}")
-        log(f"decode: source {i} slot {c} ({placed[i] / 1e3:+.0f} kHz): "
+        log(f"{what}: source {i} slot {c} ({placed[i] / 1e3:+.0f} kHz): "
             f"{len(g)} GRP_V_CH_GRANT, first channel={g[0][0]:#x} "
             f"group={g[0][1]} source={g[0][2]} ok")
-    log(f"decode: {n_src} sources x {SLOTS} slots x {n_blocks} blocks of "
-        f"{BLOCK} bf16 samples in {dt:.3f} s; launches {launches}")
-    if min(launches["xlat_bank"], launches["fsk_track"]) < 1:
+    log(f"{what}: {type(pipe.bank).__name__}, {n_src} sources x {SLOTS} "
+        f"slots x {n_blocks} blocks of {blk} bf16 samples in {dt:.3f} s; "
+        f"launches {launches}")
+    if min(launches[k] for k in need) < 1:
         raise AssertionError(f"a kernel of the path never ran: {launches}")
     return launches
 
@@ -1268,14 +1291,15 @@ def same_rows(a, b) -> bool:
     return all(same_rows(x, y) for x, y in zip(a, b))
 
 
-def phase_runtime_decode(dev) -> dict:
+def phase_runtime_decode(dev, frontend: str = "xlat") -> dict:
     """``SiteRuntime`` on the card: two 2.4 MS/s sources × 64 slots,
     100 ms blocks, a P25 C4FM system and an EDACS system on source 0
-    (noise on source 1). The P25 grant opens a ``c4fm`` recorder whose
-    codewords must be a run of those sent; the EDACS grant opens an
-    analog recorder whose 8 kHz WAV must peak at 1 kHz; in block
-    RT_STARVE_BLOCK source 1 delivers nothing and its state rows must
-    stay bit-identical. Returns the kernels' launch counts of the run."""
+    (noise on source 1), with ``frontend_mode`` ``frontend``. The P25
+    grant opens a ``c4fm`` recorder whose codewords must be a run of
+    those sent; the EDACS grant opens an analog recorder whose 8 kHz WAV
+    must peak at 1 kHz; in block RT_STARVE_BLOCK source 1 delivers
+    nothing and its state rows must stay bit-identical. Returns the
+    kernels' launch counts of the run."""
     import shutil
     import tempfile
     from radiocapture_tpu_torch.audio.wav import read_wav
@@ -1293,8 +1317,10 @@ def phase_runtime_decode(dev) -> dict:
                       (RT_EDACS_VC, evc))], n, noise_floor_db=-60.0)
     wide1 = M.multi_channel(SAMP_RATE, [], n, noise_floor_db=-20.0,
                             rng=np.random.default_rng(31))
+    what = "runtime decode" + ("" if frontend == "xlat" else f" {frontend}")
     audio_dir = tempfile.mkdtemp(prefix="rc_smoke_audio_")
     cfg = RcConfig(audio_dir=audio_dir)          # 64 slots, 100 ms blocks
+    cfg.frontend_mode = frontend
     cfg.sources[0] = SourceConfig(type="file", center_freq=RT_CENTER,
                                   samp_rate=SAMP_RATE)
     cfg.sources[1] = SourceConfig(type="file",
@@ -1329,7 +1355,7 @@ def phase_runtime_decode(dev) -> dict:
                           for g in before[1]}
                 moved = {g: not same_rows(before[0][g], after[0][g])
                          for g in before[1]}
-                log(f"runtime decode: block {b}, source 1 starved: its "
+                log(f"{what}: block {b}, source 1 starved: its "
                     f"rows unchanged in groups {sorted(map(str, frozen))}: "
                     f"{frozen}; source 0 advanced: {moved}")
                 if len(frozen) < 2 or not all(frozen.values()) \
@@ -1358,7 +1384,7 @@ def phase_runtime_decode(dev) -> dict:
                 or not streams.codewords_ok(frames, sent, 18):
             raise AssertionError(f"P25 call: CDR {p25}, {len(frames)} "
                                  "codewords not as sent")
-        log(f"runtime decode: P25 C4FM grant -> call group "
+        log(f"{what}: P25 C4FM grant -> call group "
             f"{p25['system_group_local']} user {p25['system_user_local']} on "
             f"{p25['frequency'] / 1e6:.4f} MHz, {len(frames)} IMBE codewords "
             f"recorded, a run of those sent ok")
@@ -1371,27 +1397,29 @@ def phase_runtime_decode(dev) -> dict:
                 or ed["system_group_local"] != 321:
             raise AssertionError(f"EDACS call: CDR {ed}, WAV {rate} Hz, "
                                  f"{len(pcm)} samples, peak {peak} Hz")
-        log(f"runtime decode: EDACS grant -> analog call group "
+        log(f"{what}: EDACS grant -> analog call group "
             f"{ed['system_group_local']} on {ed['frequency'] / 1e6:.4f} MHz, "
             f"WAV {rate} Hz x {len(pcm)} samples, peak {peak:.1f} Hz ok")
     finally:
         shutil.rmtree(audio_dir, ignore_errors=True)
-    log(f"runtime decode: 2 sources x {SLOTS} slots x {n_blocks} blocks, "
+    log(f"{what}: 2 sources x {SLOTS} slots x {n_blocks} blocks, "
         f"groups {sorted(str(k) for k in rt.groups)} in {dt:.3f} s; "
         f"launches {launches}")
-    need = ("xlat_bank", "fsk_track", "fm_voice")
+    need = ({"xlat": "xlat_bank", "pfb": "xlat_complex"}[frontend],
+            "fsk_track", "fm_voice")
     if min(launches[k] for k in need) < 1:
         raise AssertionError(f"a kernel of the path never ran: {launches}")
     return launches
 
 
-def phase_runtime_bench(dev) -> dict:
+def phase_runtime_bench(dev, frontend: str = "xlat") -> dict:
     """``SiteRuntime.step`` at 128 sources × 64 slots, 2.4 MS/s, 100 ms
-    blocks, one P25 C4FM system: groups ``c4fm`` and ``analog`` of 128
-    sources each; providers cycle four float32 wire blocks. Reports step
-    p50/p95 against the deadline, the device ms of each group's step,
-    the host-side pieces (stacking, upload, each group's fetch), the busy
-    share and host syncs per step."""
+    blocks, one P25 C4FM system, ``frontend_mode`` ``frontend``: groups
+    ``c4fm`` and ``analog`` of 128 sources each; providers cycle four
+    float32 wire blocks. Reports step p50/p95 against the deadline, the
+    device ms of each group's step, the host-side pieces (stacking,
+    upload, each group's fetch), the busy share and host syncs per
+    step."""
     from radiocapture_tpu_torch.device import wire_from_numpy
     from radiocapture_tpu_torch.runtime import SiteRuntime
     from radiocapture_tpu_torch.rxconfig import (RcConfig, SourceConfig,
@@ -1400,7 +1428,9 @@ def phase_runtime_bench(dev) -> dict:
     rng = np.random.default_rng(41)
     pool = [(0.1 * rng.standard_normal((BLOCK, 2))).astype(np.float32)
             for _ in range(4)]
+    what = "runtime bench" + ("" if frontend == "xlat" else f" {frontend}")
     cfg = RcConfig()
+    cfg.frontend_mode = frontend
     for i in range(s):
         cfg.sources[i] = SourceConfig(type="file",
                                       center_freq=RT_CENTER + i * SAMP_RATE,
@@ -1429,7 +1459,7 @@ def phase_runtime_bench(dev) -> dict:
             rt.step()
             torch.cuda.synchronize()
             lat.append((time.perf_counter() - t0) * 1e3)
-        busy = profile_steps(rt.step, "runtime")
+        busy = profile_steps(rt.step, what.replace(" bench", ""))
         # the pieces of one step, each on its own, through the runtime's
         # own helpers (the stacking buffer is warm, as in a step)
         xs = [pool[i % len(pool)] for i in range(s)]
@@ -1454,21 +1484,205 @@ def phase_runtime_bench(dev) -> dict:
     finally:
         rt.close()
     lat.sort()
-    res = {"sources": s, "slots": SLOTS, "block": BLOCK, "wire": "float32",
+    res = {"frontend": frontend, "sources": s, "slots": SLOTS,
+           "block": BLOCK, "wire": "float32",
            "steps": RT_BENCH_STEPS, "step_ms": lat,
            "step_p50_ms": lat[len(lat) // 2],
            "step_p95_ms": lat[int(len(lat) * 0.95)],
            "group_device_ms": group_ms, "stack_ms": stack_ms,
            "upload_ms": upload_ms, "fetch_ms": fetch_ms,
            "profile_busy_share": busy}
-    log("runtime bench: " + json.dumps(res))
-    log(f"runtime bench: SiteRuntime.step p50 {res['step_p50_ms']:.3f} / "
+    log(f"{what}: " + json.dumps(res))
+    log(f"{what}: SiteRuntime.step p50 {res['step_p50_ms']:.3f} / "
         f"p95 {res['step_p95_ms']:.3f} ms vs {DEADLINE_MS:.0f} ms deadline; "
         f"device: c4fm group {group_ms['c4fm']:.3f} ms, analog group "
         f"{group_ms['analog']:.3f} ms; host: stack {stack_ms:.3f} ms, "
         f"upload {upload_ms:.3f} ms, fetch c4fm {fetch_ms['c4fm']:.3f} ms "
         f"(analog, only while an analog call records: "
         f"{fetch_ms['analog']:.3f} ms); busy share {busy:.3f}")
+    return res
+
+
+def phase_pfb_fine(dev) -> tuple[dict, float]:
+    """The pfb frontend's fine stage on the complex bank kernel's general
+    path (one slot per row, K2 = 467 taps, D = 16): small and ragged
+    cases against the plain version; then the operands a bench-shape
+    step gives (128 sources × 64 slots = 8192 rows × 40000 bin samples
+    of a 100 ms block, ``PfbXlatBank.fine_operands`` from a mid-stream
+    state): the kernel on all of them, held to the plain version on the
+    first PFB_ROWS rows (all 8192 would need a 77 GB window matrix), its
+    ms, bound and the library yardstick, one grouped ``conv1d`` (groups =
+    8192, no rotation) over the same rows and taps. Returns (numbers,
+    max |err|)."""
+    from radiocapture_tpu_torch.frontend.pipeline import ControlPipeline
+    from radiocapture_tpu_torch.ops import channelizer as chz
+    from radiocapture_tpu_torch.ops import channelizer_kernel as ck
+    from radiocapture_tpu_torch.ops.fir import phase_step_u32
+    bank = ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE, frontend="pfb").bank
+    k, d = bank.ntaps2, bank.decim2
+    taps = torch.as_tensor(bank.fine_taps, device=dev)
+    rng = np.random.default_rng(12)
+    worst = 0.0
+    for s, n in ((3, 37), (5, 1001), (PFB_ROWS, BLOCK // bank.decim)):
+        x = torch.as_tensor(rng.standard_normal((s, n * d, 2)).astype(
+            np.float32), device=dev)
+        hist = torch.as_tensor((rng.standard_normal((s, k - 1))
+                                + 1j * rng.standard_normal((s, k - 1))
+                                ).astype(np.complex64), device=dev)
+        fine = torch.as_tensor(rng.uniform(-0.5, 0.5, (s, 1)).astype(
+            np.float32), device=dev)
+        grev = chz.modulated_taps(taps, fine)
+        phase0 = torch.as_tensor(rng.integers(0, 2 ** 32, (s, 1)),
+                                 dtype=torch.int64, device=dev)
+        step = phase_step_u32(fine, d)
+        worst = max(worst, check_complex_bank(
+            ck.bank_complex(x, hist, grev, phase0, step, d),
+            ck.bank_complex_plain(ck.complex_z(x, hist), grev, phase0, step,
+                                  n, d),
+            f"pfb fine stage S'={s} N={n} K={k} D={d} C=1 float32 rows"))
+
+    s = BENCH_SOURCES
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((s, BLOCK, 2), generator=gen, device=dev).to(
+        torch.bfloat16)
+    offs = grid_offsets(s, dev)
+    state = bank.init(s, dev)
+    for _ in range(2):
+        state, _ = bank(state, x, offs)
+    _, xf, hist, grev, phase0, step = bank.fine_operands(state, x, offs)
+    rows, n = xf.shape[0], xf.shape[1] // d
+    res = {"pfb_fine_ms": cuda_ms(
+        lambda: ck.bank_complex(xf, hist, grev, phase0, step, d), 5)}
+    y = ck.bank_complex(xf, hist, grev, phase0, step, d)
+    sub = slice(0, PFB_ROWS)
+    res["pfb_fine_plain_ms_rows"] = cuda_ms(lambda: ck.bank_complex_plain(
+        ck.complex_z(xf[sub], hist[sub]), grev[sub], phase0[sub], step[sub],
+        n, d), 3)
+    worst = max(worst, check_complex_bank(
+        y[sub], ck.bank_complex_plain(ck.complex_z(xf[sub], hist[sub]),
+                                      grev[sub], phase0[sub], step[sub], n,
+                                      d),
+        f"pfb fine stage, bench operands, rows 0-{PFB_ROWS - 1} of {rows} "
+        f"N={n}"))
+    if not bool(torch.isfinite(torch.view_as_real(y)).all()):
+        raise AssertionError("non-finite pfb fine-stage outputs")
+    flops = 8.0 * rows * n * k
+    res["pfb_fine_bound_ms"], res["pfb_fine_bound_by"] = bound(
+        flops, F32_PEAK, tensor_bytes(xf, hist, grev, phase0, step, y))
+    res["pfb_fine_bytes"] = tensor_bytes(xf, hist, grev, phase0, step, y)
+    # the yardstick: re/im as the two channels of each row's group,
+    # weights [[g_re, -g_im], [g_im, g_re]] per row: the correlation
+    # without the rotation, so |y| must match
+    z = torch.view_as_real(ck.complex_z(xf, hist))          # [S', L, 2]
+    inp = z.permute(0, 2, 1).reshape(1, 2 * rows, -1).contiguous()
+    del z
+    g = grev[:, 0]
+    w = torch.stack([torch.stack([g.real, -g.imag], 1),
+                     torch.stack([g.imag, g.real], 1)], 1).reshape(
+        2 * rows, 2, k)
+    conv = torch.nn.functional.conv1d
+    res["pfb_fine_library_ms"] = cuda_ms(
+        lambda: conv(inp, w, stride=d, groups=rows), 3)
+    out = conv(inp, w, stride=d, groups=rows)[0].view(rows, 2, -1)[..., :n]
+    del inp
+    mag_err = float((torch.hypot(out[:, 0], out[:, 1])
+                     - y[:, 0].abs()).abs().max())
+    scale = float(y.abs().max())
+    if mag_err > 10 * COMPLEX_REL_TOL * scale:     # cuDNN picks its algorithm
+        raise AssertionError(f"conv1d yardstick computes another function: "
+                             f"|y| differs by {mag_err}")
+    log(f"pfb fine bank: {rows} rows (S={s} x C={SLOTS}) x N={n}, K={k}, "
+        f"D={d}: kernel {res['pfb_fine_ms']:.4f} ms, bound "
+        f"{res['pfb_fine_bound_ms']:.4f} ms ({res['pfb_fine_bound_by']}, "
+        f"{flops:.4g} FLOP, {res['pfb_fine_bytes'] / 1e9:.3f} GB), share of "
+        f"bound {res['pfb_fine_bound_ms'] / res['pfb_fine_ms']:.3f}; "
+        f"library (grouped conv1d, groups={rows}, no rotation) "
+        f"{res['pfb_fine_library_ms']:.4f} ms, |y| within {mag_err:.3e}; "
+        f"plain on {PFB_ROWS} rows {res['pfb_fine_plain_ms_rows']:.3f} ms")
+    return res, worst
+
+
+def phase_frontend_bench(dev, frontend: str) -> dict:
+    """``ControlPipeline.p25_c4fm(64, 2.4e6, frontend=...)`` at 128
+    sources, bf16 wire blocks of ``frontend_block`` samples (fft: 390336,
+    162.6 ms): step ms by CUDA events, MS/s, latency p50/p95 against the
+    block's own duration, peak memory and the profile."""
+    from radiocapture_tpu_torch.frontend.pipeline import ControlPipeline
+    s = BENCH_SOURCES
+    pipe = ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE, frontend=frontend)
+    blk = frontend_block(pipe)
+    block_ms = blk / SAMP_RATE * 1e3
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((s, blk, 2), generator=gen, device=dev).to(
+        torch.bfloat16)
+    offs = grid_offsets(s, dev)
+    box = [pipe.init(s, dev)]
+
+    def one_step():
+        box[0], out = pipe.step(box[0], x, offs)
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(2):
+        one_step()
+    torch.cuda.synchronize()
+    win_ms = [cuda_ms(one_step, 3) for _ in range(3)]
+    peak = torch.cuda.max_memory_allocated(dev)
+    lat = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    lat.sort()
+    busy = profile_steps(one_step, f"c4fm {frontend}")
+    med = float(np.median(win_ms))
+    res = {"frontend": frontend, "sources": s, "slots": SLOTS, "block": blk,
+           "block_ms": block_ms, "window_step_ms": win_ms,
+           "step_ms_median": med, "msps_median": s * blk / med / 1e3,
+           "latency_p50_ms": lat[len(lat) // 2],
+           "latency_p95_ms": lat[int(len(lat) * 0.95)],
+           "peak_mem_bytes": peak, "profile_busy_share": busy}
+    log(f"bench {frontend}: " + json.dumps(res))
+    log(f"bench {frontend}: {type(pipe.bank).__name__} step median "
+        f"{med:.3f} ms per {block_ms:.1f} ms block ({med / block_ms:.4f} of "
+        f"it) = {res['msps_median']:.1f} MS/s; latency p50 "
+        f"{res['latency_p50_ms']:.3f} / p95 {res['latency_p95_ms']:.3f} ms; "
+        f"peak {peak / 2 ** 30:.2f} GiB")
+    return res
+
+
+def phase_fsk4_block(dev, pipe) -> dict:
+    """``ControlPipeline.fsk4_block = 10`` at the C4FM bench shape: the
+    step with ``fsk4_demod_block`` (plain torch on the card: ~25 eager
+    ops per 10-sample chunk, 125 chunks per block) against the same step
+    on the exact tracker kernel, host clock with a sync per step."""
+    s = BENCH_SOURCES
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((s, BLOCK, 2), generator=gen, device=dev).to(
+        torch.bfloat16)
+    offs = grid_offsets(s, dev)
+    res = {}
+    for blk in (10, 0):
+        pipe.fsk4_block = blk
+        st = pipe.init(s, dev)
+        st, out = pipe.step(st, x, offs)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            st, out = pipe.step(st, x, offs)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        if not bool(torch.isfinite(out[0]).all()):
+            raise AssertionError("non-finite symbols")
+        res[f"step_ms_block{blk}"] = float(np.median(times))
+    pipe.fsk4_block = 0
+    log(f"fsk4 block: C4FM bench shape S={s} C={SLOTS}: step with "
+        f"fsk4_block=10 (plain torch) {res['step_ms_block10']:.3f} ms "
+        f"against {res['step_ms_block0']:.3f} ms on the fsk_track kernel "
+        f"(median of 3, host clock)")
     return res
 
 
@@ -1499,6 +1713,18 @@ def main() -> None:
     res, bench_bank_err, bench_track_err = phase_bench(dev, pipe)
     bank_err = max(bank_err, bench_bank_err)
     track_err = max(track_err, bench_track_err)
+    res_block = phase_fsk4_block(dev, pipe)
+
+    # the pfb and fft frontend modes: a P25 grant through each, the pfb
+    # fine stage on the complex bank's general path, both at 128 sources
+    launches_pfb = phase_decode(
+        dev, ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE, frontend="pfb"),
+        "decode pfb", ("xlat_complex", "fsk_track"))
+    launches_fft = phase_decode(
+        dev, ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE, frontend="fft"),
+        "decode fft", ("fsk_track",))
+    res_fine, fine_err = phase_pfb_fine(dev)
+    res_fe = {fe: phase_frontend_bench(dev, fe) for fe in ("pfb", "fft")}
 
     sp = SpectrumSplit2(SAMP_RATE)
     cbank_err = phase_complex_bank(dev, sp)
@@ -1512,7 +1738,20 @@ def main() -> None:
 
     voice_err, res3 = phase_voice_kernel(dev)
     launches3 = phase_runtime_decode(dev)
+    launches_rt_pfb = phase_runtime_decode(dev, "pfb")
     phase_runtime_bench(dev)
+    rt_pfb = phase_runtime_bench(dev, "pfb")
+    log("frontends: " + json.dumps({
+        "xlat_step_ms": res["step_ms_median"],
+        "pfb_step_ms": res_fe["pfb"]["step_ms_median"],
+        "fft_step_ms": res_fe["fft"]["step_ms_median"],
+        "fft_block_ms": res_fe["fft"]["block_ms"],
+        "fsk4_block10_step_ms": res_block["step_ms_block10"],
+        "fsk4_exact_step_ms": res_block["step_ms_block0"],
+        "runtime_pfb_p50_ms": rt_pfb["step_p50_ms"],
+        "runtime_pfb_p95_ms": rt_pfb["step_p95_ms"],
+        "launches": {"decode_pfb": launches_pfb, "decode_fft": launches_fft,
+                     "runtime_pfb": launches_rt_pfb}}))
     loaded = [m for m in ("jax", "radiocapture_tpu") if m in sys.modules]
     if loaded:
         raise AssertionError(f"imported {loaded}")
@@ -1542,7 +1781,14 @@ def main() -> None:
          "plain_ms": res2["xlat_complex_plain_ms"],
          "bound_ms": res2["xlat_complex_bound_ms"],
          "bound_by": res2["xlat_complex_bound_by"],
-         "library_ms": res2["xlat_complex_library_ms"]},
+         "library_ms": res2["xlat_complex_library_ms"],
+         "pfb_fine_launches": launches_pfb["xlat_complex"],
+         "pfb_fine_max_abs_err": fine_err,
+         "pfb_fine_ms": res_fine["pfb_fine_ms"],
+         "pfb_fine_plain_ms_64_rows": res_fine["pfb_fine_plain_ms_rows"],
+         "pfb_fine_bound_ms": res_fine["pfb_fine_bound_ms"],
+         "pfb_fine_bound_by": res_fine["pfb_fine_bound_by"],
+         "pfb_fine_library_ms": res_fine["pfb_fine_library_ms"]},
         {"name": "cqpsk_track", "route": "cuda",
          "source": "radiocapture_tpu_torch/csrc/cqpsk_track.cu",
          "replaces": "radiocapture_tpu/demod/cqpsk.py:133",

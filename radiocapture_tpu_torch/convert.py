@@ -6,7 +6,9 @@ bits. These functions map that layout, taken as numpy arrays in the JAX
 NamedTuples (or any objects with the same field names), to the port's
 state and back, for ``ControlPipeline``, ``CqpskControlPipeline``,
 ``AnalogVoicePipeline`` and ``SpectrumSplit2`` (whose state is the bank's
-``XlatBankState``). The state has a leading source axis ``S`` on both
+``XlatBankState``), with any of the three banks (``XlatBankState``,
+``PfbXlatBankState`` with its ``PfbState`` and per-slot ``XlatState``,
+``FftXlatBankState``). The state has a leading source axis ``S`` on both
 sides (the JAX grouped, vmapped form: a runtime group's stacked state).
 """
 
@@ -16,16 +18,7 @@ import numpy as np
 import torch
 
 from radiocapture_tpu_torch.demod.cqpsk import CqpskState
-from radiocapture_tpu_torch.demod.fsk4 import Fsk4State
-from radiocapture_tpu_torch.frontend.pipeline import (AnalogVoicePipeline,
-                                                      CqpskControlPipeline,
-                                                      CqpskPipelineState,
-                                                      ControlPipelineState,
-                                                      SpectrumSplit2,
-                                                      VoicePipelineState)
-from radiocapture_tpu_torch.ops.channelizer import XlatBank, XlatBankState
 from radiocapture_tpu_torch.ops.fir import U32_MASK
-from radiocapture_tpu_torch.ops.fm import DeemphState, QuadDemodState
 
 
 def _f32(a, device) -> torch.Tensor:
@@ -49,23 +42,45 @@ def _np_complex(t) -> np.ndarray:
     return _np(torch.view_as_real(t.detach().cpu().resolve_conj()))
 
 
-def _bank_from_jax(bank: XlatBank, arrays, device) -> XlatBankState:
-    st = XlatBankState(history=_complex(arrays.history, device),
-                       phase=_u32(arrays.phase, device))
-    s, c = st.phase.shape
-    if c != bank.num_slots or tuple(st.history.shape) != (s, bank.ntaps - 1):
-        raise ValueError("JAX state does not match the pipeline: phase "
-                         f"{tuple(st.phase.shape)}, history "
-                         f"{tuple(st.history.shape)}")
-    return st
+def _first_leaf(tree):
+    while not hasattr(tree, "shape"):
+        tree = tree[0]
+    return tree
 
 
-def _bank_to_jax(bank: XlatBank, state: XlatBankState) -> XlatBankState:
-    if state.phase.shape[-1] != bank.num_slots:
-        raise ValueError("state does not match the pipeline's slot count")
-    phase = ((state.phase.detach().cpu().numpy() & U32_MASK)
-             .astype(np.uint32).view(np.int32))
-    return XlatBankState(history=_np_complex(state.history), phase=phase)
+def _from_spec(spec, arrays, device):
+    """The JAX wire arrays as the tensors of ``spec`` (a state of the
+    port's built on the meta device: its NamedTuple layout, each leaf's
+    dtype and shape): complex64 from [..., 2] float32, uint32 held in
+    int64 from int32 bits, float32 as is."""
+    if isinstance(spec, torch.Tensor):
+        conv = {torch.complex64: _complex, torch.int64: _u32}.get(
+            spec.dtype, _f32)
+        t = conv(arrays, device)
+        if t.shape != spec.shape:
+            raise ValueError(f"JAX state does not match the pipeline: "
+                             f"{tuple(t.shape)}, want {tuple(spec.shape)}")
+        return t
+    return type(spec)(*(_from_spec(leaf, getattr(arrays, name), device)
+                        for name, leaf in zip(spec._fields, spec)))
+
+
+def _to_wire(state):
+    """The port's state → numpy in the JAX wire encoding, leaf by leaf."""
+    if isinstance(state, torch.Tensor):
+        if state.is_complex():
+            return _np_complex(state)
+        if state.dtype == torch.int64:
+            return ((state.detach().cpu().numpy() & U32_MASK)
+                    .astype(np.uint32).view(np.int32))
+        return _np(state)
+    return type(state)(*(_to_wire(leaf) for leaf in state))
+
+
+def _shapes(tree) -> list:
+    if isinstance(tree, torch.Tensor):
+        return [tuple(tree.shape)]
+    return [sh for leaf in tree for sh in _shapes(leaf)]
 
 
 def cqpsk_state_from_jax(arrays, device) -> CqpskState:
@@ -80,24 +95,10 @@ def cqpsk_state_to_jax(state: CqpskState) -> CqpskState:
 
 def state_from_jax(pipe, arrays, device):
     """JAX wire-encoded pipeline state (numpy leaves, leading source
-    axis) → the port's state of ``pipe`` on ``device``."""
-    if isinstance(pipe, SpectrumSplit2):
-        return _bank_from_jax(pipe.bank, arrays, device)
-    bank = _bank_from_jax(pipe.bank, arrays.bank, device)
-    if isinstance(pipe, CqpskControlPipeline):
-        return CqpskPipelineState(
-            bank=bank, cqpsk=cqpsk_state_from_jax(arrays.cqpsk, device))
-    quad = QuadDemodState(prev=_complex(arrays.quad.prev, device))
-    if isinstance(pipe, AnalogVoicePipeline):
-        return VoicePipelineState(
-            bank=bank, quad=quad,
-            deemph=DeemphState(y_last=_f32(arrays.deemph.y_last, device),
-                               x_last=_f32(arrays.deemph.x_last, device)))
-    return ControlPipelineState(
-        bank=bank, quad=quad, sym_hist=_f32(arrays.sym_hist, device),
-        fsk4=Fsk4State(clock=_f32(arrays.fsk4.clock, device),
-                       fine_freq=_f32(arrays.fsk4.fine_freq, device),
-                       hist=_f32(arrays.fsk4.hist, device)))
+    axis) → the port's state of ``pipe`` on ``device``, checked leaf by
+    leaf against the pipeline's own layout for that many sources."""
+    spec = pipe.init(_first_leaf(arrays).shape[0], "meta")
+    return _from_spec(spec, arrays, device)
 
 
 def state_to_jax(pipe, state):
@@ -105,20 +106,8 @@ def state_to_jax(pipe, state):
     in the JAX wire encoding, in the port's NamedTuples (same field
     names and order as the JAX ones, so ``JaxCls(*fields)`` rebuilds
     them)."""
-    if isinstance(pipe, SpectrumSplit2):
-        return _bank_to_jax(pipe.bank, state)
-    bank = _bank_to_jax(pipe.bank, state.bank)
-    if isinstance(pipe, CqpskControlPipeline):
-        return CqpskPipelineState(bank=bank,
-                                  cqpsk=cqpsk_state_to_jax(state.cqpsk))
-    quad = QuadDemodState(prev=_np_complex(state.quad.prev))
-    if isinstance(pipe, AnalogVoicePipeline):
-        return VoicePipelineState(
-            bank=bank, quad=quad,
-            deemph=DeemphState(y_last=_np(state.deemph.y_last),
-                               x_last=_np(state.deemph.x_last)))
-    return ControlPipelineState(
-        bank=bank, quad=quad, sym_hist=_np(state.sym_hist),
-        fsk4=Fsk4State(clock=_np(state.fsk4.clock),
-                       fine_freq=_np(state.fsk4.fine_freq),
-                       hist=_np(state.fsk4.hist)))
+    spec = pipe.init(_first_leaf(state).shape[0], "meta")
+    if _shapes(spec) != _shapes(state):
+        raise ValueError("state does not match the pipeline: "
+                         f"{_shapes(state)}, want {_shapes(spec)}")
+    return _to_wire(state)

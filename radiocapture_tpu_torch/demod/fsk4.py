@@ -129,6 +129,63 @@ def fsk4_demod(state: Fsk4State, x: torch.Tensor, samp_rate: float,
             (torch.stack(ys, -1), torch.stack(emits, -1)))
 
 
+def fsk4_demod_block(state: Fsk4State, x: torch.Tensor, samp_rate: float,
+                     symbol_rate: float,
+                     levels: tuple = (-3.0, -1.0, 1.0, 3.0),
+                     k_fine_freq: float = K_FINE_FREQ,
+                     k_timing: float = K_TIMING, block: int = 10,
+                     ) -> tuple[Fsk4State, tuple[torch.Tensor, torch.Tensor]]:
+    """Block-feedback variant of :func:`fsk4_demod` (the JAX
+    ``fsk4_demod_block``, fsk4.py:208-298): the fine-frequency and timing
+    feedback are held constant within each chunk of ``block`` samples, so
+    a chunk's interpolations and decisions are computed at once and the
+    corrections accumulated over it apply at its end. The loops' time
+    constants (500 and 40 symbols) dwarf the few-symbol delay.
+
+    Emission is exact: with the clock frozen in a chunk, sample i emits
+    when ``floor(b_i) > floor(b_{i-1})``, ``b_i = clock0 + (i+1)·step``;
+    the first sample's baseline ``floor(clock0)`` is clamped to ≤ 0, since
+    a chunk-end timing correction can leave clock0 ≥ 1 with an emission
+    pending. Same contract as :func:`fsk4_demod`; plain PyTorch on either
+    device, ~25 tensor ops per chunk."""
+    step = f32(symbol_rate / samp_rate)
+    lo, s0 = uniform_alphabet(levels)
+    top = float(len(levels) - 1)
+    k_ff, k_t = f32(k_fine_freq), f32(k_timing)
+    frac_max = f32(0.999)
+    n = x.shape[-1]
+    w = next(b for b in (block, 10, 8, 5, 4, 2, 1) if n % b == 0)
+    cf = torch.as_tensor(_FARROW, device=x.device)        # [5, 2·HIST]
+    i1 = torch.arange(1, w + 1, dtype=torch.float32, device=x.device)
+    clock, ff, hist = state
+    ys, emits = [], []
+    for c0 in range(0, n, w):
+        buf = torch.cat([hist, x[..., c0:c0 + w] - ff[..., None]], -1)
+        h = buf.unfold(-1, HIST, 1)[..., 1:, :]            # [..., w, HIST]
+        b = clock[..., None] + i1 * step
+        fl = torch.floor(b)
+        fl_prev = torch.cat([torch.clamp(torch.floor(clock), max=0.0)[
+            ..., None], fl[..., :-1]], -1)
+        emit = (fl > fl_prev) & (fl >= 1.0)
+        clockw = b - torch.clamp(fl, min=0.0)
+        frac = torch.clamp(clockw / step, 0.0, frac_max)[..., None]
+        tt = cf[0]
+        for j in range(1, cf.shape[0]):
+            tt = tt * frac + cf[j]                         # [..., w, 2·HIST]
+        y = (h * tt[..., :HIST]).sum(-1)
+        dy = (h * tt[..., HIST:]).sum(-1)
+        idx = torch.clamp(torch.round((y - lo) / s0), 0.0, top)
+        err = torch.where(emit, y - (lo + s0 * idx), 0.0)
+        ff = ff + k_ff * err.sum(-1)
+        clock = clockw[..., -1] - k_t * torch.where(
+            emit, torch.tanh(err * dy), 0.0).sum(-1)
+        hist = buf[..., w:]
+        ys.append(y)
+        emits.append(emit)
+    return (Fsk4State(clock, ff, hist.contiguous()),
+            (torch.cat(ys, -1), torch.cat(emits, -1)))
+
+
 def compact_symbols(symbols, valid):
     """Host-side: keep only emitted symbols (1-D, or a list per row)."""
     symbols = np.asarray(symbols)

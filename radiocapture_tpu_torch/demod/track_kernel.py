@@ -40,18 +40,25 @@ class TrackParams(NamedTuple):
 
 def track_plain(y_re: torch.Tensor, y_im: torch.Tensor,
                 quad: _fm.QuadDemodState, sym_hist: torch.Tensor,
-                fsk4: _fsk4.Fsk4State, prm: TrackParams):
+                fsk4: _fsk4.Fsk4State, prm: TrackParams, block: int = 0):
     """Plain PyTorch version of the tracker.
 
     y_re, y_im [S, N, C] float32 bank planes. Returns (quad, sym_hist,
     fsk4, syms [S, C, M] f32, valid [S, C, M] int32, dibits [S, C, M]
-    int32), M = N // sym_decim; the states are new tensors."""
+    int32), M = N // sym_decim; the states are new tensors. ``block`` > 1
+    tracks with ``fsk4_demod_block`` (``ControlPipeline.fsk4_block``),
+    which has no kernel: this chain runs it on either device."""
     x = torch.complex(y_re, y_im).transpose(1, 2)          # [S, C, N]
     quad, disc = _fm.quadrature_demod(quad, x, prm.gain)
     sym_hist, filt = batched_fir(sym_hist, disc, prm.sym_taps,
                                  prm.sym_decim)
-    fsk4, (syms, valid) = _fsk4.fsk4_demod(
-        fsk4, filt, prm.track_fs, prm.symbol_rate, levels=prm.levels)
+    if block > 1:
+        fsk4, (syms, valid) = _fsk4.fsk4_demod_block(
+            fsk4, filt, prm.track_fs, prm.symbol_rate, levels=prm.levels,
+            block=block)
+    else:
+        fsk4, (syms, valid) = _fsk4.fsk4_demod(
+            fsk4, filt, prm.track_fs, prm.symbol_rate, levels=prm.levels)
     if len(prm.levels) == 4:
         dibits = _fsk4.slice_dibits_torch(syms)
     else:

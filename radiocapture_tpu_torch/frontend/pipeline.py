@@ -1,14 +1,20 @@
 """Batched capture pipelines: wideband blocks of S sources → per-slot
 symbol streams (port of ``radiocapture_tpu.frontend.pipeline``).
 
-    ControlPipeline:       xlat bank (ops.channelizer_kernel)  →  fused
-      tracker (demod.track_kernel: discriminator → boxcar → fsk4 → slicer)
-    CqpskControlPipeline:  xlat bank  →  AGC gain  →  fused CQPSK tracker
+    ControlPipeline:       bank  →  fused tracker (demod.track_kernel:
+      discriminator → boxcar → fsk4 → slicer)
+    CqpskControlPipeline:  bank  →  AGC gain  →  fused CQPSK tracker
       (demod.cqpsk_kernel: NCO → Gardner → diff phase → ×4 AFC → slicer)
-    AnalogVoicePipeline:   xlat bank  →  fused voice tracker
+    AnalogVoicePipeline:   bank  →  fused voice tracker
       (ops.fm_kernel: discriminator → 75 µs de-emphasis → power)
     SpectrumSplit2:        one 2-slot complex bank per physical source
       (``receiver_split2``): two half-rate logical sources
+
+The bank is the config's ``frontend_mode`` (``_make_bank``): 'xlat' the
+wire bank on the bf16/float32 wire block (ops.channelizer_kernel), 'pfb'
+the coarse PFB then the per-slot fine filters on the complex bank kernel
+(``PfbXlatBank``), 'fft' the overlap-save FFT bank (``FftXlatBank``); the
+last two take the block as complex64.
 
 One ``ControlPipeline`` is specialized to one air-interface class
 (symbol rate + decision alphabet): P25 C4FM 4800 Bd 4-level, EDACS
@@ -34,26 +40,50 @@ import torch
 from radiocapture_tpu_torch.demod import cqpsk as _cqpsk
 from radiocapture_tpu_torch.demod import fsk4 as _fsk4
 from radiocapture_tpu_torch.demod.cqpsk_kernel import track_cqpsk
-from radiocapture_tpu_torch.demod.track_kernel import TrackParams, track
+from radiocapture_tpu_torch.demod.track_kernel import (TrackParams, track,
+                                                      track_plain)
 from radiocapture_tpu_torch.ops import taps as _taps
 from radiocapture_tpu_torch.ops import fm as _fm
-from radiocapture_tpu_torch.ops.channelizer import XlatBank, XlatBankState
+from radiocapture_tpu_torch.ops.channelizer import (PfbXlatBank, XlatBank,
+                                                    XlatBankState, as_complex)
+from radiocapture_tpu_torch.ops.fft_bank import FftXlatBank
 from radiocapture_tpu_torch.ops.fir import phase_step_u32
 from radiocapture_tpu_torch.ops.fm_kernel import voice_track
 
-_UNPORTED_FRONTENDS = {
-    "pfb": "ROADMAP.md queue A item 10 (PfbXlatBank)",
-    "fft": "ROADMAP.md queue A item 10 (FftXlatBank)",
-}
+
+def _make_bank(frontend: str, num_slots: int, samp_rate: float,
+               channel_rate: float):
+    """The channel-extraction stage of the config's ``frontend_mode``
+    (rc_frontend/receiver.py:242: 'xlat' per-channel filters, 'pfb' coarse
+    polyphase bins + fine xlat; 'fft' the overlap-save form of xlat, the
+    same filter), as the JAX ``_make_bank`` (pipeline.py:57-71)."""
+    if frontend == "pfb":
+        return PfbXlatBank(num_slots, samp_rate, channel_rate)
+    if frontend == "xlat":
+        return XlatBank.for_rates(num_slots, samp_rate, channel_rate)
+    if frontend == "fft":
+        return FftXlatBank.for_rates(num_slots, samp_rate, channel_rate)
+    raise ValueError(f"unknown frontend_mode {frontend!r}")
 
 
-def _check_frontend(frontend: str) -> None:
-    if frontend != "xlat":
-        where = _UNPORTED_FRONTENDS.get(frontend)
-        if where is None:
-            raise ValueError(f"unknown frontend_mode {frontend!r}")
-        raise NotImplementedError(
-            f"frontend {frontend!r} is not ported yet: {where}")
+def _bank_planes(bank, state, x: torch.Tensor, offsets_norm: torch.Tensor):
+    """One bank step → (state, y_re, y_im [S, N, C] float32 planes). The
+    xlat bank reads the wire block (``call_planes``, the fused bf16
+    bank); the pfb and fft banks take it as complex64, as the JAX
+    ``_bank_step`` does (pipeline.py:44-54)."""
+    if isinstance(bank, XlatBank):
+        return bank.call_planes(state, _wire(x), offsets_norm)
+    return bank.call_planes(state, as_complex(x), offsets_norm)
+
+
+def _block_multiple(bank) -> int:
+    return int(getattr(bank, "block_multiple", bank.decim))
+
+
+def _check_block(x: torch.Tensor, multiple: int) -> None:
+    if x.shape[1] % multiple:
+        raise ValueError(f"block length {x.shape[1]} is not a multiple "
+                         f"of {multiple}")
 
 
 def _offsets_for(freqs_hz: np.ndarray, center_hz: float,
@@ -70,7 +100,7 @@ def _wire(x: torch.Tensor) -> torch.Tensor:
 
 
 class ControlPipelineState(NamedTuple):
-    bank: XlatBankState
+    bank: tuple     # XlatBankState, PfbXlatBankState or FftXlatBankState
     quad: _fm.QuadDemodState         # prev: [S, C] complex64
     sym_hist: torch.Tensor           # [S, C, sym_ntaps-1] float32
     fsk4: _fsk4.Fsk4State            # batch (S, C)
@@ -85,14 +115,13 @@ class ControlPipeline:
                  levels: tuple = (-3.0, -1.0, 1.0, 3.0),
                  deviation_hz: float = 600.0,
                  frontend: str = "xlat"):
-        _check_frontend(frontend)
         self.num_slots = num_slots
         self.samp_rate = float(samp_rate)
         self.channel_rate = float(channel_rate)
         self.symbol_rate = float(symbol_rate)
         self.levels = tuple(levels)
         self.deviation_hz = float(deviation_hz)
-        self.bank = XlatBank.for_rates(num_slots, samp_rate, channel_rate)
+        self.bank = _make_bank(frontend, num_slots, samp_rate, channel_rate)
         self.channel_fs = self.samp_rate / self.bank.decim
         # ±deviation ↦ the outer slicer levels
         self.disc_gain = (self.channel_fs
@@ -108,6 +137,10 @@ class ControlPipeline:
             gain=self.disc_gain, sym_taps=self.sym_taps,
             sym_decim=self.sym_decim, track_fs=self.track_fs,
             symbol_rate=self.symbol_rate, levels=self.levels)
+        # > 1: track with fsk4_demod_block, the loop feedback held within
+        # chunks of this many samples (plain torch on either device, no
+        # kernel); 0/1: the exact per-sample loop of the tracker kernel
+        self.fsk4_block = 0
 
     @classmethod
     def p25_c4fm(cls, num_slots: int, samp_rate: float,
@@ -135,8 +168,10 @@ class ControlPipeline:
 
     @property
     def block_multiple(self) -> int:
-        """Input block length must be a multiple of this."""
-        return self.bank.decim * self.sym_decim
+        """Input block length must be a multiple of this: the bank's own
+        (the fft bank's window) and decim · sym_decim."""
+        return int(np.lcm(_block_multiple(self.bank),
+                          self.bank.decim * self.sym_decim))
 
     def init(self, n_sources: int, device) -> ControlPipelineState:
         """All-zero streaming state for ``n_sources`` sources."""
@@ -156,15 +191,17 @@ class ControlPipeline:
         T % block_multiple == 0. offsets_norm: [S, num_slots] float32,
         slot centre offset in cycles/input-sample (offset_hz / samp_rate).
         Returns (state, (symbols [S, C, M] f32, valid [S, C, M] int32 0/1,
-        dibits [S, C, M] int32)) with M = T // block_multiple."""
-        x = _wire(x)
-        if x.shape[1] % self.block_multiple:
-            raise ValueError(f"block length {x.shape[1]} is not a multiple "
-                             f"of {self.block_multiple}")
-        bs, y_re, y_im = self.bank.call_planes(state.bank, x, offsets_norm)
-        quad, sym_hist, fsk4, syms, valid, dibits = track(
-            y_re, y_im, state.quad, state.sym_hist, state.fsk4,
-            self.track_params)
+        dibits [S, C, M] int32)) with M = T // (decim · sym_decim)."""
+        _check_block(x, self.block_multiple)
+        bs, y_re, y_im = _bank_planes(self.bank, state.bank, x, offsets_norm)
+        if self.fsk4_block > 1:
+            quad, sym_hist, fsk4, syms, valid, dibits = track_plain(
+                y_re, y_im, state.quad, state.sym_hist, state.fsk4,
+                self.track_params, block=self.fsk4_block)
+        else:
+            quad, sym_hist, fsk4, syms, valid, dibits = track(
+                y_re, y_im, state.quad, state.sym_hist, state.fsk4,
+                self.track_params)
         new_state = ControlPipelineState(bank=bs, quad=quad,
                                          sym_hist=sym_hist, fsk4=fsk4)
         return new_state, (syms, valid, dibits)
@@ -193,7 +230,7 @@ class ControlPipeline:
 
 
 class CqpskPipelineState(NamedTuple):
-    bank: XlatBankState
+    bank: tuple     # the bank's state, as ControlPipelineState.bank
     cqpsk: _cqpsk.CqpskState         # batch (S, C)
 
 
@@ -211,12 +248,11 @@ class CqpskControlPipeline:
                  channel_rate: float = 12500.0,
                  symbol_rate: float = 4800.0,
                  frontend: str = "xlat"):
-        _check_frontend(frontend)
         self.num_slots = num_slots
         self.samp_rate = float(samp_rate)
         self.channel_rate = float(channel_rate)
         self.symbol_rate = float(symbol_rate)
-        self.bank = XlatBank.for_rates(num_slots, samp_rate, channel_rate)
+        self.bank = _make_bank(frontend, num_slots, samp_rate, channel_rate)
         self.channel_fs = self.samp_rate / self.bank.decim
         # fails loudly above ~28 samples/symbol (cqpsk.HIST_C)
         _cqpsk.cqpsk_params(self.channel_fs, self.symbol_rate)
@@ -235,7 +271,7 @@ class CqpskControlPipeline:
     @property
     def block_multiple(self) -> int:
         """Input block length must be a multiple of this."""
-        return self.bank.decim
+        return _block_multiple(self.bank)
 
     def init(self, n_sources: int, device) -> CqpskPipelineState:
         """Start state for ``n_sources`` sources: not all-zero, omega
@@ -249,11 +285,8 @@ class CqpskControlPipeline:
              offsets_norm: torch.Tensor):
         """Same contract as :meth:`ControlPipeline.step`; here
         M = T // decim (one output per channel sample)."""
-        x = _wire(x)
-        if x.shape[1] % self.block_multiple:
-            raise ValueError(f"block length {x.shape[1]} is not a multiple "
-                             f"of {self.block_multiple}")
-        bs, y_re, y_im = self.bank.call_planes(state.bank, x, offsets_norm)
+        _check_block(x, self.block_multiple)
+        bs, y_re, y_im = _bank_planes(self.bank, state.bank, x, offsets_norm)
         scale = _cqpsk.agc_scale(y_re, y_im, dim=1)          # [S, C]
         cs, syms, valid, dibits = track_cqpsk(
             y_re, y_im, scale, state.cqpsk, self.channel_fs,
@@ -266,7 +299,7 @@ class CqpskControlPipeline:
 
 
 class VoicePipelineState(NamedTuple):
-    bank: XlatBankState
+    bank: tuple     # the bank's state, as ControlPipelineState.bank
     quad: _fm.QuadDemodState         # prev: [S, C] complex64
     deemph: _fm.DeemphState          # y_last, x_last: [S, C] float32
 
@@ -282,10 +315,9 @@ class AnalogVoicePipeline:
     def __init__(self, num_slots: int, samp_rate: float,
                  channel_rate: float = 12500.0, max_dev: float = 5000.0,
                  frontend: str = "xlat"):
-        _check_frontend(frontend)
         self.num_slots = num_slots
         self.samp_rate = float(samp_rate)
-        self.bank = XlatBank.for_rates(num_slots, samp_rate, channel_rate)
+        self.bank = _make_bank(frontend, num_slots, samp_rate, channel_rate)
         self.channel_fs = self.samp_rate / self.bank.decim
         self.max_dev = float(max_dev)
         self.gain = self.channel_fs / (2.0 * math.pi * self.max_dev)
@@ -297,7 +329,7 @@ class AnalogVoicePipeline:
     @property
     def block_multiple(self) -> int:
         """Input block length must be a multiple of this."""
-        return self.bank.decim
+        return _block_multiple(self.bank)
 
     def init(self, n_sources: int, device) -> VoicePipelineState:
         """All-zero streaming state for ``n_sources`` sources."""
@@ -308,14 +340,12 @@ class AnalogVoicePipeline:
 
     def step(self, state: VoicePipelineState, x: torch.Tensor,
              offsets_norm: torch.Tensor):
-        """x: [S, T, 2] wire block or [S, T] complex64, T % decim == 0;
+        """x: [S, T, 2] wire block or [S, T] complex64, T %
+        block_multiple == 0;
         offsets_norm [S, num_slots] → (state, (audio [S, C, T//decim]
         float32, power [S, C] float32 mean |chan|²))."""
-        x = _wire(x)
-        if x.shape[1] % self.block_multiple:
-            raise ValueError(f"block length {x.shape[1]} is not a multiple "
-                             f"of {self.block_multiple}")
-        bs, y_re, y_im = self.bank.call_planes(state.bank, x, offsets_norm)
+        _check_block(x, self.block_multiple)
+        bs, y_re, y_im = _bank_planes(self.bank, state.bank, x, offsets_norm)
         quad, deemph, audio, power = voice_track(
             y_re, y_im, state.quad, state.deemph, self.gain, self.channel_fs)
         return (VoicePipelineState(bank=bs, quad=quad, deemph=deemph),

@@ -10,6 +10,10 @@ leads every tensor. The wire entry points (``call_wire``,
 blocks) goes through the float32 complex bank (kernel
 ``csrc/xlat_complex.cu``) and carries its history in complex64, as the
 JAX ``__call__`` does.
+
+Also the ``pfb`` frontend mode: ``PfbChannelizer`` (the coarse polyphase
+FFT channelizer) and ``PfbXlatBank`` (its bins, then a fine xlat filter
+per slot on the complex bank kernel).
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ import torch
 from radiocapture_tpu_torch.ops import taps as _taps
 from radiocapture_tpu_torch.ops.channelizer_kernel import (
     bank_complex, bank_fused, kernel_tap_matrix, tap_matrix)
-from radiocapture_tpu_torch.ops.fir import U32_MASK, phase_step_u32
+from radiocapture_tpu_torch.ops.fir import U32_MASK, XlatState, phase_step_u32
 
 
 class XlatBankState(NamedTuple):
@@ -67,6 +71,46 @@ def complex_history(history: torch.Tensor, x2: torch.Tensor
     return torch.cat([history[:, t:], tail], dim=1)
 
 
+def modulated_taps(h: torch.Tensor, offsets_norm: torch.Tensor
+                   ) -> torch.Tensor:
+    """Per-slot modulated taps ``g[..., k] = h[k]·e^{j2πf·k}`` of the real
+    taps h [K] (on the offsets' device), correlation-reversed:
+    [..., K] complex64 for offsets [...]. Built with one sin/cos per tap,
+    as the JAX ``XlatBank.__call__`` and ``ops.fir.freq_xlating_fir``
+    build them (channelizer.py:117-122, fir.py:131-133)."""
+    kk = torch.arange(h.shape[0], dtype=torch.float32, device=h.device)
+    ang = float(np.float32(2.0 * np.pi)) * offsets_norm.to(
+        torch.float32)[..., None] * kk
+    return torch.complex(h * torch.cos(ang), h * torch.sin(ang)).flip(-1)
+
+
+def device_const(cache: dict, name: str, value: np.ndarray,
+                 device) -> torch.Tensor:
+    """``value`` on ``device``, copied there once and kept in ``cache``:
+    PyTorch follows a host→device copy of pageable memory with a stream
+    synchronize, which would stall every step."""
+    key = (name, torch.device(device))
+    t = cache.get(key)
+    if t is None:
+        t = cache[key] = torch.as_tensor(value, device=device)
+    return t
+
+
+def as_complex(x: torch.Tensor) -> torch.Tensor:
+    """[S, T] complex or an [S, T, 2] wire block → [S, T] complex64 (the
+    JAX ``_bank_step``'s complexify; bf16 → float32 is exact)."""
+    if x.is_complex():
+        return x.to(torch.complex64)
+    return torch.view_as_complex(x.to(torch.float32).contiguous())
+
+
+def planes(y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Channels [S, C, N] complex64 → the time-major float32 planes
+    y_re, y_im [S, N, C] the trackers read."""
+    yt = y.transpose(1, 2)
+    return yt.real.contiguous(), yt.imag.contiguous()
+
+
 class XlatBank:
     """A bank of ``num_slots`` freq-xlating decimating FIR channels per
     source. All slots share taps and decimation (every channel is 12.5 kHz
@@ -82,7 +126,7 @@ class XlatBank:
         self.taps = np.asarray(taps, np.float32)
         self.ntaps = len(taps)
         self.p = self.ntaps // decim
-        self._device_taps: dict = {}     # device -> taps tensor
+        self._consts: dict = {}          # device copies (device_const)
 
     @classmethod
     def for_rates(cls, num_slots: int, samp_rate: float, channel_rate: float,
@@ -157,27 +201,14 @@ class XlatBank:
         return state, torch.complex(y_re, y_im).transpose(1, 2)
 
     def device_taps(self, device) -> torch.Tensor:
-        """The prototype taps [K] float32 on ``device``, copied there once:
-        PyTorch follows a host→device copy of pageable memory with a
-        stream synchronize, which would stall every step."""
-        device = torch.device(device)
-        h = self._device_taps.get(device)
-        if h is None:
-            h = self._device_taps[device] = torch.as_tensor(self.taps,
-                                                            device=device)
-        return h
+        """The prototype taps [K] float32 on ``device``, copied there once
+        (``device_const``)."""
+        return device_const(self._consts, "taps", self.taps, device)
 
     def modulated_taps(self, offsets_norm: torch.Tensor) -> torch.Tensor:
-        """Per-slot modulated taps ``g[s, c, k] = h[k]·e^{j2πf·k}``,
-        correlation-reversed: [S, C, K] complex64. Built with one
-        sin/cos per tap, as the JAX ``__call__`` builds them
-        (channelizer.py:117-122)."""
-        dev = offsets_norm.device
-        kk = torch.arange(self.ntaps, dtype=torch.float32, device=dev)
-        ang = float(np.float32(2.0 * np.pi)) * offsets_norm.to(
-            torch.float32)[..., None] * kk
-        h = self.device_taps(dev)
-        return torch.complex(h * torch.cos(ang), h * torch.sin(ang)).flip(-1)
+        """``modulated_taps`` of this bank's prototype taps."""
+        return modulated_taps(self.device_taps(offsets_norm.device),
+                              offsets_norm)
 
     def __call__(self, state: XlatBankState, x: torch.Tensor,
                  offsets_norm: torch.Tensor
@@ -208,3 +239,193 @@ class XlatBank:
         new_phase = (state.phase + step * (x.shape[1] // d)) & U32_MASK
         return XlatBankState(history=complex_history(state.history, x),
                              phase=new_phase), y
+
+
+class PfbState(NamedTuple):
+    history: torch.Tensor  # [S, (P-1)·M] complex64
+
+
+class PfbChannelizer:
+    """Critically sampled M-channel polyphase FFT channelizer (port of the
+    JAX ``PfbChannelizer``, channelizer.py:239-301): channel ``c`` is
+    centred at ``+c·fs/M`` (FFT bin order; c > M/2 aliases to negative
+    offsets) and delivered at ``fs/M``, the contract of the reference's
+    ``pfb.channelizer_ccf`` with oversample 1 (rc_frontend/receiver.py:
+    249-261)."""
+
+    def __init__(self, num_channels: int, taps: np.ndarray):
+        m = num_channels
+        pad = (-len(taps)) % m
+        if pad:
+            taps = np.concatenate([taps, np.zeros(pad, taps.dtype)])
+        self.num_channels = m
+        self.ntaps = len(taps)
+        self.p = self.ntaps // m
+        hp = np.asarray(taps, np.float32).reshape(self.p, m).T  # [M, P]
+        # branch m sees x[nM - m - pM]; rows of M samples arrive with the
+        # branch index reversed, so keep the reversed-row polyphase matrix
+        self.hp2 = np.ascontiguousarray(hp[::-1])  # [M, P], row M-1-m
+        # per-channel rotation from the K-1 group delay, e^{j2πc/M}, at the
+        # float32 angles the JAX package takes
+        ang = np.float32(2.0 * np.pi / m) * np.arange(m, dtype=np.float32)
+        self.rot = np.exp(1j * ang.astype(np.float64)).astype(np.complex64)
+        self._consts: dict = {}
+
+    @classmethod
+    def for_rates(cls, samp_rate: float, num_channels: int,
+                  atten_db: float = 60.0) -> "PfbChannelizer":
+        bin_bw = samp_rate / num_channels
+        taps = _taps.optimal_low_pass(1.0, samp_rate, 0.40 * bin_bw,
+                                      0.55 * bin_bw,
+                                      stopband_atten_db=atten_db)
+        return cls(num_channels, taps)
+
+    def init(self, n_sources: int, device) -> PfbState:
+        return PfbState(history=torch.zeros(
+            (n_sources, (self.p - 1) * self.num_channels),
+            dtype=torch.complex64, device=device))
+
+    def rows(self, state: PfbState, x: torch.Tensor
+             ) -> tuple[PfbState, torch.Tensor]:
+        """x [S, T] complex64, T % M == 0 → (state, channels time-major
+        [S, T//M, M] complex64).
+
+        The polyphase combiner accumulates the P shifted row views of
+        history ++ block (rows of M samples) in float32, one in-place
+        multiply-add each; the [N, P, M] window stack the JAX einsum reads
+        is never built (at 128 sources × 100 ms of 2.4 MS/s it would be
+        5.9 GB). Then one M-point inverse FFT per row (cuFFT on CUDA)."""
+        m, p = self.num_channels, self.p
+        s, t = x.shape
+        if t % m:
+            raise ValueError(f"block {t} is not a multiple of M={m}")
+        n = t // m
+        z = torch.cat([state.history, x.to(torch.complex64)], dim=1)
+        zr = torch.view_as_real(z).view(s, n + p - 1, m, 2)
+        hp2 = device_const(self._consts, "hp2", self.hp2, x.device)[..., None]
+        # v'[t, m'] = Σ_q hp2[m', q] · zr[t + P-1-q, m']
+        acc = zr[:, p - 1:p - 1 + n] * hp2[:, 0]
+        for q in range(1, p):
+            acc.addcmul_(zr[:, p - 1 - q:p - 1 - q + n], hp2[:, q])
+        v = torch.view_as_complex(acc.contiguous()).flip(-1)  # undo the flip
+        # the branch combiner is an IDFT: y[n, c] = Σ_m v[n, m] e^{+j2πcm/M}
+        y = torch.fft.ifft(v, dim=-1, norm="forward") * device_const(
+            self._consts, "rot", self.rot, x.device)
+        hist = z[:, z.shape[1] - (p - 1) * m:].contiguous()
+        return PfbState(history=hist), y
+
+    def __call__(self, state: PfbState, x: torch.Tensor
+                 ) -> tuple[PfbState, torch.Tensor]:
+        """x [S, T] complex64, T % M == 0 → channels [S, M, T//M]."""
+        state, y = self.rows(state, x)
+        return state, y.transpose(1, 2)
+
+    def channel_offset_hz(self, c: int, samp_rate: float) -> float:
+        m = self.num_channels
+        return ((c + m // 2) % m - m // 2) * samp_rate / m
+
+
+class PfbXlatBankState(NamedTuple):
+    pfb: PfbState
+    fine: XlatState   # history [S, C, K2-1] complex64, phase [S, C] int64
+
+
+class PfbXlatBank:
+    """``frontend_mode`` 'pfb' (port of the JAX ``PfbXlatBank``,
+    channelizer.py:309-366): the coarse PFB into ``bin_rate`` bins, then a
+    fine freq-xlating FIR per slot from its bin, the reference's two-stage
+    path (``channelizer_ccf`` bins at 400 kS/s feeding per-channel xlat
+    filters at ``offset - chan·pfb_rate``, rc_frontend/receiver.py:
+    242-261, 343-423). The ``XlatBank`` contract; the slot → bin routing
+    is computed from ``offsets_norm`` every step.
+
+    The fine stage is the complex bank kernel (``bank_complex``,
+    ``csrc/xlat_complex.cu``) with each slot as a one-slot source: S·C
+    rows of its bin's samples, one K2-tap filter each, decimating by
+    ``decim2``. That is what the JAX ``vmap(freq_xlating_fir)`` computes
+    (ops/fir.py:117-143: the same tap modulation, correlation order and
+    uint32 ramp). The bins are gathered into an [S·C, T/M] complex64
+    block first: 2.6 GB per step at 128 sources × 64 slots × 100 ms of
+    2.4 MS/s."""
+
+    def __init__(self, num_slots: int, samp_rate: float,
+                 channel_rate: float, bin_rate: float = 400e3,
+                 out_per_channel_rate: float | None = None):
+        m = int(round(samp_rate / bin_rate))
+        if m < 1 or abs(samp_rate - m * bin_rate) > 1e-3:
+            raise ValueError("samp_rate not round enough"
+                             f" for {bin_rate} Hz bins: {samp_rate}")
+        self.num_slots = num_slots
+        self.samp_rate = float(samp_rate)
+        self.bin_rate = float(bin_rate)
+        self.m = m
+        self.pfb = PfbChannelizer.for_rates(samp_rate, m, atten_db=80.0)
+        out_rate = out_per_channel_rate or 2.0 * channel_rate
+        self.decim2 = int(round(bin_rate / out_rate))
+        self.decim = m * self.decim2
+        self.fine_taps = np.asarray(_taps.low_pass_2(
+            1.0, bin_rate, channel_rate / 2.0, 0.25 * channel_rate, 60.0),
+            np.float32)
+        self.ntaps2 = len(self.fine_taps)
+        self._consts: dict = {}
+
+    def init(self, n_sources: int, device) -> PfbXlatBankState:
+        sc = (n_sources, self.num_slots)
+        return PfbXlatBankState(
+            pfb=self.pfb.init(n_sources, device),
+            fine=XlatState(
+                history=torch.zeros(sc + (self.ntaps2 - 1,),
+                                    dtype=torch.complex64, device=device),
+                phase=torch.zeros(sc, dtype=torch.int64, device=device)))
+
+    def route(self, offsets_norm: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Slot → bin routing (reference ``chan = round(offset /
+        pfb_rate)``, negative bins wrapped, rc_frontend/receiver.py:
+        394-400): (bin [S, C] int64 in [0, M), fine offset [S, C] float32
+        in cycles per bin sample). In float32 as the JAX package computes
+        it, so a slot half a bin off rounds (half to even) as there."""
+        cyc = offsets_norm.to(torch.float32) * float(np.float32(self.m))
+        chan = torch.round(cyc)
+        return torch.remainder(chan.to(torch.int64), self.m), cyc - chan
+
+    def fine_operands(self, state: PfbXlatBankState, x: torch.Tensor,
+                      offsets_norm: torch.Tensor) -> tuple:
+        """The coarse PFB step, then the fine stage's ``bank_complex``
+        operands, each slot a one-slot source: (PFB state, x [S·C, T/M, 2]
+        float32 its bin's samples, history [S·C, K2-1], grev [S·C, 1, K2],
+        phase0 and step [S·C, 1])."""
+        ps, rows = self.pfb.rows(state.pfb, as_complex(x))  # [S, T/M, M]
+        bins, fine = self.route(offsets_norm)
+        s, c = bins.shape
+        src = torch.arange(s, device=rows.device)[:, None]
+        sel = rows.transpose(1, 2)[src, bins]                # [S, C, T/M]
+        h = device_const(self._consts, "taps", self.fine_taps, rows.device)
+        return (ps, torch.view_as_real(sel.reshape(s * c, -1)),
+                state.fine.history.reshape(s * c, -1),
+                modulated_taps(h, fine.reshape(s * c, 1)),
+                state.fine.phase.reshape(s * c, 1),
+                phase_step_u32(fine, self.decim2).reshape(s * c, 1))
+
+    def __call__(self, state: PfbXlatBankState, x: torch.Tensor,
+                 offsets_norm: torch.Tensor
+                 ) -> tuple[PfbXlatBankState, torch.Tensor]:
+        """x [S, T] complex64 (or an [S, T, 2] wire block), T % decim ==
+        0; offsets_norm [S, C] cycles/input sample → channels [S, C,
+        T//decim] complex64."""
+        ps, xf, hist, grev, phase0, step = self.fine_operands(
+            state, x, offsets_norm)
+        y = bank_complex(xf, hist, grev, phase0, step, self.decim2)
+        s, c = state.fine.phase.shape
+        n = y.shape[-1]
+        fs = XlatState(history=complex_history(hist, xf).view(s, c, -1),
+                       phase=((phase0 + step * n) & U32_MASK).view(s, c))
+        return PfbXlatBankState(pfb=ps, fine=fs), y.view(s, c, n)
+
+    def call_planes(self, state: PfbXlatBankState, x: torch.Tensor,
+                    offsets_norm: torch.Tensor
+                    ) -> tuple[PfbXlatBankState, torch.Tensor, torch.Tensor]:
+        """``__call__`` with the channels as time-major float32 planes
+        y_re, y_im [S, T//decim, C], the layout the trackers read."""
+        state, y = self(state, x, offsets_norm)
+        return (state, *planes(y))

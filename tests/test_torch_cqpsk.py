@@ -160,14 +160,22 @@ def test_cqpsk_pipeline_matches_jax():
     the systems swapped), two blocks: signal slots within 1e-3 with
     identical decisions, noise slots to NOISE_VALID_AGREE; both systems
     decode on both sources."""
-    fs, n_src, n_slots = 400e3, 2, 4
+    check_cqpsk_pipeline()
+
+
+def check_cqpsk_pipeline(fs=400e3, frontend="xlat"):
+    """``test_cqpsk_pipeline_matches_jax`` at ``fs`` with the JAX and the
+    port's pipelines on ``frontend``: two blocks, each a whole number of
+    the pipeline's block multiple."""
+    n_src, n_slots = 2, 4
     systems = [_make_control_stream(5, nac=n) for n in (0x293, 0x123)]
     iqs = [M.upsample_to(M.cqpsk_modulate(d, fs=FS), FS, fs)
            for d, _ in systems]
-    jp = JPipe.p25_cqpsk(num_slots=n_slots, samp_rate=fs)
-    tp = CqpskControlPipeline.p25_cqpsk(n_slots, fs)
+    jp = JPipe.p25_cqpsk(num_slots=n_slots, samp_rate=fs, frontend=frontend)
+    tp = CqpskControlPipeline.p25_cqpsk(n_slots, fs, frontend=frontend)
     assert (tp.decim, tp.block_multiple) == (jp.decim, jp.block_multiple)
-    block = max(map(len, iqs)) // (2 * tp.decim) * tp.decim
+    bm = tp.block_multiple
+    block = max(1, -(-max(map(len, iqs)) // (2 * bm))) * bm
     wide = [M.multi_channel(fs, [(-75e3, a), (50e3, b)], 2 * block,
                             noise_floor_db=-50.0,
                             rng=np.random.default_rng(7 + i))
@@ -181,6 +189,13 @@ def test_cqpsk_pipeline_matches_jax():
     for a, w in zip(t, j):
         assert a.dtype == w.dtype
     sig = np.s_[:, :2]
+    if frontend != "xlat":
+        # a fft block is a whole FFT window: from the bursts' end on the
+        # signal slots carry a near-silent tail where the loop runs on
+        # rounding noise, as the noise slots do (measured: symbols off by
+        # > SYM_ATOL from 14 samples before the end); held to the bursts
+        # but their last millisecond
+        sig = np.s_[:, :2, :max(map(len, iqs)) // tp.decim - 25]
     np.testing.assert_array_equal(t[1][sig], j[1][sig])
     np.testing.assert_array_equal(t[2][sig], j[2][sig])
     np.testing.assert_allclose(t[0][sig], j[0][sig], atol=SYM_ATOL)

@@ -2,7 +2,7 @@
 against the JAX pipeline (vmapped over sources, as the production loop
 runs it) on the same wire blocks and offsets, blocks in a row, with a
 mid-stream hand-off of the JAX state through ``convert.state_from_jax``.
-Plus: the package never loads jax, and unported frontends refuse."""
+Plus: the package never loads jax, and only unknown frontends refuse."""
 
 import os
 import subprocess
@@ -61,20 +61,22 @@ def _fixture(kind):
     return None, np.zeros(5400, np.complex64)
 
 
-def _pipes(kind):
+def _pipes(kind, fs=FS, frontend="xlat"):
     ctor, chan = _fixture(kind)
     if ctor is None:       # the 6000 Bd C4FM-TDMA class (runtime.py:341)
-        args = (N_SLOTS, FS, 12500.0, 6000.0, (-3.0, -1.0, 1.0, 3.0), 600.0)
-        return JPipe(*args), ControlPipeline(*args), chan
-    return (getattr(JPipe, ctor)(N_SLOTS, FS),
-            getattr(ControlPipeline, ctor)(N_SLOTS, FS), chan)
+        args = (N_SLOTS, fs, 12500.0, 6000.0, (-3.0, -1.0, 1.0, 3.0), 600.0)
+        return (JPipe(*args, frontend=frontend),
+                ControlPipeline(*args, frontend=frontend), chan)
+    return (getattr(JPipe, ctor)(N_SLOTS, fs, frontend=frontend),
+            getattr(ControlPipeline, ctor)(N_SLOTS, fs, frontend=frontend),
+            chan)
 
 
-def _wideband(chan, n_blocks, block):
-    up = M.upsample_to(chan, 25000.0, FS)
+def _wideband(chan, n_blocks, block, fs=FS):
+    up = M.upsample_to(chan, 25000.0, fs)
     n = n_blocks * block
-    src0 = M.multi_channel(FS, [(OFFSET_HZ, up)], n)
-    src1 = M.multi_channel(FS, [], n, noise_floor_db=-10.0,
+    src0 = M.multi_channel(fs, [(OFFSET_HZ, up)], n)
+    src1 = M.multi_channel(fs, [], n, noise_floor_db=-10.0,
                            rng=np.random.default_rng(3))
     return np.stack([np.stack([s.real, s.imag], -1) for s in (src0, src1)]
                     ).astype(np.float32)            # [S, n, 2]
@@ -100,13 +102,23 @@ def _decode(kind, syms, valid):
 
 @pytest.mark.parametrize("kind", ["p25", "edacs", "moto", "c4fm_tdma"])
 def test_control_pipeline_matches_jax(kind):
-    jp, tp, chan = _pipes(kind)
+    check_control_pipeline(kind)
+
+
+def check_control_pipeline(kind, fs=FS, frontend="xlat", fsk4_block=0):
+    """The port's ``ControlPipeline.step`` against the JAX pipeline with
+    the same ``frontend_mode`` and ``fsk4_block`` at ``fs``: blocks of
+    1000 tracked samples, rounded up to the bank's block multiple, the
+    JAX state handed over after the first."""
+    jp, tp, chan = _pipes(kind, fs, frontend)
+    jp.fsk4_block = tp.fsk4_block = fsk4_block
     assert (tp.decim, tp.block_multiple) == (jp.decim, jp.block_multiple)
-    block = tp.block_multiple * 1000
-    n_blocks = -(-len(chan) * 8 // block) + 1
-    x = _wideband(chan, n_blocks, block)
+    bm = tp.block_multiple
+    block = -(-(tp.decim * tp.sym_decim * 1000) // bm) * bm
+    n_blocks = -(-len(chan) * round(fs / 25000.0) // block) + 1
+    x = _wideband(chan, n_blocks, block, fs)
     offs = np.zeros((N_SRC, N_SLOTS), np.float32)
-    offs[:, SIG_SLOT] = OFFSET_HZ / FS
+    offs[:, SIG_SLOT] = OFFSET_HZ / fs
     offs[:, 2] = -0.3
     offs[:, 3] = 0.11
     jstep = jax.jit(jax.vmap(jp._step_impl))
@@ -130,12 +142,18 @@ def test_control_pipeline_matches_jax(kind):
         outs["torch"].append([o.numpy() for o in to])
     j = [np.concatenate([o[i] for o in outs["jax"]], -1) for i in range(3)]
     t = [np.concatenate([o[i] for o in outs["torch"]], -1) for i in range(3)]
-    m = block // tp.block_multiple
+    m = block // (tp.decim * tp.sym_decim)
     assert t[0].shape == (N_SRC, N_SLOTS, n_blocks * m)
     for a, w in zip(t, j):
         assert a.dtype == w.dtype
-    # the fixture lane: identical decisions, symbols within SIG_SYM_ATOL
+    # the fixture lane: identical decisions, symbols within SIG_SYM_ATOL.
+    # A fft block is a whole FFT window (2033 tracked samples at 200 kHz),
+    # so after the burst the lane carries a long near-silent tail where
+    # the loop runs on rounding noise and drifts as the noise lanes do:
+    # there the lane is held to the burst but its last millisecond.
     sig = (0, SIG_SLOT)
+    if frontend != "xlat":
+        sig += (slice(0, (len(chan) - 25) // tp.sym_decim),)
     np.testing.assert_array_equal(t[1][sig], j[1][sig])
     np.testing.assert_array_equal(t[2][sig], j[2][sig])
     np.testing.assert_allclose(t[0][sig], j[0][sig], atol=SIG_SYM_ATOL)
@@ -159,11 +177,19 @@ def test_fine_freq_and_freq_shift():
 
 
 def test_unsupported_frontend_raises():
-    for fe in ("pfb", "fft"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ControlPipeline.p25_c4fm(4, FS, frontend=fe)
-    with pytest.raises(ValueError):
+    """Every ``frontend_mode`` of the JAX package builds, with its bank;
+    only an unknown mode raises, as does a rate the pfb bins do not
+    divide (the JAX ``PfbXlatBank`` refuses it too)."""
+    for fe, fs, bank in (("xlat", FS, "XlatBank"), ("fft", FS, "FftXlatBank"),
+                         ("pfb", 4 * FS, "PfbXlatBank")):
+        pipe = ControlPipeline.p25_c4fm(4, fs, frontend=fe)
+        assert type(pipe.bank).__name__ == bank
+        assert pipe.block_multiple == JPipe.p25_c4fm(
+            4, fs, frontend=fe).block_multiple
+    with pytest.raises(ValueError, match="unknown frontend_mode"):
         ControlPipeline.p25_c4fm(4, FS, frontend="nope")
+    with pytest.raises(ValueError, match="not round enough"):
+        ControlPipeline.p25_c4fm(4, FS, frontend="pfb")
 
 
 def test_entry_step_shapes():

@@ -134,7 +134,7 @@ def test_voice_track_plain_matches_jax():
 
 def _wideband(n):
     """[S, n, 2] f32 wire: an FM 1 kHz tone at TONE_OFFSET_HZ on source
-    0, noise on source 1."""
+    0, noise on source 1, at FS."""
     t = np.arange(n // 96 + 1) / 25000.0
     tone = JM.fm_modulate(0.8 * np.sin(2 * np.pi * TONE_HZ * t), 25000.0,
                           2500.0)
@@ -152,9 +152,19 @@ def test_analog_pipeline_matches_jax():
     over mid-stream through ``convert``: audio within BANK_ATOL (tone
     lane: every sample; all lanes: NOISE_AUDIO_SHARE of them), power
     within 1e-4 relative."""
-    jp, tp = JVoice(N_SLOTS, FS), AnalogVoicePipeline(N_SLOTS, FS)
+    check_analog_pipeline()
+
+
+def check_analog_pipeline(frontend="xlat"):
+    """``test_analog_pipeline_matches_jax`` with the JAX and the port's
+    pipelines on ``frontend``: three blocks of ~20 ms (a whole number of
+    the pipeline's block multiple)."""
+    jp = JVoice(N_SLOTS, FS, frontend=frontend)
+    tp = AnalogVoicePipeline(N_SLOTS, FS, frontend=frontend)
     assert (tp.decim, tp.block_multiple) == (jp.decim, jp.block_multiple)
-    block = tp.block_multiple * 500
+    bm = tp.block_multiple
+    block = bm * max(1, round(48000 / bm))
+    n_out = block // tp.decim
     x = _wideband(3 * block)
     offs = np.tile(np.linspace(-0.4, 0.4, N_SLOTS, dtype=np.float32),
                    (N_SRC, 1))
@@ -177,7 +187,7 @@ def test_analog_pipeline_matches_jax():
         tst, (audio, power) = tp.step(tst, wire_from_numpy(xb, "cpu"),
                                       torch.from_numpy(offs))
         jaudio = np.asarray(jaudio)
-        assert audio.shape == jaudio.shape == (N_SRC, N_SLOTS, 500)
+        assert audio.shape == jaudio.shape == (N_SRC, N_SLOTS, n_out)
         err = np.abs(audio.numpy() - jaudio)
         assert float(err[0, TONE_SLOT].max()) <= BANK_ATOL
         assert float(np.mean(err <= BANK_ATOL)) >= NOISE_AUDIO_SHARE
@@ -185,7 +195,7 @@ def test_analog_pipeline_matches_jax():
                                    rtol=1e-4)
     # the tone slot carries the 1 kHz tone
     spec = np.abs(np.fft.rfft(audio.numpy()[0, TONE_SLOT]))
-    assert abs(np.argmax(spec) * tp.channel_fs / 500 - TONE_HZ) <= 50.0
+    assert abs(np.argmax(spec) * tp.channel_fs / n_out - TONE_HZ) <= 50.0
 
 
 def test_recorder_to_8k_matches_jax():
