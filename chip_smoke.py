@@ -33,7 +33,8 @@ card: builds the five CUDA kernels and drives the port's three paths.
    (``pfb fine bank:``), both modes' step at 128 sources (``bench
    pfb:``, ``bench fft:``; fft's block is 390336 samples, 162.6 ms), and
    the step with ``fsk4_block = 10`` against the tracker kernel's
-   (``fsk4 block:``).
+   (``fsk4 block:``) and a P25 grant through it (``decode fsk4
+   block:``, no tracker kernel launched).
 3. The site runtime: checks the fused analog voice kernel against its
    plain version (small, ragged and bench shapes; audio, power and the
    de-emphasis output within tolerance, the carried discriminator value
@@ -1657,7 +1658,8 @@ def phase_fsk4_block(dev, pipe) -> dict:
     """``ControlPipeline.fsk4_block = 10`` at the C4FM bench shape: the
     step with ``fsk4_demod_block`` (plain torch on the card: ~25 eager
     ops per 10-sample chunk, 125 chunks per block) against the same step
-    on the exact tracker kernel, host clock with a sync per step."""
+    on the exact tracker kernel, host clock with a sync per step; then
+    the decode phase's P25 grants through the block tracker."""
     s = BENCH_SOURCES
     gen = torch.Generator(device=dev).manual_seed(5)
     x = torch.randn((s, BLOCK, 2), generator=gen, device=dev).to(
@@ -1678,6 +1680,12 @@ def phase_fsk4_block(dev, pipe) -> dict:
         if not bool(torch.isfinite(out[0]).all()):
             raise AssertionError("non-finite symbols")
         res[f"step_ms_block{blk}"] = float(np.median(times))
+    # the block tracker's output: the decode phase's P25 grants, with the
+    # tracker kernel launched no time
+    pipe.fsk4_block = 10
+    launches = phase_decode(dev, pipe, "decode fsk4 block", ("xlat_bank",))
+    if launches["fsk_track"]:
+        raise AssertionError(f"fsk4_block ran the tracker kernel: {launches}")
     pipe.fsk4_block = 0
     log(f"fsk4 block: C4FM bench shape S={s} C={SLOTS}: step with "
         f"fsk4_block=10 (plain torch) {res['step_ms_block10']:.3f} ms "

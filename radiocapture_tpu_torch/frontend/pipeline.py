@@ -45,7 +45,7 @@ from radiocapture_tpu_torch.demod.track_kernel import (TrackParams, track,
 from radiocapture_tpu_torch.ops import taps as _taps
 from radiocapture_tpu_torch.ops import fm as _fm
 from radiocapture_tpu_torch.ops.channelizer import (PfbXlatBank, XlatBank,
-                                                    XlatBankState, as_complex)
+                                                    XlatBankState)
 from radiocapture_tpu_torch.ops.fft_bank import FftXlatBank
 from radiocapture_tpu_torch.ops.fir import phase_step_u32
 from radiocapture_tpu_torch.ops.fm_kernel import voice_track
@@ -66,16 +66,6 @@ def _make_bank(frontend: str, num_slots: int, samp_rate: float,
     raise ValueError(f"unknown frontend_mode {frontend!r}")
 
 
-def _bank_planes(bank, state, x: torch.Tensor, offsets_norm: torch.Tensor):
-    """One bank step → (state, y_re, y_im [S, N, C] float32 planes). The
-    xlat bank reads the wire block (``call_planes``, the fused bf16
-    bank); the pfb and fft banks take it as complex64, as the JAX
-    ``_bank_step`` does (pipeline.py:44-54)."""
-    if isinstance(bank, XlatBank):
-        return bank.call_planes(state, _wire(x), offsets_norm)
-    return bank.call_planes(state, as_complex(x), offsets_norm)
-
-
 def _block_multiple(bank) -> int:
     return int(getattr(bank, "block_multiple", bank.decim))
 
@@ -90,13 +80,6 @@ def _offsets_for(freqs_hz: np.ndarray, center_hz: float,
                  samp_rate: float) -> np.ndarray:
     return ((np.asarray(freqs_hz, np.float64) - center_hz)
             / samp_rate).astype(np.float32)
-
-
-def _wire(x: torch.Tensor) -> torch.Tensor:
-    """[S, T] complex → the [S, T, 2] wire layout; wire blocks pass."""
-    if x.is_complex():
-        return torch.view_as_real(x.to(torch.complex64))
-    return x
 
 
 class ControlPipelineState(NamedTuple):
@@ -193,7 +176,7 @@ class ControlPipeline:
         Returns (state, (symbols [S, C, M] f32, valid [S, C, M] int32 0/1,
         dibits [S, C, M] int32)) with M = T // (decim · sym_decim)."""
         _check_block(x, self.block_multiple)
-        bs, y_re, y_im = _bank_planes(self.bank, state.bank, x, offsets_norm)
+        bs, y_re, y_im = self.bank.call_planes(state.bank, x, offsets_norm)
         if self.fsk4_block > 1:
             quad, sym_hist, fsk4, syms, valid, dibits = track_plain(
                 y_re, y_im, state.quad, state.sym_hist, state.fsk4,
@@ -286,7 +269,7 @@ class CqpskControlPipeline:
         """Same contract as :meth:`ControlPipeline.step`; here
         M = T // decim (one output per channel sample)."""
         _check_block(x, self.block_multiple)
-        bs, y_re, y_im = _bank_planes(self.bank, state.bank, x, offsets_norm)
+        bs, y_re, y_im = self.bank.call_planes(state.bank, x, offsets_norm)
         scale = _cqpsk.agc_scale(y_re, y_im, dim=1)          # [S, C]
         cs, syms, valid, dibits = track_cqpsk(
             y_re, y_im, scale, state.cqpsk, self.channel_fs,
@@ -345,7 +328,7 @@ class AnalogVoicePipeline:
         offsets_norm [S, num_slots] → (state, (audio [S, C, T//decim]
         float32, power [S, C] float32 mean |chan|²))."""
         _check_block(x, self.block_multiple)
-        bs, y_re, y_im = _bank_planes(self.bank, state.bank, x, offsets_norm)
+        bs, y_re, y_im = self.bank.call_planes(state.bank, x, offsets_norm)
         quad, deemph, audio, power = voice_track(
             y_re, y_im, state.quad, state.deemph, self.gain, self.channel_fs)
         return (VoicePipelineState(bank=bs, quad=quad, deemph=deemph),

@@ -174,13 +174,16 @@ class XlatBank:
     def call_planes(self, state: XlatBankState, x2: torch.Tensor,
                     offsets_norm: torch.Tensor
                     ) -> tuple[XlatBankState, torch.Tensor, torch.Tensor]:
-        """x2 [S, T, 2] float32/bf16 wire block, T % decim == 0;
-        offsets_norm [S, C] float32 cycles/sample.
+        """x2 [S, T, 2] float32/bf16 wire block (an [S, T] complex block
+        as its float32 view), T % decim == 0; offsets_norm [S, C] float32
+        cycles/sample.
         Returns (state, y_re, y_im) with time-major planes [S, T//decim, C]
         float32 — the layout the tracker kernel reads. The new history is
         ``carried_history``: history ++ x2 in the wire's dtype, not the
         kernel's bf16 z2."""
         d, p = self.decim, self.p
+        if x2.is_complex():
+            x2 = torch.view_as_real(x2.to(torch.complex64))
         t = x2.shape[1]
         if t % d or x2.shape[-1] != 2 or x2.dim() != 3:
             raise ValueError(f"x2 must be [S, T, 2] with T % {d} == 0, "

@@ -155,12 +155,7 @@ class FftXlatBank:
         y = outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
         return FftXlatBankState(history=hist, phase=phase), y
 
-    def call_wire(self, state: FftXlatBankState, x2: torch.Tensor,
-                  offsets_norm: torch.Tensor
-                  ) -> tuple[FftXlatBankState, torch.Tensor]:
-        """The [S, T, 2] wire layout (one complexify pass at the wideband
-        rate; the FFT takes complex input)."""
-        return self(state, as_complex(x2), offsets_norm)
+    call_wire = __call__   # the JAX contract's name; takes either layout
 
     def call_planes(self, state: FftXlatBankState, x: torch.Tensor,
                     offsets_norm: torch.Tensor

@@ -769,17 +769,35 @@ def test_frontend_pipeline_on_card_matches_cpu(cuda_device, frontend, fs):
     bank on the card and on the CPU: the banks' channels within
     1e-4·max|y| (the pfb fine stage on the complex bank kernel), the
     fixture slot's decisions agree and decode the same grants."""
+    check_card_against_cpu(cuda_device, frontend, fs)
+
+
+@pytest.mark.cuda
+def test_fsk4_block_on_card_matches_cpu(cuda_device):
+    """``ControlPipeline.fsk4_block = 10`` (pfb bank): the step's plain
+    chain discriminator → boxcar → ``fsk4_demod_block`` → slicer on the
+    card, with no tracker kernel launched, against the same step on the
+    CPU: the fixture slot's decisions agree and decode the same grants."""
+    check_card_against_cpu(cuda_device, "pfb", 800e3, fsk4_block=10)
+
+
+def check_card_against_cpu(dev0, frontend, fs, fsk4_block=0):
+    """The P25 fixture at +50 kHz through ``ControlPipeline.step`` on
+    ``dev0`` and on the CPU, one block multiple at a time (with
+    ``fsk4_block``, 100 multiples: 100 tracked samples at 800 kHz, ten
+    chunks of the block tracker)."""
     pipe = ControlPipeline.p25_c4fm(8, fs, frontend=frontend)
+    pipe.fsk4_block = fsk4_block
     dib, expected = streams.p25_control_stream(4)
     iq = M.upsample_to(M.c4fm_modulate(dib, 25000.0), 25000.0, fs)
-    bm = pipe.block_multiple
+    bm = pipe.block_multiple * (100 if fsk4_block else 1)
     n = -(-len(iq) // bm) * bm
     x = complex_to_wire(M.multi_channel(fs, [(50e3, iq)], n)[None], "cpu")
     offs = torch.zeros((1, 8))
     offs[0, 2] = 50e3 / fs
     offs[0, 5] = -0.3
     outs, chans = [], []
-    for dev in (cuda_device, torch.device("cpu")):
+    for dev in (dev0, torch.device("cpu")):
         st = pipe.bank.init(1, dev)
         before = ck.bank_complex.launches
         _, y = pipe.bank(st, x[:, :bm].to(dev), offs.to(dev))
@@ -788,9 +806,13 @@ def test_frontend_pipeline_on_card_matches_cpu(cuda_device, frontend, fs):
         chans.append(y.cpu())
         st = pipe.init(1, dev)
         got = []
+        tracks = tk.track.launches
         for b in range(0, n, bm):
             st, out = pipe.step(st, x[:, b:b + bm].to(dev), offs.to(dev))
             got.append([o.cpu() for o in out])
+        if dev.type == "cuda":
+            assert tk.track.launches - tracks == (0 if fsk4_block else
+                                                  n // bm)
         outs.append([torch.cat([g[i] for g in got], -1) for i in range(3)])
     scale = float(chans[1].abs().max())
     err = float((chans[0] - chans[1]).abs().max())

@@ -289,12 +289,13 @@ def test_p25_grant_recording_matches_jax(tmp_path):
     """``test_torch_runtime.py``'s P25 C4FM grant → recording with
     ``frontend_mode: pfb`` in both runtimes: the instance locks, one
     ``c4fm`` recorder opens, the CDR carries group 500 / user 42, and the
-    recorder captured the same IMBE codewords as the JAX runtime's."""
+    recorder captured the same IMBE codewords as the JAX runtime's. 20
+    blocks: the call and its nine voice frames end by the 16th."""
     def add(cfg, rx):
         _p25("C4FM")(cfg, rx)
         cfg.frontend_mode = "pfb"
 
-    runs = _both(tmp_path, _wideband_capture(), add, 40)
+    runs = _both(tmp_path, _wideband_capture(), add, 20)
     frames = {}
     for which, (rt, active, completed, wavs) in runs.items():
         assert type(rt.groups[(2400000, "c4fm")]["pipe"].bank).__name__ == \
