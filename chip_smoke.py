@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``radiocapture_tpu_torch``) on one CUDA
-card: builds the five CUDA kernels and drives the port's three paths.
+card: builds the five CUDA kernels and drives the port's three paths
+and the scan slice.
 
 1. P25 C4FM control: checks the bank and fsk tracker kernels against
    their plain PyTorch versions (the tracker with the P25 and the EDACS
@@ -47,6 +48,17 @@ card: builds the five CUDA kernels and drives the port's three paths.
    ``SiteRuntime.step`` at 128 sources × 64 slots (groups ``c4fm`` and
    ``analog``); the decode and the timing again with ``frontend_mode:
    pfb`` (``runtime decode pfb:``, ``runtime bench pfb:``).
+4. The scan slice, on the kernels above: ``SpectrumScanner`` on cuFFT
+   (two carriers, held per bin to the CPU port's spectrum, the same
+   peaks), ``trial_p25_lock`` (three candidates; only the true control
+   channel locks, deciding as the CPU port), the scan CLI's fft mode on
+   a written capture, ``ScanningReceiver``'s squelch cycle over 40
+   channels and both ``file_to_wav`` chains against the CPU port
+   (``decode scan:``, ``decode scanner:``, ``decode file_to_wav:``);
+   then ``bench scan:`` on one 2.4 MS/s source (the spectrum over 10 s,
+   the trial bank at 64 slots with its host parts, the band scan's 192
+   candidates in passes of 40, ``run_fft_scan`` and both
+   ``file_to_wav`` chains over 10 s) and a ``tools:`` JSON line.
 
     python3 chip_smoke.py
 
@@ -133,6 +145,21 @@ VOICE_OPS = 10
 RAGGED_SLOTS = 40          # a lane count off the fsk tracker's 32-slot tile
 PFB_ROWS = 64              # pfb fine-stage rows held to the plain version
 CLOCK_RUN_S = 1.0          # tracker run while nvidia-smi samples clocks
+# the scan slice (scan/, tools/file_to_wav.py)
+SCAN_CENTER = 857.0e6
+SCAN_CC = 857.5e6          # the P25 site's control channel (test_scan.py)
+SCAN_ANALOG = 856.7e6      # bench capture: an analog FM tone, -300 kHz
+SCAN_VOICE = 857.1e6       # bench capture: P25 LDU1 voice, +100 kHz
+SCAN_BENCH_S = 10.0        # spectrum, run_fft_scan and file_to_wav
+SCAN_TRIAL_S = 2.0         # the trial bank and the band scan
+TRIAL_SLOTS = 64           # trial_p25_lock's max_slots
+BAND_PASS = 40             # run_band_scan's slots a pass (ov_scan.py:34)
+SCAN_CHANNELS = 40         # the conventional scanner's channels
+OFFSET_TOL_HZ = 1.0        # trial offsets, card vs CPU
+# The analog WAV, card vs CPU: the card's bank takes bf16 operands, so
+# its channels are within BANK_REL_TOL of the CPU's; the FM discriminator
+# sees that as phase noise. Held as a share of PCM full scale.
+WAV_REL_TOL = BANK_REL_TOL
 
 
 def log(*parts):
@@ -1694,6 +1721,374 @@ def phase_fsk4_block(dev, pipe) -> dict:
     return res
 
 
+def spectrum_close(got, want, what: str) -> float:
+    """Spectrum ``got`` against ``want`` per bin within
+    ``streams.spectrum_tolerance`` (two float32 FFTs differ by a few ulps
+    of the largest bin). Returns max |err|."""
+    from radiocapture_tpu_torch.testing import streams
+    tol = streams.spectrum_tolerance(want)
+    err = np.abs(got - want)
+    strong = want.max() - want < 6.0
+    ok = bool(np.all(err <= tol))
+    log(f"decode scan: {what} card vs CPU spectrum max_abs_err "
+        f"{float(err.max()):.3e} (within 6 decades of the peak "
+        f"{float(err[strong].max()):.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the card's spectrum disagrees with the CPU's")
+    return float(err.max())
+
+
+def phase_decode_scan(dev) -> dict:
+    """The scan slice's path on the card: ``SpectrumScanner`` →
+    ``find_channels`` on ``tests/test_scan.py``'s two carriers (both
+    found, the same peaks as the CPU port's), ``trial_p25_lock`` with
+    three candidates on its site capture (only the true control channel
+    locks, with its System ID, Site ID, Control Channel and offset; the
+    CPU port decides alike), and the scan CLI's fft mode on a written
+    capture (a locked summary line). Fails unless ``xlat_bank`` and
+    ``fsk_track`` ran. Returns the kernels' launch counts."""
+    import tempfile
+    from radiocapture_tpu_torch.scan import (SpectrumScanner, find_channels,
+                                             trial_p25_lock)
+    from radiocapture_tpu_torch.scan.__main__ import main as scan_main
+    from radiocapture_tpu_torch.testing import streams
+    wide = streams.two_carriers(SAMP_RATE)
+    x = np.stack([wide.real, wide.imag], -1)
+    site = streams.site_capture(SCAN_CC, SCAN_CENTER)
+    cands = [SCAN_CC + 200.0, SCAN_CENTER - 300e3, SCAN_CENTER + 600e3]
+    cli_cc = SCAN_CC - 100e3
+    ch = streams.site_capture(cli_cc, SCAN_CENTER, n_frames=30)
+    cli = streams.site_capture(cli_cc, SCAN_CENTER, n_frames=30,
+                               n=len(ch) // 16384 * 16384,
+                               rng=np.random.default_rng(3))
+    sc = SpectrumScanner(16384)
+    want_spec = sc.spectrum_db(sc.step(sc.init("cpu"), x))
+    want_trial = trial_p25_lock(site, SAMP_RATE, SCAN_CENTER, cands,
+                                device="cpu")
+    reset_kernel_counts()
+    spec = sc.spectrum_db(sc.step(sc.init(dev), x))
+    results = trial_p25_lock(site, SAMP_RATE, SCAN_CENTER, cands,
+                             device=dev)
+    with tempfile.TemporaryDirectory(prefix="rc_smoke_scan_") as tmp:
+        path, out = Path(tmp) / "cap.dat", Path(tmp) / "fft.scan.output"
+        cli.astype(np.complex64).tofile(path)
+        scan_main(["fft", str(path), "-r", str(SAMP_RATE), "-f",
+                   str(SCAN_CENTER), "-o", str(out)], device=dev)
+        lines = out.read_text().splitlines()
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    err = spectrum_close(spec, want_spec, "two carriers")
+    peaks = [p.frequency for p in find_channels(spec, SAMP_RATE,
+                                                SCAN_CENTER)]
+    want_peaks = [p.frequency for p in find_channels(want_spec, SAMP_RATE,
+                                                     SCAN_CENTER)]
+    found = all(any(abs(f - (SCAN_CENTER + off)) < 6e3 for f in peaks)
+                for off in (-400e3, 250e3))
+    if peaks != want_peaks or not found:
+        raise AssertionError(f"peaks {peaks}, CPU {want_peaks}")
+    log(f"decode scan: spectrum peaks {[int(f) for f in peaks]} "
+        f"(the CPU port's) ok")
+    hit = results[0]
+    truth = (hit.locked and not results[1].locked and not results[2].locked
+             and hit.site_detail.get("System ID") == hex(0x2C1)
+             and hit.site_detail.get("Site ID") == 7
+             and hit.site_detail.get("Control Channel") == int(SCAN_CC)
+             and abs(hit.offset_hz - 200.0) < OFFSET_TOL_HZ)
+    if not truth or not streams.same_trials(results, want_trial,
+                                            OFFSET_TOL_HZ):
+        raise AssertionError(f"trial lock {results} against CPU "
+                             f"{want_trial}")
+    log(f"decode scan: trial_p25_lock C=3: {hit.summary_line(0)}; only "
+        f"the control channel locked, offset {hit.offset_hz:.1f} Hz, as "
+        f"the CPU port decided ok")
+    locked = [ln for ln in lines
+              if not ln.startswith("#") and "None None" not in ln]
+    if not any(str(int(cli_cc)) in ln for ln in locked):
+        raise AssertionError(f"scan CLI: no locked line in {lines}")
+    log(f"decode scan: scan CLI fft: {len(lines)} lines, locked: "
+        f"{locked}; launches {launches}")
+    if min(launches[k] for k in ("xlat_bank", "fsk_track")) < 1:
+        raise AssertionError(f"a kernel of the path never ran: {launches}")
+    return {"launches": launches, "spectrum_max_abs_err": err}
+
+
+def phase_decode_scanner(dev) -> dict:
+    """``ScanningReceiver`` on the card, SCAN_CHANNELS channels (an FM
+    carrier on the first): new call, activity, timeout after the hang
+    time, the same events and CDRs as the CPU port's. Fails unless
+    ``xlat_bank`` and ``fm_voice`` ran. Returns the launch counts."""
+    from radiocapture_tpu_torch.scan import ScanChannel, ScanningReceiver
+    from radiocapture_tpu_torch.testing import streams
+    freqs = [SCAN_CENTER + 100e3] + [
+        SCAN_CENTER - 600e3 + k * 12.5e3 for k in range(SCAN_CHANNELS - 1)]
+    want, _ = streams.squelch_cycle(ScanningReceiver, ScanChannel, freqs,
+                                    SCAN_CENTER, device="cpu")
+    reset_kernel_counts()
+    got, opened = streams.squelch_cycle(ScanningReceiver, ScanChannel,
+                                        freqs, SCAN_CENTER, device=dev)
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    kinds = [k for k, _ in got]
+    if (got != want or kinds[0] != "new" or kinds[-1] != "to"
+            or "act" not in kinds or len(opened) != 1
+            or opened[0]["system_group_local"] != freqs[0]):
+        raise AssertionError(f"scanner events {got}, CPU {want}")
+    log(f"decode scanner: {SCAN_CHANNELS} channels, events {kinds} (the "
+        f"CPU port's), CDR group {opened[0]['system_group_local']:.0f} ok; "
+        f"launches {launches}")
+    if min(launches[k] for k in ("xlat_bank", "fm_voice")) < 1:
+        raise AssertionError(f"a kernel of the path never ran: {launches}")
+    return {"launches": launches}
+
+
+def phase_decode_file_to_wav(dev) -> dict:
+    """``file_to_wav`` on the card: the analog chain on
+    ``tests/test_file_to_wav.py``'s 700 Hz tone at −300 kHz (the WAV
+    peaks at the tone; its PCM within WAV_REL_TOL of full scale of the CPU
+    port's) and ``decode_p25`` on its LDU1 capture (the CPU port's
+    frames/ldu/imbe/errors). Fails unless ``xlat_bank``, ``fm_voice`` and
+    ``fsk_track`` ran. Returns the launch counts, the PCM error and
+    whether the vocoder gave PCM."""
+    import tempfile
+    from radiocapture_tpu_torch.audio.wav import read_wav
+    from radiocapture_tpu_torch.testing import streams
+    from radiocapture_tpu_torch.tools.file_to_wav import (decode_p25,
+                                                          file_to_wav)
+    analog = streams.tone_capture(-300e3)
+    ldu = streams.ldu_capture(100e3)
+    with tempfile.TemporaryDirectory(prefix="rc_smoke_wav_") as tmp:
+        inp = Path(tmp) / "cap.dat"
+        analog.tofile(inp)
+        want_stats = file_to_wav(str(inp), str(Path(tmp) / "cpu.wav"),
+                                 SAMP_RATE, -300e3, "analog", device="cpu")
+        want_pcm, _ = read_wav(str(Path(tmp) / "cpu.wav"))
+        _, want_p25 = decode_p25(ldu, SAMP_RATE, 100e3, device="cpu")
+        reset_kernel_counts()
+        stats = file_to_wav(str(inp), str(Path(tmp) / "card.wav"),
+                            SAMP_RATE, -300e3, "analog", device=dev)
+        pcm_audio, p25 = decode_p25(ldu, SAMP_RATE, 100e3, device=dev)
+        torch.cuda.synchronize()
+        launches = kernel_counts()
+        pcm, rate = read_wav(str(Path(tmp) / "card.wav"))
+    peak = streams.tone_peak_hz(pcm)
+    err = float(np.abs(pcm.astype(np.int64) - want_pcm.astype(np.int64)
+                       ).max()) / 32768.0
+    if (stats != want_stats or rate != 8000 or abs(peak - 700.0) >= 15.0
+            or err > WAV_REL_TOL):
+        raise AssertionError(f"analog WAV: stats {stats} (CPU {want_stats})"
+                             f", peak {peak} Hz, max |err| {err}")
+    log(f"decode file_to_wav: analog {len(pcm)} samples at {rate} Hz, peak "
+        f"{peak:.1f} Hz; PCM max |card - CPU| {err:.3e} of full scale "
+        f"(<= {WAV_REL_TOL}) ok")
+    if p25 != want_p25 or p25["imbe"] < 9:
+        raise AssertionError(f"decode_p25 {p25}, CPU {want_p25}")
+    log(f"decode file_to_wav: p25 {p25} (the CPU port's); vocoder PCM "
+        f"{'produced, ' + str(len(pcm_audio)) + ' samples' if len(pcm_audio) else 'not produced (no vocoder): frame stats only'}"
+        f"; launches {launches}")
+    if min(launches[k] for k in ("xlat_bank", "fm_voice", "fsk_track")) < 1:
+        raise AssertionError(f"a kernel of the path never ran: {launches}")
+    return {"launches": launches, "wav_max_abs_err": err,
+            "p25_pcm": bool(len(pcm_audio)), "p25_stats": p25}
+
+
+def scan_bench_capture(seconds: float) -> np.ndarray:
+    """One 2.4 MS/s source of ``seconds``: the P25 site's control channel
+    at SCAN_CC, an analog FM tone at SCAN_ANALOG and a P25 LDU1 voice
+    channel at SCAN_VOICE over a −55 dB floor."""
+    from radiocapture_tpu_torch.testing import modulators as M
+    from radiocapture_tpu_torch.testing import streams
+    n = int(seconds * SAMP_RATE)
+    n_site = int(seconds / 0.07) + 1          # ~75 ms a TSDU frame
+    n_ldu = int(seconds / 0.17) + 1           # 180 ms an LDU1
+    chans = [
+        (SCAN_CC, M.c4fm_modulate(streams.p25_site_control(n_site, SCAN_CC),
+                                  fs=25000.0)),
+        (SCAN_ANALOG, streams.fm_tone(seconds)),
+        (SCAN_VOICE, M.c4fm_modulate(streams.p25_ldu_voice(n_ldu),
+                                     fs=25000.0))]
+    return M.multi_channel(
+        SAMP_RATE, [(f - SCAN_CENTER, M.upsample_to(iq, 25000.0,
+                                                    SAMP_RATE)[:n])
+                    for f, iq in chans], n, noise_floor_db=-55.0,
+        rng=np.random.default_rng(51))
+
+
+def timed(fn):
+    """(fn()'s result, host seconds to its end on the card)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_bench_scan(dev) -> dict:
+    """The scan slice at the sizes users run, on one 2.4 MS/s source: the
+    spectrum over SCAN_BENCH_S s in ``run_fft_scan``'s 8-frame blocks of
+    16384; ``trial_p25_lock`` at TRIAL_SLOTS candidates over SCAN_TRIAL_S
+    s (host ms per decim·512 block, split into upload, step, fetch and
+    the engines' feed, and the step's device ms); ``run_band_scan`` over
+    the capture's whole 12.5 kHz raster (192 candidates, BAND_PASS a
+    pass) over SCAN_TRIAL_S s; ``run_fft_scan`` and both ``file_to_wav``
+    chains over SCAN_BENCH_S s. Device ms by CUDA events on a block
+    already on the card; host ms by the host clock with a sync."""
+    from radiocapture_tpu_torch.demod.engines import P25ControlEngine
+    from radiocapture_tpu_torch.device import wire_from_numpy
+    from radiocapture_tpu_torch.frontend.pipeline import (AnalogVoicePipeline,
+                                                          ControlPipeline)
+    from radiocapture_tpu_torch.scan import SpectrumScanner, trial_p25_lock
+    from radiocapture_tpu_torch.scan.__main__ import (run_band_scan,
+                                                      run_fft_scan)
+    from radiocapture_tpu_torch.testing import streams
+    from radiocapture_tpu_torch.tools.file_to_wav import (decode_analog,
+                                                          decode_p25)
+    t0 = time.perf_counter()
+    iq = scan_bench_capture(SCAN_BENCH_S)
+    iq2 = iq[:int(SCAN_TRIAL_S * SAMP_RATE)]
+    log(f"bench scan: {SCAN_BENCH_S:.0f} s capture built on the host in "
+        f"{time.perf_counter() - t0:.1f} s")
+    res = {"card": smi_line()}
+    reset_kernel_counts()
+
+    # the spectrum, as run_fft_scan steps it
+    sc = SpectrumScanner()
+    blk = sc.fft_len * 8
+    n_blk = len(iq) // blk
+
+    def spectrum():
+        st = sc.init(dev)
+        for i in range(n_blk):
+            st = sc.step(st, np.stack([iq[i * blk:(i + 1) * blk].real,
+                                       iq[i * blk:(i + 1) * blk].imag], -1))
+        return st
+    spectrum()
+    st, host_s = timed(spectrum)
+    xb = torch.view_as_complex(torch.as_tensor(np.stack(
+        [iq[:blk].real, iq[:blk].imag], -1), device=dev))
+    dev_ms = cuda_ms(lambda: sc.step(st, xb), 50)
+    res.update(spectrum_blocks=n_blk, spectrum_host_ms_per_block=(
+        host_s * 1e3 / n_blk), spectrum_device_ms_per_block=dev_ms,
+        spectrum_msps=n_blk * blk / host_s / 1e6,
+        spectrum_device_msps=blk / dev_ms / 1e3,
+        spectrum_busy_share=profile_steps(lambda: sc.step(st, xb),
+                                          "scan spectrum"))
+    log(f"bench scan: spectrum {n_blk} blocks of 8 x {sc.fft_len}: host "
+        f"{res['spectrum_host_ms_per_block']:.3f} ms/block "
+        f"({res['spectrum_msps']:.1f} MS/s), device {dev_ms:.4f} ms/block "
+        f"({res['spectrum_device_msps']:.1f} MS/s)")
+
+    # the trial bank at TRIAL_SLOTS candidates
+    cands = [SCAN_CC + (k - 40) * 12.5e3 for k in range(TRIAL_SLOTS)]
+    pipe = ControlPipeline.p25_c4fm(TRIAL_SLOTS, SAMP_RATE)
+    tblk = pipe.decim * 512
+    t_blocks = len(iq2) // tblk
+    results, host_s = timed(lambda: trial_p25_lock(
+        iq2, SAMP_RATE, SCAN_CENTER, cands, device=dev))
+    if not any(r.locked and r.frequency == SCAN_CC for r in results):
+        raise AssertionError("bench trial: the control channel did not lock")
+    x2 = np.stack([iq2.real, iq2.imag], -1).astype(np.float32)
+    offs = torch.as_tensor(pipe.offsets_for(np.asarray(cands),
+                                            SCAN_CENTER)[None], device=dev)
+    state = pipe.init(1, dev)
+    engines = [P25ControlEngine() for _ in cands]
+    part = dict.fromkeys(("upload", "step", "fetch", "feed"), 0.0)
+    for b in range(t_blocks):
+        t = [time.perf_counter()]
+        xb = wire_from_numpy(x2[None, b * tblk:(b + 1) * tblk], dev)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        state, (_s, valid, dib) = pipe.step(state, xb, offs)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        valid = valid[0].cpu().numpy().astype(bool)
+        dib = dib[0].cpu().numpy()
+        t.append(time.perf_counter())
+        for s, eng in enumerate(engines):
+            eng.feed_dibits(dib[s][valid[s]])
+        t.append(time.perf_counter())
+        for k, a, z in zip(part, t, t[1:]):
+            part[k] += (z - a) * 1e3 / t_blocks
+    step_ms = cuda_ms(lambda: pipe.step(state, xb, offs), 20)
+    res.update(trial_slots=TRIAL_SLOTS, trial_blocks=t_blocks,
+               trial_block_samples=tblk,
+               trial_host_ms_per_block=host_s * 1e3 / t_blocks,
+               trial_device_ms_per_block=step_ms,
+               trial_busy_share=profile_steps(
+                   lambda: pipe.step(state, xb, offs), "scan trial step"),
+               trial_parts_ms_per_block=part,
+               trial_locked=[r.frequency for r in results if r.locked])
+    log(f"bench scan: trial_p25_lock {TRIAL_SLOTS} slots, {t_blocks} blocks "
+        f"of {tblk}: host {res['trial_host_ms_per_block']:.3f} ms/block "
+        f"(upload {part['upload']:.3f}, step+sync {part['step']:.3f}, fetch "
+        f"{part['fetch']:.3f}, engines {part['feed']:.3f}), device step "
+        f"{step_ms:.4f} ms/block; locked {res['trial_locked']}")
+
+    # the band scan over the capture's whole raster
+    lo = SCAN_CENTER - SAMP_RATE / 2
+    ranges = [(lo, lo + SAMP_RATE - 12.5e3)]
+    band, host_s = timed(lambda: run_band_scan(
+        iq2, SAMP_RATE, SCAN_CENTER, ranges, 12.5e3, batch=BAND_PASS,
+        device=dev))
+    if len(band) != 192 or not any(r.locked and r.frequency == SCAN_CC
+                                   for r in band):
+        raise AssertionError(f"band scan: {len(band)} results, "
+                             "the control channel not locked")
+    res.update(band_candidates=len(band), band_pass_slots=BAND_PASS,
+               band_s_per_s=host_s / SCAN_TRIAL_S,
+               band_locked=[r.frequency for r in band if r.locked])
+    log(f"bench scan: run_band_scan {len(band)} candidates in passes of "
+        f"{BAND_PASS} over {SCAN_TRIAL_S:.0f} s: {host_s:.3f} s = "
+        f"{res['band_s_per_s']:.3f} s per s of capture; "
+        f"locked {res['band_locked']}")
+
+    # the fft scan CLI's path over the whole capture
+    fft_res, host_s = timed(lambda: run_fft_scan(iq, SAMP_RATE, SCAN_CENTER,
+                                                 device=dev))
+    if not any(r.locked for r in fft_res):
+        raise AssertionError("run_fft_scan: nothing locked")
+    res.update(fft_scan_candidates=len(fft_res),
+               fft_scan_s_per_s=host_s / SCAN_BENCH_S,
+               fft_scan_locked=sum(r.locked for r in fft_res))
+    log(f"bench scan: run_fft_scan over {SCAN_BENCH_S:.0f} s: {host_s:.3f} s "
+        f"= {res['fft_scan_s_per_s']:.4f} s per s of capture; "
+        f"{len(fft_res)} peaks trialled, {res['fft_scan_locked']} locked")
+
+    # both file_to_wav chains over the whole capture
+    audio, host_s = timed(lambda: decode_analog(
+        iq, SAMP_RATE, SCAN_ANALOG - SCAN_CENTER, device=dev))
+    peak = streams.tone_peak_hz(audio)
+    if abs(peak - 700.0) >= 15.0:
+        raise AssertionError(f"bench analog: tone at {peak} Hz")
+    vp = AnalogVoicePipeline(1, SAMP_RATE)
+    head = iq[:vp.decim * 1024]
+    vx = wire_from_numpy(np.stack([head.real, head.imag], -1)[None]
+                         .astype(np.float32), dev)
+    voffs = torch.zeros((1, 1), device=dev)
+    vst = vp.init(1, dev)
+    res.update(analog_x_realtime=SCAN_BENCH_S / host_s,
+               analog_device_ms_per_block=cuda_ms(
+                   lambda: vp.step(vst, vx, voffs), 20))
+    (pcm, p25), host_s = timed(lambda: decode_p25(
+        iq, SAMP_RATE, SCAN_VOICE - SCAN_CENTER, device=dev))
+    # an LDU1 is 180 ms of 9 codewords; the first frames go to sync
+    if p25["imbe"] < 9 * int(0.8 * SCAN_BENCH_S / 0.18):
+        raise AssertionError(f"bench p25: {p25}")
+    cp = ControlPipeline.p25_c4fm(1, SAMP_RATE)
+    cst = cp.init(1, dev)
+    res.update(p25_x_realtime=SCAN_BENCH_S / host_s, p25_stats=p25,
+               p25_pcm=bool(len(pcm)),
+               p25_device_ms_per_block=cuda_ms(
+                   lambda: cp.step(cst, vx, voffs), 20))
+    log(f"bench scan: file_to_wav over {SCAN_BENCH_S:.0f} s: analog "
+        f"{res['analog_x_realtime']:.1f}x real time (device "
+        f"{res['analog_device_ms_per_block']:.4f} ms per {vp.decim * 1024}"
+        f"-sample block), p25 {res['p25_x_realtime']:.1f}x real time "
+        f"(device {res['p25_device_ms_per_block']:.4f} ms per block; "
+        f"{p25})")
+    res["launches"] = kernel_counts()
+    return res
+
+
 def main() -> None:
     from radiocapture_tpu_torch import kernels
     from radiocapture_tpu_torch.device import require_cuda
@@ -1760,6 +2155,21 @@ def main() -> None:
         "runtime_pfb_p95_ms": rt_pfb["step_p95_ms"],
         "launches": {"decode_pfb": launches_pfb, "decode_fft": launches_fft,
                      "runtime_pfb": launches_rt_pfb}}))
+    # the scan slice: spectrum scan, discovery, the conventional scanner
+    # and the offline tools, on the kernels above
+    scan = phase_decode_scan(dev)
+    scanner = phase_decode_scanner(dev)
+    f2w = phase_decode_file_to_wav(dev)
+    bench_scan = phase_bench_scan(dev)
+    log("tools: " + json.dumps({
+        **{k: v for k, v in bench_scan.items() if k != "launches"},
+        "spectrum_max_abs_err": scan["spectrum_max_abs_err"],
+        "wav_max_abs_err": f2w["wav_max_abs_err"],
+        "decode_p25_pcm": f2w["p25_pcm"],
+        "launches": {"decode_scan": scan["launches"],
+                     "decode_scanner": scanner["launches"],
+                     "decode_file_to_wav": f2w["launches"],
+                     "bench_scan": bench_scan["launches"]}}))
     loaded = [m for m in ("jax", "radiocapture_tpu") if m in sys.modules]
     if loaded:
         raise AssertionError(f"imported {loaded}")

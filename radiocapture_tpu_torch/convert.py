@@ -10,6 +10,10 @@ state and back, for ``ControlPipeline``, ``CqpskControlPipeline``,
 ``PfbXlatBankState`` with its ``PfbState`` and per-slot ``XlatState``,
 ``FftXlatBankState``). The state has a leading source axis ``S`` on both
 sides (the JAX grouped, vmapped form: a runtime group's stacked state).
+
+The scan and NBFM states (``SpectrumState``, ``FirState``, ``NbfmState``)
+are held in native dtypes on both sides, complex as complex64: the
+``*_state_from_jax`` / ``native_state_to_jax`` pair maps them.
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ import numpy as np
 import torch
 
 from radiocapture_tpu_torch.demod.cqpsk import CqpskState
-from radiocapture_tpu_torch.ops.fir import U32_MASK
+from radiocapture_tpu_torch.ops.fir import U32_MASK, fir_init
+from radiocapture_tpu_torch.ops.fm import nbfm_init
 
 
 def _f32(a, device) -> torch.Tensor:
@@ -111,3 +116,45 @@ def state_to_jax(pipe, state):
         raise ValueError("state does not match the pipeline: "
                          f"{_shapes(state)}, want {_shapes(spec)}")
     return _to_wire(state)
+
+
+def _native_from(spec, arrays, device):
+    """The JAX arrays of a native-dtype state as the tensors of ``spec``
+    (the port's state built on the meta device), shapes checked."""
+    if isinstance(spec, torch.Tensor):
+        want = np.complex64 if spec.is_complex() else np.float32
+        t = torch.from_numpy(np.array(arrays, want)).to(device)
+        if t.shape != spec.shape:
+            raise ValueError(f"JAX state does not match: "
+                             f"{tuple(t.shape)}, want {tuple(spec.shape)}")
+        return t
+    return type(spec)(*(_native_from(leaf, getattr(arrays, name), device)
+                        for name, leaf in zip(spec._fields, spec)))
+
+
+def native_state_to_jax(state):
+    """A scan or NBFM state of the port's → numpy leaves in its
+    NamedTuples (complex64 / float32, the JAX NamedTuples' field names and
+    order, so ``JaxCls(*fields)`` rebuilds them)."""
+    if isinstance(state, torch.Tensor):
+        return state.detach().cpu().resolve_conj().numpy()
+    return type(state)(*(native_state_to_jax(leaf) for leaf in state))
+
+
+def spectrum_state_from_jax(scanner, arrays, device):
+    """JAX ``SpectrumState`` (acc [fft_len], count []) → the port's, for
+    ``scanner`` (a ``scan.spectrum.SpectrumScanner``)."""
+    return _native_from(scanner.init("meta"), arrays, device)
+
+
+def fir_state_from_jax(taps, arrays, device):
+    """JAX ``FirState`` → the port's; the history keeps its stream's
+    dtype (complex64 or float32)."""
+    dtype = (torch.complex64 if np.iscomplexobj(arrays.history)
+             else torch.float32)
+    return _native_from(fir_init(taps, dtype, "meta"), arrays, device)
+
+
+def nbfm_state_from_jax(audio_taps, arrays, device):
+    """JAX ``NbfmState`` (quad, deemph, audio_fir) → the port's."""
+    return _native_from(nbfm_init(audio_taps, "meta"), arrays, device)

@@ -21,6 +21,12 @@ def require_cuda() -> torch.device:
     return torch.device("cuda", 0)
 
 
+def resolve(device) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` is :func:`require_cuda`,
+    the default of every entry point that touches the device."""
+    return require_cuda() if device is None else torch.device(device)
+
+
 def wire_from_numpy(a: np.ndarray, device) -> torch.Tensor:
     """``[..., 2]`` re/im numpy block (float32, or 2-byte bfloat16 as
     produced by the ingest ring) → tensor on ``device``, dtype kept."""

@@ -1,8 +1,9 @@
 """Streaming FIR / frequency-translating FIR helpers.
 
-Port of ``radiocapture_tpu.ops.fir``: the exact fixed-point mixer phase,
-the single-channel ``freq_xlating_fir`` and the batched real FIR that
-feeds the symbol tracker.
+Port of ``radiocapture_tpu.ops.fir``: the streaming ``fir_filter`` with
+its carried history, the exact fixed-point mixer phase, the
+single-channel ``freq_xlating_fir``, the batched real FIR that feeds the
+symbol tracker and ``design_channel_taps``.
 
 The mixer phase is uint32 fixed point (cycles × 2^32) in the JAX package.
 PyTorch's CPU build has no uint32 arithmetic, so the port carries it as
@@ -16,12 +17,73 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from radiocapture_tpu_torch.device import resolve
+from radiocapture_tpu_torch.ops import taps as _taps
 
 U32_MASK = 0xFFFFFFFF
 _PHASE_SCALE = 4294967296.0  # 2^32
 # float32(2π / 2^32): the same rounded constant the JAX package and the
 # CUDA bank kernel multiply by.
 ANGLE_PER_U32 = float(np.float32(2.0 * np.pi / _PHASE_SCALE))
+
+
+class FirState(NamedTuple):
+    """Carried state of a streaming FIR: the trailing ntaps-1 inputs."""
+    history: torch.Tensor   # [ntaps-1], the stream's dtype
+
+
+def fir_init(taps, dtype: torch.dtype = torch.complex64,
+             device=None) -> FirState:
+    """Zero history for ``taps`` on ``device`` (``None``: the card)."""
+    return FirState(history=torch.zeros(len(taps) - 1, dtype=dtype,
+                                        device=resolve(device)))
+
+
+def _conv1d(x: torch.Tensor, taps: torch.Tensor, stride: int
+            ) -> torch.Tensor:
+    """Causal 1-D convolution ``y[n] = Σ_k h[k] x[n·stride - k + K - 1]``
+    over ``x`` [T] that already holds K-1 samples of history in front:
+    ``(T - K + 1) // stride`` valid outputs (the JAX ``_conv1d``,
+    fir.py:32-66). One ``conv1d`` (a correlation, so the taps go in
+    reversed); complex input is its two re/im channels, with real taps a
+    diagonal 2→2 kernel and with complex taps the 2→2 rotation kernel."""
+    hrev = taps.flip(0)
+    if x.is_complex():
+        xr = torch.stack([x.real, x.imag]).to(torch.float32)     # [2, T]
+        if hrev.is_complex():
+            kern = torch.stack([torch.stack([hrev.real, -hrev.imag]),
+                                torch.stack([hrev.imag, hrev.real])])
+        else:
+            eye = torch.eye(2, dtype=hrev.dtype, device=hrev.device)
+            kern = eye[:, :, None] * hrev[None, None, :]
+        out = F.conv1d(xr[None], kern.to(torch.float32), stride=stride)[0]
+        return torch.complex(out[0], out[1])
+    return F.conv1d(x[None, None].to(torch.float32),
+                    hrev[None, None].to(torch.float32), stride=stride)[0, 0]
+
+
+def fir_filter(state: FirState, x: torch.Tensor, taps, decim: int = 1
+               ) -> tuple[FirState, torch.Tensor]:
+    """Streaming, optionally decimating FIR over ``x`` [T] (complex or
+    real) with ``taps`` (numpy or a tensor, real or complex): returns
+    ``T // decim`` outputs; T must be a multiple of ``decim``."""
+    taps = torch.as_tensor(taps, device=x.device)
+    k = taps.shape[0]
+    z = torch.cat([state.history, x])
+    y = _conv1d(z, taps, decim)
+    new_hist = z[z.shape[0] - (k - 1):] if k > 1 else state.history
+    return FirState(history=new_hist), y
+
+
+def design_channel_taps(samp_rate: float, channel_rate: float,
+                        transition_frac: float = 0.2) -> np.ndarray:
+    """Channel-extraction taps: low-pass at channel_rate/2 with a
+    transition band of ``transition_frac·channel_rate``, 60 dB (the
+    reference's per-channel filter intent, rc_frontend/channel.py:33)."""
+    return _taps.low_pass_2(1.0, samp_rate, channel_rate / 2.0,
+                            transition_frac * channel_rate, 60.0)
 
 
 def phase_step_u32(offset_norm: torch.Tensor, decim: int) -> torch.Tensor:

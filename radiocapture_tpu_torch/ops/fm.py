@@ -1,11 +1,12 @@
-"""FM quadrature discriminator and de-emphasis (port of
-``radiocapture_tpu.ops.fm``, the parts the capture paths run).
+"""FM quadrature discriminator, de-emphasis and the NBFM voice chain
+(port of ``radiocapture_tpu.ops.fm``).
 
-On the card both run fused inside tracker kernels: the discriminator in
-``demod.track_kernel`` (control channels) and ``ops.fm_kernel`` (analog
-voice, with the de-emphasis); this is their plain PyTorch form.
-``nbfm_demod`` and ``fir_filter``, which only the JAX package's tests
-and tools use, wait for the tools slice (ROADMAP.md queue A item 11).
+On the card the discriminator and the de-emphasis run fused inside
+tracker kernels: the discriminator in ``demod.track_kernel`` (control
+channels) and ``ops.fm_kernel`` (analog voice, with the de-emphasis);
+this is their plain PyTorch form. ``nbfm_demod`` chains them with the
+audio ``fir_filter`` in plain torch on either device: no capture path
+runs it.
 """
 
 from __future__ import annotations
@@ -15,6 +16,9 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from radiocapture_tpu_torch.device import resolve
+from radiocapture_tpu_torch.ops.fir import FirState, fir_filter
 
 
 class QuadDemodState(NamedTuple):
@@ -88,3 +92,32 @@ def fm_deemphasis(state: DeemphState, x: torch.Tensor, samp_rate: float,
     xprev = torch.cat([state.x_last[..., None], x[..., :-1]], dim=-1)
     y = first_order_iir(x + xprev, z1, b0, state.y_last)
     return DeemphState(y_last=y[..., -1], x_last=x[..., -1]), y
+
+
+class NbfmState(NamedTuple):
+    quad: QuadDemodState
+    deemph: DeemphState
+    audio_fir: FirState
+
+
+def nbfm_init(audio_taps, device=None) -> NbfmState:
+    """Zero state of one NBFM channel on ``device`` (``None``: the card)."""
+    dev = resolve(device)
+    return NbfmState(quad=quad_demod_init((), dev),
+                     deemph=deemph_init((), dev),
+                     audio_fir=FirState(history=torch.zeros(
+                         len(audio_taps) - 1, dtype=torch.float32,
+                         device=dev)))
+
+
+def nbfm_demod(state: NbfmState, x: torch.Tensor, samp_rate: float,
+               max_dev: float, audio_taps, audio_decim: int = 1,
+               tau: float = 75e-6) -> tuple[NbfmState, torch.Tensor]:
+    """Narrowband FM voice demod over ``x`` [T] complex: discriminator →
+    de-emphasis → audio low-pass, the reference's analog voice chain
+    (logging_receiver.py:210-222) up to the resampler."""
+    gain = samp_rate / (2.0 * math.pi * max_dev)
+    qs, disc = quadrature_demod(state.quad, x, gain)
+    ds, de = fm_deemphasis(state.deemph, disc, samp_rate, tau)
+    fs, audio = fir_filter(state.audio_fir, de, audio_taps, audio_decim)
+    return NbfmState(quad=qs, deemph=ds, audio_fir=fs), audio

@@ -1,5 +1,7 @@
 """Fixture streams with known content, and the decode that checks them:
-P25 TSDU dibit streams carrying numbered grants, the impaired CQPSK
+P25 TSDU dibit streams carrying numbered grants, a P25 site's control
+channel broadcasting its identity (the scan fixture), an LDU1 voice
+stream (the ``file_to_wav`` fixture), the impaired CQPSK
 modulations of the JAX package's ``tests/test_cqpsk_chain.py``, a Phase 2
 TDMA superframe, and the channel-rate IQ of two granted calls for the
 site runtime (P25 C4FM voice, EDACS analog). Numpy only, built from the
@@ -38,6 +40,41 @@ def p25_control_stream(n_frames: int, nac: int = 0x293,
         frames.append(p25.build_tsdu_frame(nac, [t1, t2]))
         expected.append((channel + i, group + i, source + i))
     return bits.bits_to_dibits(np.concatenate(frames)), expected
+
+
+def p25_site_control(n_frames: int, cc_freq: float, nac: int = 0x293
+                     ) -> np.ndarray:
+    """The scan fixture of the JAX package's ``tests/test_scan.py``:
+    TSDU frames of RFSS_STS_BCST (System ID 0x2C1, RF Sub-system 1, Site
+    7), NET_STS_BCST (WACN 0xBEE00) and IDEN_UP, whose channel resolves to
+    ``cc_freq`` (on the 6.25 kHz raster above 851.00625 MHz). Returns the
+    dibits."""
+    cc_chan = 0x1000 + int(round((cc_freq - 851.00625e6) / 6.25e3))
+    frames = []
+    for _ in range(n_frames):
+        rfss = p25.pack_tsbk("RFSS_STS_BCST", **{
+            "LRA": 0, "System ID": 0x2C1, "RF Sub-system ID": 1,
+            "Site ID": 7, "Channel": cc_chan, "System Service Class": 0x70})
+        net = p25.pack_tsbk("NET_STS_BCST", **{
+            "LRA": 0, "WACN ID": 0xBEE00, "System ID": 0x2C1,
+            "Channel": cc_chan, "System Service Class": 0x70})
+        iden = p25.pack_tsbk("IDEN_UP", last_block=True, **{
+            "Identifier": 1, "BW": 100,
+            "Base Frequency": int(851.00625e6 / 5),
+            "Channel Spacing": 50, "Transmit Offset": 0x1B4})
+        frames.append(p25.build_tsdu_frame(nac, [rfss, net, iden]))
+    return bits.bits_to_dibits(np.concatenate(frames))
+
+
+def p25_ldu_voice(n_frames: int, nac: int = 0x293) -> np.ndarray:
+    """The ``file_to_wav`` fixture of the JAX package's
+    ``tests/test_file_to_wav.py``: ``n_frames`` LDU1 frames (group 123,
+    source 456), each carrying the same nine 0/1-pattern codewords.
+    Returns the dibits."""
+    lc = p25.make_link_control(0x0, tgid=123, source_id=456)
+    vcs = (np.arange(9 * 144).reshape(9, 144) % 2).astype(np.uint8)
+    frames = [p25.build_ldu1_frame(nac, lc, vcs) for _ in range(n_frames)]
+    return bits.bits_to_dibits(np.concatenate(frames))
 
 
 def grants(dibits: np.ndarray, nac: int | None = None) -> list:
@@ -161,3 +198,142 @@ def edacs_analog_call(seconds: float, keyup_s: float, tone_hz: float,
     audio = np.where(on, 0.8 * np.sin(2 * np.pi * tone_hz * t), 0.0)
     vc = M.fm_modulate(audio.astype(np.float32), 25000.0, 2500.0) * on
     return cc, vc.astype(np.complex64)
+
+
+def two_carriers(samp_rate: float = 2.4e6, frames: int = 16,
+                 fft_len: int = 16384) -> np.ndarray:
+    """The spectrum fixture of the JAX package's ``tests/test_scan.py``:
+    9600 Bd and 3600 Bd FSK carriers at −400 kHz and +250 kHz over a
+    −55 dB floor, ``frames`` FFT frames of ``fft_len``."""
+    rng = np.random.default_rng(7)
+    tone_a = M.fsk2_modulate(rng.integers(0, 2, 4000), samp_rate,
+                             9600.0, 4000.0)
+    tone_b = M.fsk2_modulate(rng.integers(0, 2, 4000), samp_rate,
+                             3600.0, 4000.0)
+    return M.multi_channel(samp_rate, [(-400e3, tone_a), (250e3, tone_b)],
+                           fft_len * frames, noise_floor_db=-55.0, rng=rng)
+
+
+def site_capture(cc_freq: float, center: float, n_frames: int = 10,
+                 samp_rate: float = 2.4e6, n: int | None = None,
+                 rng=None) -> np.ndarray:
+    """The ``p25_site_control`` channel at ``cc_freq`` in a wideband
+    capture at ``center`` over a −55 dB floor (``tests/test_scan.py``'s
+    discovery capture with the defaults); ``n`` samples, default the
+    channel's length."""
+    ch = M.upsample_to(M.c4fm_modulate(p25_site_control(n_frames, cc_freq),
+                                       fs=25000.0), 25000.0, samp_rate)
+    return M.multi_channel(samp_rate, [(cc_freq - center, ch)],
+                           len(ch) if n is None else n,
+                           noise_floor_db=-55.0, rng=rng)
+
+
+def fm_tone(seconds: float, tone_hz: float = 700.0, amp: float = 0.7,
+            fs: float = 25000.0, max_dev: float = 4000.0) -> np.ndarray:
+    """An FM-modulated tone at the channel rate (``tests/
+    test_file_to_wav.py``'s analog signal with the defaults)."""
+    t = np.arange(int(seconds * fs)) / fs
+    return M.fm_modulate(amp * np.sin(2 * np.pi * tone_hz * t), fs, max_dev)
+
+
+def tone_capture(offset_hz: float, seconds: float = 1.0,
+                 samp_rate: float = 2.4e6) -> np.ndarray:
+    """``fm_tone`` at ``offset_hz`` in a wideband capture, complex64
+    (``tests/test_file_to_wav.py``'s analog capture with the defaults and
+    −300 kHz)."""
+    return M.freq_shift(M.upsample_to(fm_tone(seconds), 25000.0, samp_rate),
+                        samp_rate, offset_hz).astype(np.complex64)
+
+
+def ldu_capture(offset_hz: float, n_frames: int = 4,
+                samp_rate: float = 2.4e6) -> np.ndarray:
+    """``p25_ldu_voice`` at ``offset_hz`` in a wideband capture
+    (``tests/test_file_to_wav.py``'s P25 capture with the defaults and
+    +100 kHz)."""
+    iq = M.c4fm_modulate(p25_ldu_voice(n_frames), fs=25000.0)
+    return M.freq_shift(M.upsample_to(iq, 25000.0, samp_rate), samp_rate,
+                        offset_hz)
+
+
+def tone_peak_hz(pcm: np.ndarray, rate: float = 8000.0,
+                 lo: int = 2000, hi: int = 6000) -> float:
+    """The strongest frequency of ``pcm[lo:hi]`` (Hann window, DC bins
+    skipped), the pitch check of ``tests/test_file_to_wav.py``."""
+    seg = np.asarray(pcm[lo:hi], np.float64)
+    spec = np.abs(np.fft.rfft(seg * np.hanning(len(seg))))
+    return float((np.argmax(spec[10:]) + 10) * rate / len(seg))
+
+
+def squelch_cycle(receiver_cls, channel_cls, freqs: list, center: float,
+                  samp_rate: float = 2.4e6, **kw):
+    """``tests/test_scan.py``'s squelch cycle through a scanning receiver
+    of ``receiver_cls`` watching ``freqs`` (threshold 1e-4): an 800 Hz FM
+    carrier at ``freqs[0]`` for two blocks of decim·256 samples, 0.1 s
+    apart, then silence 0.2 s and 0.8 s after, with a fake clock.
+    Returns (the events in order as (kind, CDR or call uuid), the call
+    uuids numbered by first appearance; the CDRs ``feed`` returned)."""
+    fake_now = [0.0]
+    seq = []
+    sr = receiver_cls([channel_cls(frequency=f, threshold=1e-4)
+                       for f in freqs], samp_rate, center,
+                      on_new_call=lambda cdr: seq.append(("new", cdr)),
+                      on_activity=lambda cu: seq.append(("act", cu)),
+                      on_timeout=lambda cdr: seq.append(("to", cdr)),
+                      clock=lambda: fake_now[0], **kw)
+    blk = sr.decim * 256
+    audio = np.sin(2 * np.pi * 800.0 * np.arange(int(0.2 * 25000)) / 25000)
+    nb = M.fm_modulate(audio * 0.8, 25000.0, 4000.0)
+    on_air = M.freq_shift(M.upsample_to(nb, 25000.0, samp_rate), samp_rate,
+                          freqs[0] - center)
+    silence = (1e-5 * np.random.default_rng(5).standard_normal(3 * blk)
+               ).astype(np.complex64)
+    opened = []
+    for dt, x in [(0.0, on_air[:blk]), (0.1, on_air[blk:2 * blk]),
+                  (0.2, silence[:blk]), (0.6, silence[blk:2 * blk])]:
+        fake_now[0] += dt
+        opened.extend(sr.feed(x))
+    names: dict = {}
+
+    def norm(v):
+        if isinstance(v, dict):
+            return {k: norm(x) for k, x in v.items()}
+        if isinstance(v, str) and len(v) == 36:      # a call uuid
+            return names.setdefault(v, f"call{len(names)}")
+        return v
+    return [(kind, norm(v)) for kind, v in seq], opened
+
+
+def same_trials(got: list, want: list, offset_tol_hz: float = 1.0) -> bool:
+    """Two ``trial_p25_lock`` result lists decide alike: the same
+    candidates, locked set and site detail, offsets within
+    ``offset_tol_hz``."""
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        if (g.frequency, g.locked, g.site_detail) != \
+                (w.frequency, w.locked, w.site_detail):
+            return False
+        if (g.offset_hz is None) != (w.offset_hz is None):
+            return False
+        if g.offset_hz is not None and \
+                abs(g.offset_hz - w.offset_hz) > offset_tol_hz:
+            return False
+    return True
+
+
+#: spectrum_db agreement between two float32 FFTs (cuFFT, pocketfft,
+#: XLA's): SPEC_ATOL in log10 units plus SPEC_ULPS float32 ulps of the
+#: peak bin's amplitude, which a bin d decades below the peak sees as
+#: 10^(d/2) times more in relative amplitude, 2/ln 10 of that in log10
+#: power. On ``two_carriers`` (floor 9 decades down) cuFFT on an H100
+#: and the CPU's pocketfft differ by ~6e-6 within 6 decades of the peak
+#: and ~3e-3 at the floor (``chip_smoke.py``'s ``decode scan:`` line).
+SPEC_ATOL = 1e-4
+SPEC_ULPS = 8
+
+
+def spectrum_tolerance(want: np.ndarray) -> np.ndarray:
+    """Per-bin tolerance for a spectrum against ``want`` (see SPEC_ULPS)."""
+    depth = want.max() - want
+    return SPEC_ATOL + (2.0 / np.log(10.0)) * SPEC_ULPS * float(
+        np.finfo(np.float32).eps) * 10.0 ** (depth / 2.0)

@@ -826,3 +826,126 @@ def check_card_against_cpu(dev0, frontend, fs, fsk4_block=0):
     g = [streams.grants(o[2][0, 2][o[1][0, 2].bool()].numpy()) for o in outs]
     assert g[0] == g[1] and len(g[0]) >= 2, g
     assert all(x in expected for x in g[0])
+
+
+# ---- the scan slice: scan/, tools/file_to_wav.py on the card
+
+SCAN_CENTER, SCAN_CC = 857.0e6, 857.5e6
+# The analog WAV, card against CPU, as a share of PCM full scale: the
+# card's bank takes bf16 operands (FUSED_REL of the channel's scale),
+# which the discriminator sees as phase noise.
+WAV_REL = FUSED_REL
+
+
+def _trial_candidates(c):
+    """``c`` candidates: the control channel 200 Hz off first, then empty
+    12.5 kHz raster points (``tests/test_scan.py``'s two empties first)."""
+    rest = [SCAN_CENTER - 300e3, SCAN_CENTER + 600e3] + [
+        SCAN_CENTER - 900e3 + k * 12.5e3 for k in range(c)]
+    return [SCAN_CC + 200.0] + rest[:c - 1]
+
+
+@pytest.mark.cuda
+def test_spectrum_on_card_matches_cpu(cuda_device):
+    """``SpectrumScanner`` on cuFFT: the two-carrier spectrum within
+    ``streams.spectrum_tolerance`` of the CPU port's, float32 kept on the
+    card (no bf16 wire), and ``find_channels`` gives the same peaks."""
+    from radiocapture_tpu_torch.scan import SpectrumScanner, find_channels
+    wide = streams.two_carriers()
+    sc = SpectrumScanner(16384)
+    got, want = (sc.spectrum_db(sc.step(sc.init(dev), wide))
+                 for dev in (cuda_device, "cpu"))
+    assert np.all(np.abs(got - want) <= streams.spectrum_tolerance(want))
+    peaks = [[p.frequency for p in find_channels(s, 2.4e6, SCAN_CENTER)]
+             for s in (got, want)]
+    assert peaks[0] == peaks[1] and len(peaks[0]) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 3, 40, 64])
+def test_trial_lock_on_card_matches_cpu(cuda_device, c):
+    """``trial_p25_lock`` with ``c`` candidate slots (off the tracker's
+    32-slot tile at 1, 3 and 40) on the card decides as on the CPU: the
+    same locked set and site detail, offsets within 1 Hz; the control
+    channel locks at 200 Hz."""
+    from radiocapture_tpu_torch.scan import trial_p25_lock
+    site = streams.site_capture(SCAN_CC, SCAN_CENTER)
+    cands = _trial_candidates(c)
+    before = (ck.bank_fused.launches, tk.track.launches)
+    got = trial_p25_lock(site, 2.4e6, SCAN_CENTER, cands,
+                         device=cuda_device)
+    assert ck.bank_fused.launches > before[0]
+    assert tk.track.launches > before[1]
+    want = trial_p25_lock(site, 2.4e6, SCAN_CENTER, cands, device="cpu")
+    assert streams.same_trials(got, want)
+    assert got[0].locked and abs(got[0].offset_hz - 200.0) < 1.0
+    assert got[0].site_detail["Control Channel"] == int(SCAN_CC)
+    assert not any(r.locked for r in got[1:])
+
+
+@pytest.mark.cuda
+def test_fft_scan_on_card_matches_cpu(cuda_device):
+    """``run_fft_scan`` (the scan CLI's fft mode) on ``tests/
+    test_scan.py``'s CLI capture: the same peaks trialled and the same
+    decisions on the card as on the CPU, the control channel locked."""
+    from radiocapture_tpu_torch.scan.__main__ import run_fft_scan
+    cc = SCAN_CC - 100e3
+    n = len(streams.site_capture(cc, SCAN_CENTER, n_frames=30))
+    iq = streams.site_capture(cc, SCAN_CENTER, n_frames=30,
+                              n=n // 16384 * 16384,
+                              rng=np.random.default_rng(3))
+    got, want = (run_fft_scan(iq, 2.4e6, SCAN_CENTER, device=dev)
+                 for dev in (cuda_device, "cpu"))
+    assert streams.same_trials(got, want)
+    assert any(r.locked and r.site_detail["Control Channel"] == int(cc)
+               for r in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 3, 40])
+def test_scanner_on_card_matches_cpu(cuda_device, c):
+    """``ScanningReceiver`` watching ``c`` channels (an FM carrier on the
+    first) on the card: the squelch cycle gives the CPU port's events and
+    CDRs — new call, activity, timeout after the hang time."""
+    from radiocapture_tpu_torch.scan import ScanChannel, ScanningReceiver
+    freqs = [SCAN_CENTER + 100e3] + [SCAN_CENTER - 600e3 + k * 12.5e3
+                                     for k in range(c - 1)]
+    before = (ck.bank_fused.launches, fk.voice_track.launches)
+    got, opened = streams.squelch_cycle(ScanningReceiver, ScanChannel, freqs,
+                                        SCAN_CENTER, device=cuda_device)
+    assert ck.bank_fused.launches > before[0]
+    assert fk.voice_track.launches > before[1]
+    want, _ = streams.squelch_cycle(ScanningReceiver, ScanChannel, freqs,
+                                    SCAN_CENTER, device="cpu")
+    assert got == want
+    kinds = [k for k, _ in got]
+    assert kinds[0] == "new" and kinds[-1] == "to" and "act" in kinds
+    assert opened[0]["system_group_local"] == freqs[0]
+
+
+@pytest.mark.cuda
+def test_file_to_wav_on_card_matches_cpu(cuda_device, tmp_path):
+    """``file_to_wav`` (C = 1) on the card: the analog WAV carries the
+    700 Hz tone and is within WAV_REL of full scale of the CPU port's;
+    ``decode_p25`` gives the CPU port's frame stats."""
+    from radiocapture_tpu_torch.audio.wav import read_wav
+    from radiocapture_tpu_torch.tools.file_to_wav import (decode_p25,
+                                                          file_to_wav)
+    inp = tmp_path / "cap.dat"
+    streams.tone_capture(-300e3).tofile(inp)
+    pcm = {}
+    for name, dev in (("card", cuda_device), ("cpu", "cpu")):
+        file_to_wav(str(inp), str(tmp_path / f"{name}.wav"), 2.4e6,
+                    -300e3, "analog", device=dev)
+        pcm[name], rate = read_wav(str(tmp_path / f"{name}.wav"))
+    assert rate == 8000 and pcm["card"].shape == pcm["cpu"].shape
+    err = np.abs(pcm["card"].astype(np.int64)
+                 - pcm["cpu"].astype(np.int64)).max() / 32768.0
+    assert err <= WAV_REL, err
+    assert abs(streams.tone_peak_hz(pcm["card"]) - 700.0) < 15.0
+    ldu = streams.ldu_capture(100e3)
+    before = tk.track.launches
+    _, got = decode_p25(ldu, 2.4e6, 100e3, device=cuda_device)
+    assert tk.track.launches > before
+    _, want = decode_p25(ldu, 2.4e6, 100e3, device="cpu")
+    assert got == want and got["imbe"] >= 18

@@ -1,5 +1,6 @@
 """Port parity, host code: the port's framer, control engines, protocol
-parsers, FEC, control plane, audio sinks, scheduler and config schema are
+parsers, FEC, control plane, audio sinks, scheduler, config schema and
+the stdlib/numpy tools (uploader, audio GC, drift measurement) are
 copies of the JAX package's host modules, made so the port imports
 nothing of ``radiocapture_tpu``. Each copy must equal its original with
 the package name changed, and the recorder everywhere but ``_to_8k``;
@@ -26,7 +27,8 @@ COPIES = ["demod/engines", "demod/framer", "demod/tdma", "fec/bits",
           "control/resp", "control/stomp", "control/presence",
           "control/call_manager", "control/metadata_agent",
           "control/recorder_manager", "frontend/scheduler",
-          "rxconfig/__init__", "utils/logconfig"]
+          "rxconfig/__init__", "utils/logconfig", "tools/uploader",
+          "tools/audio_gc", "tools/measure_drift"]
 
 
 def _source(package, module):

@@ -9,7 +9,7 @@ builds them."""
 
 import glob
 import os
-import time
+import threading
 
 import numpy as np
 import pytest
@@ -40,6 +40,9 @@ TONE_HZ = 1000.0
 # WAVs compare sample for sample.
 KEYUP_S = 0.2
 PCM_LSB, PCM_SHARE = 2, 0.999
+# A ceiling on the wait for the call_complete event, which returns as soon
+# as it is delivered; only a lost event waits this long.
+COMPLETE_TIMEOUT_S = 120.0
 RUNTIMES = {"jax": (JRT, JRX), "torch": (TRT, TRX)}
 
 
@@ -72,16 +75,23 @@ def _record(which, tmp_path, capture, add_system, n_blocks, slots=16):
     rt = _runtime(which, cfg, {0: RUNTIMES[which][0].FileSource(
         capture, loop=False)}, keep_wav=True)
     completed = []
-    rt.bus.subscribe("/queue/call_management/call_complete",
-                     completed.append)
+    delivered = threading.Event()
+
+    def on_complete(event):
+        completed.append(event)
+        delivered.set()
+    rt.bus.subscribe("/queue/call_management/call_complete", on_complete)
     try:
         rt.run(n_blocks=min(n_blocks, int(len(capture) // rt.block_len(0))))
         active = list(rt.recorders.active.values())
+        # Close the calls while the bus still runs and wait for the event
+        # itself: ``close`` stops the bus a beat after closing the calls,
+        # and on a loaded machine its threads may not have delivered by
+        # then.
+        rt.recorders.close_all()
+        delivered.wait(COMPLETE_TIMEOUT_S)
     finally:
         rt.close()
-    deadline = time.time() + 3.0
-    while not completed and time.time() < deadline:
-        time.sleep(0.05)
     wavs = glob.glob(os.path.join(cfg.audio_dir, "**", "*.wav"),
                      recursive=True)
     return rt, active, completed, wavs
