@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``radiocapture_tpu_torch``) on one CUDA
-card: builds the five CUDA kernels and drives the port's three paths
-and the scan slice.
+card: builds the five CUDA kernels and drives the port's three paths,
+the scan slice and live SDR ingest.
 
 1. P25 C4FM control: checks the bank and fsk tracker kernels against
    their plain PyTorch versions (the tracker with the P25 and the EDACS
@@ -59,6 +59,17 @@ and the scan slice.
    the trial bank at 64 slots with its host parts, the band scan's 192
    candidates in passes of 40, ``run_fft_scan`` and both
    ``file_to_wav`` chains over 10 s) and a ``tools:`` JSON line.
+5. Live SDR ingest, through ``providers_from_config`` into ``SiteRuntime``
+   on the card: a real-time fake rtl_tcp daemon (a P25 grant, bf16
+   uploads, no zero-filled block, no drop; ``decode live rtl_tcp:``), a
+   cs16 driver host into ``receiver_split2`` (a CQPSK grant through the
+   complex bank and the CQPSK tracker; ``decode live rciq split2:``), a
+   driver host leaving three blocks out (exactly those zero-filled, one
+   block apart, then a grant again; ``decode live dropout:``), the site
+   at 8, 32 and 128 real-time rtl_tcp sources from child processes until
+   one is not real time (``bench live:``), the control-plane soak at 256
+   concurrent calls (``soak:``) and 30 s of call churn with flat
+   ``memory_allocated`` (``longevity:``), and a ``live:`` JSON line.
 
     python3 chip_smoke.py
 
@@ -156,6 +167,21 @@ TRIAL_SLOTS = 64           # trial_p25_lock's max_slots
 BAND_PASS = 40             # run_band_scan's slots a pass (ov_scan.py:34)
 SCAN_CHANNELS = 40         # the conventional scanner's channels
 OFFSET_TOL_HZ = 1.0        # trial offsets, card vs CPU
+# live SDR ingest (frontend/ingest.py, rtl_tcp.py, rciq.py) and L7
+LIVE_DECODE_S = 3.0        # real-time stream through rt.run per decode
+LIVE_WAIT_S = 20.0         # deadline on a live phase's waits
+LIVE_GAP = 3               # blocks the driver host leaves out
+LIVE_AFTER_BLOCKS = 15     # blocks run after the stream resumes
+LIVE_CADENCE_TOL_S = 0.02  # zero-filled blocks' spacing against a block
+LIVE_BENCH_SOURCES = (8, 32, 128)
+LIVE_BENCH_S = 10.0
+LIVE_WARM_STEPS = 5
+LIVE_SPAWN_S = 120.0       # the senders' child processes starting
+LIVE_SENDERS_PER_PROC = 16
+SOAK_TARGET = 256
+SOAK_TIMEOUT_S = 420
+LONGEVITY_S = 30.0
+LONGEVITY_FLAT_FROM = 10   # cycles before memory_allocated is held flat
 # The analog WAV, card vs CPU: the card's bank takes bf16 operands, so
 # its channels are within BANK_REL_TOL of the CPU's; the FM discriminator
 # sees that as phase noise. Held as a share of PCM full scale.
@@ -2089,6 +2115,525 @@ def phase_bench_scan(dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- live
+class LiveFeeder:
+    """A driver host's send loop: broadcasts ``iq`` (looped from its
+    start) through an ``RcIqServer``, one block of ``n`` samples per
+    block's duration on an absolute schedule, once a client is connected.
+    ``skip(k)`` leaves the next ``k`` blocks out, as a radio that stops
+    sending; their samples are lost, as in a real outage."""
+
+    def __init__(self, srv, iq, n: int, rate: float):
+        import threading
+        self.srv, self.iq, self.n, self.block_s = srv, iq, n, n / rate
+        self.skipped = 0
+        self.resumed_at = None
+        self._skip = 0
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="live-feeder")
+        self._thread.start()
+
+    def skip(self, k: int) -> None:
+        with self._lock:
+            self._skip = k
+
+    def _run(self) -> None:
+        deadline = time.time() + LIVE_WAIT_S
+        while self.srv.clients == 0 and not self._stop.is_set():
+            if time.time() > deadline:
+                return
+            time.sleep(0.005)
+        t0, k, pos = time.perf_counter(), 0, 0
+        while not self._stop.is_set():
+            blk = np.take(self.iq, np.arange(pos, pos + self.n), mode="wrap")
+            pos = (pos + self.n) % len(self.iq)
+            with self._lock:
+                skip = self._skip > 0
+                self._skip -= skip
+                if not skip and self.skipped and self.resumed_at is None:
+                    self.resumed_at = time.perf_counter()
+            if skip:
+                self.skipped += 1
+            else:
+                self.srv.broadcast(blk)
+            k += 1
+            self._stop.wait(max(0.0, t0 + k * self.block_s
+                                - time.perf_counter()))
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(LIVE_WAIT_S)
+        if self._thread.is_alive():
+            raise AssertionError("the live feeder did not stop")
+
+
+class UploadLog:
+    """Wraps the runtime's ``wire_from_numpy`` while a phase runs: the
+    dtype of every upload and the host time of the copy calls."""
+
+    def __init__(self):
+        from radiocapture_tpu_torch import runtime as rtm
+        self.rtm, self.orig = rtm, rtm.wire_from_numpy
+        self.dtypes, self.s, self.calls = set(), 0.0, 0
+
+    def __enter__(self):
+        def upload(a, device):
+            t0 = time.perf_counter()
+            x = self.orig(a, device)
+            self.s += time.perf_counter() - t0
+            self.calls += 1
+            self.dtypes.add(str(x.dtype))
+            return x
+        self.rtm.wire_from_numpy = upload
+        return self
+
+    def __exit__(self, *exc):
+        self.rtm.wire_from_numpy = self.orig
+
+
+def live_config(kind: str, args: str, modulation: str = "C4FM",
+                cc: float = RT_P25_CC):
+    """A one-source live deployment: 64 slots, 100 ms blocks, bf16 wire
+    where lossless, one P25 system on ``cc``."""
+    import tempfile
+    from radiocapture_tpu_torch.rxconfig import (RcConfig, SourceConfig,
+                                                 SystemConfig)
+    cfg = RcConfig(audio_dir=tempfile.mkdtemp(prefix="rc_smoke_live_"))
+    cfg.ingest_bf16 = True
+    cfg.sources[0] = SourceConfig(type=kind, args=args,
+                                  center_freq=RT_CENTER, samp_rate=SAMP_RATE)
+    cfg.systems[0] = SystemConfig(type="p25", id="Live",
+                                  modulation=modulation,
+                                  control_channels=[cc])
+    return cfg
+
+
+def grants_of(msgs: list, group: int) -> list:
+    return [m for m in list(msgs) if m.get("name") == "GRP_V_CH_GRANT"
+            and m.get("crc") == 0 and m.get("Group Address") == group]
+
+
+def live_run(dev, cfg, what: str, need: tuple, run) -> dict:
+    """``providers_from_config(cfg)`` into ``SiteRuntime(cfg, ..., dev)``
+    with the kernel counts at 0; ``run(rt, msgs)`` drives it. Returns the
+    runtime's facts: control messages (with arrival times), the upload
+    dtypes, the launches, the paced provider's and the ring's counts."""
+    import shutil
+    from radiocapture_tpu_torch.runtime import (PacedProvider, SiteRuntime,
+                                                providers_from_config)
+    providers, live = providers_from_config(cfg)
+    rt = None
+    try:
+        if len(live) != 1 or not isinstance(providers[0], PacedProvider):
+            raise AssertionError(f"{what}: live {live}, {providers}")
+        msgs, times = [], []
+
+        def on_msg(m):
+            times.append(time.perf_counter())
+            msgs.append(m)
+        with UploadLog() as up:
+            rt = SiteRuntime(cfg, providers, dev)
+            rt.bus.subscribe("/topic/raw_control/*", on_msg)
+            reset_kernel_counts()
+            t0 = time.perf_counter()
+            extra = run(rt, msgs) or {}
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kernel_counts()
+        paced = providers[0]
+        res = {"blocks": rt.blocks, "wall_s": wall,
+               "pop_ms": paced.pop_s * 1e3 / max(paced.blocks, 1),
+               "zero_filled": paced.zero_filled,
+               "dropped": live[0].ring.dropped,
+               "bytes_in": live[0].bytes_in, "uploads": sorted(up.dtypes),
+               "launches": launches, "msgs": msgs, "times": times, **extra}
+    finally:
+        if rt is not None:
+            rt.close()
+            shutil.rmtree(cfg.audio_dir, ignore_errors=True)
+        for s in live:
+            s.stop()
+    if min(launches[k] for k in need) < 1:
+        raise AssertionError(f"{what}: a kernel of the path never ran: "
+                             f"{launches}")
+    log(f"{what}: {res['blocks']} blocks in {wall:.3f} s, "
+        f"{res['bytes_in']} bytes in, ring pop {res['pop_ms']:.3f} ms a "
+        f"block, zero-filled {res['zero_filled']}, "
+        f"dropped {res['dropped']}, uploads {res['uploads']}, "
+        f"launches {launches}")
+    return res
+
+
+def phase_live_rtl_tcp(dev) -> dict:
+    """A fake rtl_tcp daemon streams the cu8 P25 control capture of the
+    JAX package's ``tests/test_rtl_tcp.py`` in real time; the port's
+    ``providers_from_config`` (``ingest_bf16``) feeds ``SiteRuntime`` on
+    the card through ``rt.run(duration_s=...)``. The grant (Group
+    Address 900, CRC clean) decodes, the groups upload bfloat16, no block
+    is zero-filled and the ring drops nothing."""
+    from radiocapture_tpu_torch.frontend.rtl_tcp import FakeRtlTcpServer
+    from radiocapture_tpu_torch.testing import streams
+    srv = FakeRtlTcpServer(streams.live_control("C4FM", group=900),
+                           samp_rate=SAMP_RATE, realtime=True)
+    try:
+        res = live_run(
+            dev, live_config("rtlsdr", f"rtl_tcp={srv.host}:{srv.port}"),
+            "decode live rtl_tcp", ("xlat_bank", "fsk_track", "fm_voice"),
+            lambda rt, msgs: rt.run(duration_s=LIVE_DECODE_S))
+    finally:
+        srv.close()
+    hits = grants_of(res["msgs"], 900)
+    if not hits or res["uploads"] != ["torch.bfloat16"] \
+            or res["zero_filled"] or res["dropped"]:
+        raise AssertionError(f"decode live rtl_tcp: {len(hits)} grants of "
+                             f"{len(res['msgs'])} messages, {res}")
+    log(f"decode live rtl_tcp: {len(hits)} GRP_V_CH_GRANT (Group Address "
+        f"900, crc 0) from {len(res['msgs'])} control messages over "
+        f"{res['blocks']} real-time blocks; bf16 upload, 0 zero-filled, "
+        f"0 dropped ok; launches xlat_bank {res['launches']['xlat_bank']} "
+        f"fsk_track {res['launches']['fsk_track']} fm_voice "
+        f"{res['launches']['fm_voice']}")
+    return res
+
+
+def phase_live_split2(dev) -> dict:
+    """A driver host (``RcIqServer``) streams cs16 at 2.4 MS/s in real
+    time: the P25 CQPSK (LSM) control fixture 75 kHz below split2's lower
+    half's centre. A ``usrp`` source with ``receiver_split2`` splits it on
+    the card (complex bank) into two 1.2 MS/s halves and the runtime's
+    CQPSK group decodes the grant (Group Address 902); the upload is
+    float32 (cs16 is not lossless in bf16)."""
+    from radiocapture_tpu_torch.frontend.pipeline import SpectrumSplit2
+    from radiocapture_tpu_torch.frontend.rciq import RcIqServer
+    from radiocapture_tpu_torch.testing import streams
+    cc = SpectrumSplit2(SAMP_RATE).half_center(RT_CENTER, 0) - 75e3
+    iq = streams.live_control("CQPSK", group=902, center=RT_CENTER,
+                              cc_freq=cc)
+    srv = RcIqServer(SAMP_RATE, RT_CENTER, fmt="cs16")
+    feeder = LiveFeeder(srv, iq, BLOCK, SAMP_RATE)
+    cfg = live_config("usrp", f"rciq={srv.host}:{srv.port}",
+                      modulation="CQPSK", cc=cc)
+    cfg.receiver_split2 = True
+    try:
+        res = live_run(dev, cfg, "decode live rciq split2",
+                       ("xlat_complex", "cqpsk_track"),
+                       lambda rt, msgs: rt.run(duration_s=LIVE_DECODE_S))
+    finally:
+        feeder.stop()
+        srv.close()
+    hits = grants_of(res["msgs"], 902)
+    if not hits or res["uploads"] != ["torch.float32"] \
+            or res["zero_filled"] or res["dropped"]:
+        raise AssertionError(f"decode live rciq split2: {len(hits)} grants "
+                             f"of {len(res['msgs'])} messages, {res}")
+    log(f"decode live rciq split2: {len(hits)} GRP_V_CH_GRANT (Group "
+        f"Address 902, crc 0) on the CQPSK group of split2 half 0 "
+        f"({cc / 1e6:.4f} MHz) over {res['blocks']} half-rate blocks; "
+        f"float32 upload, 0 zero-filled, 0 dropped ok; launches "
+        f"xlat_complex {res['launches']['xlat_complex']} cqpsk_track "
+        f"{res['launches']['cqpsk_track']}")
+    return res
+
+
+def phase_live_dropout(dev) -> dict:
+    """A ``usrp`` source fed by a driver host that stops sending for
+    LIVE_GAP blocks once the runtime has decoded the grant (Group Address
+    903). The runtime zero-fills exactly those blocks, one block's
+    duration apart (the paced provider's stream cadence), and decodes the
+    grant again once the stream resumes."""
+    from radiocapture_tpu_torch.frontend.rciq import RcIqServer
+    from radiocapture_tpu_torch.testing import streams
+    srv = RcIqServer(SAMP_RATE, RT_CENTER, fmt="cs16")
+    feeder = LiveFeeder(srv, streams.live_control("C4FM", group=903),
+                        BLOCK, SAMP_RATE)
+    block_s = feeder.block_s
+
+    def run(rt, msgs):
+        paced = rt.providers[0]
+        fills, deadline = [], time.perf_counter() + LIVE_WAIT_S
+        while not grants_of(msgs, 903):
+            if time.perf_counter() > deadline:
+                raise AssertionError("decode live dropout: no grant before "
+                                     "the gap")
+            rt.step()
+        feeder.skip(LIVE_GAP)
+        after = None
+        while after is None or rt.blocks < after + LIVE_AFTER_BLOCKS:
+            if time.perf_counter() > deadline + LIVE_WAIT_S:
+                raise AssertionError("decode live dropout: stream did not "
+                                     "resume")
+            z, t0 = paced.zero_filled, time.perf_counter()
+            rt.step()
+            if paced.zero_filled > z:
+                fills.append((rt.blocks, t0 + paced.last_wait_s,
+                              paced.last_wait_s))
+            elif fills and after is None:
+                after = rt.blocks
+        return {"fills": fills, "resume_block": after}
+
+    try:
+        res = live_run(dev, live_config("usrp",
+                                        f"rciq={srv.host}:{srv.port}"),
+                       "decode live dropout", ("xlat_bank", "fsk_track"),
+                       run)
+    finally:
+        feeder.stop()
+        srv.close()
+    fills = res["fills"]
+    gaps = [b[1] - a[1] for a, b in zip(fills, fills[1:])]
+    blocks = [f[0] for f in fills]
+    after = [t for t, m in zip(res["times"], res["msgs"])
+             if feeder.resumed_at is not None and t > feeder.resumed_at
+             and grants_of([m], 903)]
+    ok = (len(fills) == LIVE_GAP == feeder.skipped
+          and blocks == list(range(blocks[0], blocks[0] + LIVE_GAP))
+          and all(abs(g - block_s) <= LIVE_CADENCE_TOL_S for g in gaps)
+          and fills[0][2] <= 1.5 * block_s + LIVE_CADENCE_TOL_S
+          and res["zero_filled"] == LIVE_GAP and not res["dropped"]
+          and len(after) > 0)
+    log(f"decode live dropout: the driver host skipped {feeder.skipped} "
+        f"blocks; zero-filled blocks {blocks} after waits "
+        f"{[round(f[2] * 1e3, 3) for f in fills]} ms, "
+        f"{[round(g * 1e3, 3) for g in gaps]} ms apart (block "
+        f"{block_s * 1e3:.0f} ms); {len(after)} grants after the stream "
+        f"resumed (block {res['resume_block']}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"decode live dropout: {res}")
+    return res
+
+
+def _live_senders(n: int, conn) -> None:
+    """A child process of ``bench live``: ``n`` real-time fake rtl_tcp
+    daemons streaming the cu8 control capture; sends their ports, then
+    serves until told to stop."""
+    from radiocapture_tpu_torch.frontend.rtl_tcp import FakeRtlTcpServer
+    from radiocapture_tpu_torch.testing import streams
+    iq = streams.live_control("C4FM")
+    srvs = [FakeRtlTcpServer(iq, samp_rate=SAMP_RATE, realtime=True)
+            for _ in range(n)]
+    try:
+        conn.send([s.port for s in srvs])
+        conn.recv()
+    finally:
+        for s in srvs:
+            s.close()
+
+
+def live_bench_at(dev, ports: list) -> dict:
+    """``SiteRuntime`` at len(ports) real-time rtl_tcp sources × 64
+    slots (bf16 wire): warm-up steps, then LIVE_BENCH_S of steps. Per
+    step: wall time, and its work (wall less the paced waits); per block:
+    the ring pops, the stack and the upload; bytes in per second,
+    zero-filled blocks, ring drops, and the profiler's busy share."""
+    import shutil
+    import tempfile
+    from radiocapture_tpu_torch.rxconfig import (RcConfig, SourceConfig,
+                                                 SystemConfig)
+    from radiocapture_tpu_torch.runtime import (SiteRuntime,
+                                                providers_from_config)
+    s = len(ports)
+    what = f"bench live: S={s}"
+    cfg = RcConfig(audio_dir=tempfile.mkdtemp(prefix="rc_smoke_bench_"))
+    cfg.ingest_bf16 = True
+    for i, port in enumerate(ports):
+        cfg.sources[i] = SourceConfig(type="rtlsdr",
+                                      args=f"rtl_tcp=127.0.0.1:{port}",
+                                      center_freq=RT_CENTER + i * SAMP_RATE,
+                                      samp_rate=SAMP_RATE)
+    cfg.systems[0] = SystemConfig(type="p25", id="P25",
+                                  control_channels=[RT_P25_CC])
+    providers, live = providers_from_config(cfg)
+    rt = None
+    try:
+        with UploadLog() as up:
+            rt = SiteRuntime(cfg, providers, dev)
+            stack = rt._stack
+            stack_s = [0.0]
+
+            def timed_stack(key, xs):
+                t0 = time.perf_counter()
+                out = stack(key, xs)
+                stack_s[0] += time.perf_counter() - t0
+                return out
+            rt._stack = timed_stack
+            for _ in range(LIVE_WARM_STEPS):
+                rt.step()
+            paced = list(providers.values())
+
+            def totals():
+                return (sum(p.wait_s for p in paced),
+                        sum(p.pop_s for p in paced),
+                        sum(p.zero_filled for p in paced),
+                        sum(x.bytes_in for x in live),
+                        sum(x.ring.dropped for x in live))
+            w0, p0, z0, b0, d0 = totals()
+            stack_s[0], up.s, up.calls = 0.0, 0.0, 0
+            wall, work = [], []
+            t_start = time.perf_counter()
+            while time.perf_counter() - t_start < LIVE_BENCH_S:
+                w = sum(p.wait_s for p in paced)
+                t0 = time.perf_counter()
+                rt.step()
+                dt = time.perf_counter() - t0
+                wall.append(dt * 1e3)
+                work.append((dt - (sum(p.wait_s for p in paced) - w)) * 1e3)
+            elapsed = time.perf_counter() - t_start
+            w1, p1, z1, b1, d1 = totals()
+            n = len(wall)
+            busy = profile_steps(rt.step, f"live S={s}")
+    finally:
+        if rt is not None:
+            rt.close()
+        for x in live:
+            x.stop()
+        shutil.rmtree(cfg.audio_dir, ignore_errors=True)
+    wall.sort()
+    work.sort()
+    res = {"sources": s, "slots": SLOTS, "block_ms": BLOCK / SAMP_RATE * 1e3,
+           "wire": "bfloat16", "steps": n, "seconds": elapsed,
+           "step_wall_p50_ms": wall[n // 2],
+           "step_wall_p95_ms": wall[int(n * 0.95)],
+           "step_work_p50_ms": work[n // 2],
+           "step_work_p95_ms": work[int(n * 0.95)],
+           "wait_ms_per_block": (w1 - w0) * 1e3 / n,
+           "pop_ms_per_block": (p1 - p0) * 1e3 / n,
+           "stack_ms_per_block": stack_s[0] * 1e3 / n,
+           "upload_ms_per_block": up.s * 1e3 / n,
+           "bytes_in_per_s": (b1 - b0) / elapsed,
+           "wire_bytes_per_s": 2 * SAMP_RATE * s,
+           "zero_filled": z1 - z0, "dropped": d1 - d0,
+           "dropped_total": d1, "profile_busy_share": busy}
+    res["real_time"] = res["step_work_p95_ms"] <= res["block_ms"] \
+        and res["dropped_total"] == 0
+    log(f"{what}: " + json.dumps(res))
+    log(f"{what}: step work p50 {res['step_work_p50_ms']:.3f} / p95 "
+        f"{res['step_work_p95_ms']:.3f} ms (wall p95 "
+        f"{res['step_wall_p95_ms']:.3f}) vs {res['block_ms']:.0f} ms block; "
+        f"per block: ring pops {res['pop_ms_per_block']:.3f} ms, stack "
+        f"{res['stack_ms_per_block']:.3f} ms, upload "
+        f"{res['upload_ms_per_block']:.3f} ms; "
+        f"{res['bytes_in_per_s'] / 1e6:.3f} MB/s in of "
+        f"{res['wire_bytes_per_s'] / 1e6:.3f}; zero-filled "
+        f"{res['zero_filled']}, dropped {res['dropped_total']}; busy share "
+        f"{busy:.3f}; {'real time' if res['real_time'] else 'NOT real time'}")
+    return res
+
+
+def phase_live_bench(dev) -> list:
+    """Real-time rtl_tcp senders in child processes (LIVE_SENDERS_PER_PROC
+    each, so that no sender falls behind for its process's GIL) feed one
+    ``SiteRuntime`` at S = LIVE_BENCH_SOURCES in turn, stopping after the
+    first S that is not real time (step work p95 over the block, or a
+    ring dropped samples)."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    n = max(LIVE_BENCH_SOURCES)
+    kids = []
+    out = []
+    try:
+        for _ in range(-(-n // LIVE_SENDERS_PER_PROC)):
+            here, there = ctx.Pipe()
+            child = ctx.Process(target=_live_senders,
+                                args=(LIVE_SENDERS_PER_PROC, there),
+                                daemon=True)
+            child.start()
+            kids.append((child, here))
+        ports = []
+        for child, here in kids:
+            if not here.poll(LIVE_SPAWN_S):
+                raise AssertionError("bench live: the senders did not start")
+            ports += here.recv()
+        for s in LIVE_BENCH_SOURCES:
+            out.append(live_bench_at(dev, ports[:s]))
+            if not out[-1]["real_time"]:
+                break
+    finally:
+        for child, here in kids:
+            try:
+                here.send("stop")
+            except OSError:
+                pass                   # the child has gone already
+        for child, _ in kids:
+            child.join(LIVE_WAIT_S)
+            if child.is_alive():
+                child.terminate()
+                child.join(LIVE_WAIT_S)
+    log(f"bench live: real time up to S="
+        f"{max([r['sources'] for r in out if r['real_time']], default=0)} "
+        f"of {[r['sources'] for r in out]}")
+    return out
+
+
+def phase_soak() -> dict:
+    """``python -m radiocapture_tpu_torch.tools.soak --target 256`` on the
+    card: two runtimes on one broker, every drain invariant at zero."""
+    import shutil
+    import tempfile
+    audio = tempfile.mkdtemp(prefix="rc_smoke_soak_")
+    t0 = time.perf_counter()
+    try:
+        p = subprocess.run(
+            [sys.executable, "-m", "radiocapture_tpu_torch.tools.soak",
+             "--target", str(SOAK_TARGET), "--audio-dir", audio],
+            cwd=str(Path(__file__).resolve().parent), capture_output=True,
+            text=True, timeout=SOAK_TIMEOUT_S)
+    finally:
+        shutil.rmtree(audio, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    if p.returncode != 0:
+        raise AssertionError(f"soak: exit {p.returncode}: {p.stderr[-3000:]}")
+    res = json.loads(p.stdout.strip().splitlines()[-1])
+    drains = ("grants_denied", "stuck_calls_after_drain",
+              "leaked_slots_after_drain", "recorder_backlog_after_drain")
+    ok = all(res[k] == 0 for k in drains) \
+        and res["peak_concurrency"] >= SOAK_TARGET
+    log("soak: " + json.dumps(res))
+    log(f"soak: target {SOAK_TARGET}, peak {res['peak_concurrency']} "
+        f"concurrent calls over {res['runtimes']} runtimes, "
+        f"{res['calls_opened']} opened; open latency p50 "
+        f"{res['open_latency_p50_s']} / p95 {res['open_latency_p95_s']} s "
+        f"(warm p95 {res['warm_latency_p95_s']}, cold p95 "
+        f"{res['cold_latency_p95_s']}; {res['warm_opens']} warm, "
+        f"{res['cold_opens']} cold), wall {res['wall_seconds']} s "
+        f"({wall:.1f} s with start-up); "
+        + ", ".join(f"{k} {res[k]}" for k in drains)
+        + (" ok" if ok else " FAIL"))
+    if not ok:
+        raise AssertionError("soak: a drain invariant is not zero")
+    return {**res, "command_s": wall}
+
+
+def phase_longevity(dev) -> dict:
+    """``tools/longevity.py`` on the card for LONGEVITY_S: call churn on
+    one soak site; from cycle LONGEVITY_FLAT_FROM on, every sample of
+    ``torch.cuda.memory_allocated`` must be the same."""
+    import contextlib
+    import io
+    from radiocapture_tpu_torch.tools import longevity
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = longevity.main(LONGEVITY_S, device=dev)
+    for line in buf.getvalue().splitlines():
+        log(f"longevity: {line}")
+    late = [x["cuda_allocated"] for x in res["samples"]
+            if x["cycle"] >= LONGEVITY_FLAT_FROM]
+    flat = len(late) >= 2 and max(late) == min(late)
+    log(f"longevity: {res['cycles']} cycles, {res['blocks']} blocks in "
+        f"{LONGEVITY_S:.0f} s; rss {res['rss_mb_start']} -> "
+        f"{res['rss_mb_end']} MB, threads {res['threads_start']} -> "
+        f"{res['threads_end']}; memory_allocated from cycle "
+        f"{LONGEVITY_FLAT_FROM}: {late} {'flat ok' if flat else 'FAIL'}")
+    if not flat or res["active_end"]:
+        raise AssertionError(f"longevity: memory_allocated {late}, "
+                             f"{res['active_end']} calls open at the end")
+    return {k: v for k, v in res.items() if k != "samples"} | {
+        "cuda_allocated": late,
+        "cuda_max_allocated": res["samples"][-1]["cuda_max_allocated"]}
+
+
 def main() -> None:
     from radiocapture_tpu_torch import kernels
     from radiocapture_tpu_torch.device import require_cuda
@@ -2170,6 +2715,26 @@ def main() -> None:
                      "decode_scanner": scanner["launches"],
                      "decode_file_to_wav": f2w["launches"],
                      "bench_scan": bench_scan["launches"]}}))
+    # live SDR ingest through SiteRuntime, the soak and the longevity
+    # check (L7)
+    live_rtl = phase_live_rtl_tcp(dev)
+    live_split2 = phase_live_split2(dev)
+    live_gap = phase_live_dropout(dev)
+    bench_live = phase_live_bench(dev)
+    soak = phase_soak()
+    longev = phase_longevity(dev)
+
+    def facts(r):
+        return {k: r[k] for k in ("blocks", "pop_ms", "zero_filled",
+                                  "dropped", "uploads", "launches")}
+    log("live: " + json.dumps({
+        "decode_rtl_tcp": facts(live_rtl),
+        "decode_rciq_split2": facts(live_split2),
+        "dropout": {**facts(live_gap),
+                    "zero_fill_waits_ms": [f[2] * 1e3
+                                           for f in live_gap["fills"]]},
+        "bench": bench_live,
+        "soak": soak, "longevity": longev}))
     loaded = [m for m in ("jax", "radiocapture_tpu") if m in sys.modules]
     if loaded:
         raise AssertionError(f"imported {loaded}")

@@ -2,9 +2,10 @@
 
 The ingest wire layout is ``[S, T, 2]`` re/im pairs, bfloat16 by default
 (lossless for the 8-bit RTL-class SDR formats, half the float32 stream).
-bf16 numpy arrays from the ingest ring carry the ``ml_dtypes`` dtype,
-which ``torch.from_numpy`` rejects; they are moved through their uint16
-bit pattern instead, so this package never imports ``ml_dtypes``.
+numpy has no bfloat16: the port's ingest ring hands bf16 blocks as their
+uint16 bit patterns, and an ``ml_dtypes`` bf16 array (which
+``torch.from_numpy`` rejects) is moved through the same bits, so this
+package never imports ``ml_dtypes``.
 """
 
 from __future__ import annotations
@@ -28,9 +29,10 @@ def resolve(device) -> torch.device:
 
 
 def wire_from_numpy(a: np.ndarray, device) -> torch.Tensor:
-    """``[..., 2]`` re/im numpy block (float32, or 2-byte bfloat16 as
-    produced by the ingest ring) → tensor on ``device``, dtype kept."""
-    if a.dtype.name == "bfloat16":
+    """``[..., 2]`` re/im numpy block → tensor on ``device``: float32
+    stays float32; uint16 (bf16 bit patterns, as the ingest ring pops
+    them) and ``ml_dtypes`` bfloat16 become ``torch.bfloat16``."""
+    if a.dtype == np.uint16 or a.dtype.name == "bfloat16":
         bits = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16))
         return bits.view(torch.bfloat16).to(device)
     return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)

@@ -16,7 +16,7 @@ Usage::
     rt = SiteRuntime(cfg, {0: FileSource(path)}, device=require_cuda())
     rt.run(n_blocks=100)     # or rt.step() in an external loop
 
-CLI (file sources, one CUDA device):
+CLI (file and live SDR sources, one CUDA device):
 ``python -m radiocapture_tpu_torch.runtime -c <config.py> --blocks N``
 """
 
@@ -413,12 +413,14 @@ class SiteRuntime:
         """The blocks ``xs`` stacked in ``key``'s dtype into a host buffer
         kept from block to block: a fresh 100 MB-scale array per block
         would pay its page faults every time. The upload copies it before
-        the next block refills it."""
+        the next block refills it. A uint16 group (bf16 bit patterns from
+        the ingest ring) stays uint16; in a float32 group such a block
+        is converted exactly (:func:`_as_dtype`)."""
         shape = (len(xs),) + xs[0].shape
         buf = self._stage.get(key)
         if buf is None or buf.shape != shape:
             buf = self._stage[key] = np.empty(shape, key[1])
-        return np.stack([a.astype(key[1], copy=False) for a in xs], out=buf)
+        return np.stack([_as_dtype(a, key[1]) for a in xs], out=buf)
 
     @staticmethod
     def _fetch(cls: str, out: tuple) -> tuple:
@@ -703,24 +705,118 @@ class FileSource:
         return out if len(out) == n else None
 
 
+class PacedProvider:
+    """A live source's block provider, paced to the stream: each call
+    waits until the source's ingest ring holds the block, then pops it.
+
+    A step on the card takes a few ms against a block of 50-100 ms, so an
+    unpaced loop would find the ring short on most calls and the
+    non-strict provider would zero-fill them, splicing zero blocks between
+    real ones (ROADMAP C.4; the JAX runtime keeps that behaviour).
+
+    A block is due one block's duration (``n / source.samp_rate``) after
+    the previous one was in the ring, and the wait ends half a block past
+    that. A loop faster than the stream waits about a block for every
+    block, so a bound of one block from the call would leave no room for
+    the sender's jitter; half a block of grace leaves room, and a
+    dropout's last zero-filled block still comes before the stream's next
+    real one. A block still short then is a true dropout, and the
+    provider zero-fills it as before; each further missing block is
+    zero-filled one block after the one before, so the site keeps the
+    stream's cadence. A real block counts as in the ring when the wrapper
+    saw it there: at the end of its wait, or at the call if it was there
+    already. That is never before it came, so neither a sender slower
+    than its nominal rate nor one that sends in bursts gets a block
+    zero-filled while it is coming; a zero-filled block stands for the
+    block due then. A loop slower than the stream finds its blocks
+    waiting and never waits.
+
+    Counters, read by the live benchmarks: ``blocks`` pulled,
+    ``zero_filled`` of them, ``wait_s`` and ``pop_s`` in all (the wait and
+    the provider's own call), and ``last_wait_s``."""
+
+    POLL_S = 0.0005
+
+    def __init__(self, source, provider):
+        self.source = source
+        self.provider = provider
+        self.blocks = 0
+        self.zero_filled = 0
+        self.wait_s = 0.0
+        self.pop_s = 0.0
+        self.last_wait_s = 0.0
+        self._due: float | None = None
+
+    def __call__(self, n: int):
+        ring = self.source.ring
+        block = n / self.source.samp_rate
+        t0 = time.perf_counter()
+        due = t0 + block if self._due is None else self._due
+        while ring.available < n:
+            left = due + 0.5 * block - time.perf_counter()
+            if left <= 0.0:
+                break
+            time.sleep(min(self.POLL_S, left))
+        t1 = time.perf_counter()
+        short = ring.available < n
+        x = self.provider(n)
+        self.pop_s += time.perf_counter() - t1
+        self._due = (due if short else t1) + block
+        self.last_wait_s = t1 - t0
+        self.wait_s += self.last_wait_s
+        self.blocks += 1
+        self.zero_filled += short
+        return x
+
+
 def providers_from_config(cfg: RcConfig) -> tuple[dict, list]:
-    """Block providers for every configured source: ``file`` sources
-    replay captures. Returns (providers, live sources); the port has no
-    live sources yet."""
+    """Block providers for every configured source.
+
+    ``file`` sources replay captures; ``rtlsdr`` sources stream live
+    dongles over the rtl_tcp wire protocol into the native ingest ring
+    (frontend/rtl_tcp.py — the reference's osmosdr ``rtl=N`` path,
+    rc_frontend/receiver.py:170-204); ``usrp``, ``usrp2x`` and ``bladerf``
+    sources stream cs16/cf32 from a driver host over rciq
+    (frontend/rciq.py). Each live provider is non-strict (it zero-fills
+    a dropout) and paced to its stream (:class:`PacedProvider`). Returns
+    (providers, live sources); callers own stopping the live sources."""
     providers: dict = {}
+    live: list = []
     for idx, src in cfg.sources.items():
         if src.type == "file":
             providers[idx] = FileSource(src.args)
-        elif src.type in ("rtlsdr", "usrp", "usrp2x", "bladerf"):
-            raise NotImplementedError(
-                f"source {idx}: live {src.type!r} ingest is not ported yet: "
-                "ROADMAP.md queue A item 13 (live ingest)")
+            continue
+        if src.type == "rtlsdr":
+            from radiocapture_tpu_torch.frontend.rtl_tcp import \
+                source_for_config
+        elif src.type in ("usrp", "usrp2x", "bladerf"):
+            # ≥12-bit radios live on a driver host running UHD/SoapySDR
+            # (tools/driver_host_sender.py) and stream over rciq; a 2-ch
+            # usrp2x is two SourceConfigs on two sender ports.
+            from radiocapture_tpu_torch.frontend.rciq import \
+                source_for_config
         else:
             raise ValueError(
                 f"source {idx}: no ingest path for type {src.type!r} "
-                "(file is wired; rtlsdr, usrp, usrp2x, bladerf wait for "
-                "the live-ingest port)")
-    return providers, []
+                "(file, rtlsdr, usrp, usrp2x, bladerf are wired; other "
+                "hardware needs a driver host feeding UdpFeed or "
+                "IngestRing directly)")
+        s = source_for_config(src, idx)
+        live.append(s)
+        # "auto" gates the bf16 wire on the ring's sample format, so the
+        # half-bandwidth pop applies only where it is lossless (rtl_tcp's
+        # cu8; the >=12-bit rciq formats stay float32 on the same knob)
+        providers[idx] = PacedProvider(s, s.provider(
+            bf16="auto" if cfg.ingest_bf16 else False))
+    return providers, live
+
+
+def _as_dtype(a: np.ndarray, dtype) -> np.ndarray:
+    """``a`` in ``dtype``; uint16 bf16 bit patterns go to float32 exactly
+    (a bf16 is the high half of its float32), never as integers."""
+    if a.dtype == np.uint16 and dtype != np.uint16:
+        return (a.astype(np.uint32) << 16).view(np.float32)
+    return a.astype(dtype, copy=False)
 
 
 def main(argv=None):

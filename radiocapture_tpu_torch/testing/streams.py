@@ -167,6 +167,33 @@ def p25_voice_call(vc_freq: float, seconds: float, group: int = 500,
     return cc, vc, np.concatenate(sent)
 
 
+def live_control(modulation: str = "C4FM", group: int = 900,
+                 source: int = 45, center: float = 857.0e6,
+                 cc_freq: float = 857.5e6) -> np.ndarray:
+    """The live-SDR fixture of the JAX package's ``tests/test_rtl_tcp.py``
+    and ``tests/test_rciq.py``: ten pairs of TSDU frames, an IDEN_UP and
+    a GRP_V_CH_GRANT of channel 0x1000 for (``group``, ``source``),
+    modulated as C4FM or CQPSK (LSM) at 25 kS/s, at ``cc_freq`` in a
+    2.4 MS/s wideband capture at ``center`` over a −60 dB floor, scaled to
+    1/1.2 of full scale (the rtl_tcp and rciq wire formats are integers).
+    Returns complex64."""
+    iden = p25.pack_tsbk("IDEN_UP", **{
+        "Identifier": 1, "BW": 100, "Base Frequency": int(856.2e6 / 5),
+        "Channel Spacing": 50, "Transmit Offset": 0x1B4})
+    grant = p25.pack_tsbk("GRP_V_CH_GRANT", last_block=True, **{
+        "Channel": 0x1000, "Group Address": group,
+        "Source Address": source})
+    frames = [p25.build_tsdu_frame(0x293, [iden]),
+              p25.build_tsdu_frame(0x293, [grant])] * 10
+    dib = bits.bits_to_dibits(np.concatenate(frames))
+    mod = {"C4FM": M.c4fm_modulate,
+           "CQPSK": M.cqpsk_modulate}[modulation.upper()]
+    cc = M.upsample_to(mod(dib, fs=25000.0), 25000.0, 2.4e6)
+    wide = M.multi_channel(2.4e6, [(cc_freq - center, cc)], len(cc),
+                           noise_floor_db=-60.0)
+    return (wide / (np.max(np.abs(wide)) * 1.2)).astype(np.complex64)
+
+
 def codewords_ok(got: list, sent: np.ndarray, least: int) -> bool:
     """``got`` holds at least ``least`` codewords and is a contiguous run
     of ``sent``."""

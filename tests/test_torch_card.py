@@ -949,3 +949,74 @@ def test_file_to_wav_on_card_matches_cpu(cuda_device, tmp_path):
     assert tk.track.launches > before
     _, want = decode_p25(ldu, 2.4e6, 100e3, device="cpu")
     assert got == want and got["imbe"] >= 18
+
+
+@pytest.mark.cuda
+def test_bf16_bits_upload_on_card(cuda_device):
+    """A uint16 block of bf16 bits (the port's ingest ring pops them so)
+    goes to the card as ``torch.bfloat16`` with the values of the same
+    block converted exactly and uploaded as float32."""
+    from radiocapture_tpu_torch.device import wire_from_numpy
+    from radiocapture_tpu_torch.frontend.ingest import IngestRing
+    ring = IngestRing("cu8", capacity_samples=1 << 16)
+    ring.push(np.random.default_rng(4).integers(0, 256, 2 * 4096)
+              .astype(np.uint8))
+    bits = ring.pop_bf16(4096)[None]
+    ring.close()
+    got = wire_from_numpy(bits, cuda_device)
+    want = wire_from_numpy((bits.astype(np.uint32) << 16).view(np.float32),
+                           cuda_device)
+    assert got.dtype == torch.bfloat16 and got.device == want.device
+    assert want.dtype == torch.float32 and got.shape == (1, 4096, 2)
+    assert torch.equal(got.float(), want)
+
+
+@pytest.mark.cuda
+def test_live_rtl_tcp_runtime_on_card_decodes_as_cpu(cuda_device, tmp_path):
+    """``SiteRuntime`` on the card, fed by ``providers_from_config`` from
+    a fake rtl_tcp daemon (bf16 wire), decodes the same control messages
+    as the CPU port from the same stream, the grant (Group Address 900)
+    included, through the bank and tracker kernels."""
+    from radiocapture_tpu_torch.frontend.rtl_tcp import FakeRtlTcpServer
+    from radiocapture_tpu_torch.runtime import providers_from_config
+    samp, center, cc, n_blocks = 2.4e6, 857.0e6, 857.5e6, 20
+    srv = FakeRtlTcpServer(streams.live_control(), samp_rate=10 * samp,
+                           realtime=True)
+    msgs, dtypes = {}, {}
+    before = (ck.bank_fused.launches, tk.track.launches)
+    try:
+        for name, dev in (("card", cuda_device), ("cpu", "cpu")):
+            cfg = RcConfig(audio_dir=str(tmp_path / name))
+            cfg.num_slots_per_source = 8
+            cfg.block_seconds = 0.05
+            cfg.sources[0] = SourceConfig(
+                type="rtlsdr", args=f"rtl_tcp={srv.host}:{srv.port}",
+                center_freq=center, samp_rate=samp)
+            cfg.systems[0] = SystemConfig(type="p25", id="LiveSys",
+                                          control_channels=[cc])
+            providers, live = providers_from_config(cfg)
+            try:
+                rt = SiteRuntime(cfg, providers, dev)
+                need = n_blocks * rt.block_len(0)
+                deadline = time.time() + 10.0
+                while live[0].ring.available < need:
+                    assert time.time() < deadline, "rtl_tcp did not fill"
+                    time.sleep(0.01)
+                rt.use_stream_clock()
+                msgs[name] = []
+                rt.bus.subscribe("/topic/raw_control/*", msgs[name].append)
+                rt.run(n_blocks=n_blocks)
+                rt.bus.flush()
+                dtypes[name] = {g["in_dtype"] for g in rt.groups.values()}
+                rt.close()
+            finally:
+                for s in live:
+                    s.stop()
+    finally:
+        srv.close()
+    assert ck.bank_fused.launches > before[0]
+    assert tk.track.launches > before[1]
+    assert dtypes["card"] == {np.dtype(np.uint16)}
+    assert any(m.get("name") == "GRP_V_CH_GRANT" and m.get("crc") == 0
+               and m["Group Address"] == 900 for m in msgs["card"])
+    assert msgs["card"] == msgs["cpu"]

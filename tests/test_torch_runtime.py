@@ -10,6 +10,7 @@ builds them."""
 import glob
 import os
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -28,6 +29,18 @@ from radiocapture_tpu_torch import runtime as TRT
 from test_runtime import CC, CENTER, SAMP, VC, _wideband_capture
 
 torch.set_num_threads(1)   # six test workers share the machine
+
+
+@pytest.fixture(autouse=True)
+def _isolate_port_vocoder(monkeypatch):
+    """A port ``SiteRuntime`` installs the port recorder's process-global
+    default vocoder, which carries decoder state: put back whatever was
+    there after each test, as ``tests/conftest.py`` does for the JAX
+    package's."""
+    from radiocapture_tpu_torch.audio import recorder
+    monkeypatch.setattr(recorder, "_default_vocoder",
+                        recorder.get_default_vocoder())
+
 
 ECC, EVC = 857.8e6, 856.6e6     # EDACS control and voice channels
 TONE_HZ = 1000.0
@@ -347,14 +360,9 @@ def test_split2_routes_halves_as_jax(tmp_path):
 
 
 def test_entry_points_refuse_what_is_not_ported(tmp_path, monkeypatch):
-    """Live SDR sources raise ``NotImplementedError`` naming the ROADMAP
-    item; ``main`` needs a CUDA device and fails without one."""
+    """``file`` sources replay captures and start no live source; ``main``
+    needs a CUDA device and fails without one."""
     cfg = _config(TRX, tmp_path / "audio")
-    for kind in ("rtlsdr", "usrp", "usrp2x", "bladerf"):
-        cfg.sources[0].type = kind
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TRT.providers_from_config(cfg)
-    cfg.sources[0].type = "file"
     cfg.sources[0].args = str(tmp_path / "capture.dat")
     np.zeros(4, np.complex64).tofile(cfg.sources[0].args)
     providers, live = TRT.providers_from_config(cfg)
@@ -362,3 +370,73 @@ def test_entry_points_refuse_what_is_not_ported(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         TRT.main(["-c", "configs/config_example_file.py", "--blocks", "1"])
+
+
+LIVE_CONFIG = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "configs", "config_example_live.py")
+# the example config's source of each live type (usrp2x: its usrp source
+# as one channel of a 2-channel radio)
+LIVE_SOURCE = {"rtlsdr": 0, "usrp": 2, "usrp2x": 2, "bladerf": 3}
+
+
+@pytest.mark.parametrize("kind", sorted(LIVE_SOURCE))
+def test_providers_from_config_live(kind):
+    """Each live source type of ``configs/config_example_live.py``, with
+    its settings (rate, frequency, ppm, gains, wire format) and the
+    address of a fake radio on this host: ``providers_from_config``
+    returns one live source that configures the radio, and a paced
+    provider that pops its blocks (bf16 bits for the 8-bit rtl_tcp
+    stream, float32 for rciq); the source stops cleanly."""
+    from radiocapture_tpu_torch.frontend import rciq as Q
+    from radiocapture_tpu_torch.frontend import rtl_tcp as R
+    cfg = TRX.load_config(LIVE_CONFIG)
+    src = cfg.sources[LIVE_SOURCE[kind]]
+    cfg.sources = {0: src}
+    src.type = kind
+    noise = (np.random.default_rng(3).standard_normal(65536) * 0.2
+             ).astype(np.complex64)
+    if kind == "rtlsdr":
+        srv = R.FakeRtlTcpServer(noise, samp_rate=src.samp_rate)
+        src.args = f"rtl_tcp={srv.host}:{srv.port}"
+    else:
+        _host, _port, fmt = Q.parse_args(src.args)
+        srv = Q.RcIqServer(src.samp_rate, src.center_freq, fmt=fmt)
+        src.args = src.args.replace(f"{_host}:{_port}",
+                                    f"{srv.host}:{srv.port}")
+    live = []
+    try:
+        providers, live = TRT.providers_from_config(cfg)
+        assert len(live) == 1 and list(providers) == [0]
+        paced = providers[0]
+        assert isinstance(paced, TRT.PacedProvider)
+        assert paced.source is live[0]
+        deadline = time.time() + 10.0
+        if kind == "rtlsdr":
+            assert isinstance(live[0], R.RtlTcpSource)
+            want = {(R.CMD_SET_SAMP_RATE, int(src.samp_rate)),
+                    (R.CMD_SET_FREQ, int(src.center_freq)),
+                    (R.CMD_SET_FREQ_CORRECTION, 2), (R.CMD_SET_GAIN, 297)}
+            while not want <= set(srv.commands):
+                assert time.time() < deadline, srv.commands
+                time.sleep(0.01)
+        else:
+            assert isinstance(live[0], Q.RcIqSource)
+            assert live[0].fmt == fmt
+            while live[0].ring.available < len(noise):
+                assert time.time() < deadline, "no rciq stream"
+                srv.broadcast(noise)
+            cmds = {c["cmd"]: c for c in srv.commands}
+            assert cmds["rate"]["hz"] == src.samp_rate
+            assert cmds["tune"]["hz"] == src.center_freq
+            assert {c.get("name"): c.get("db") for c in srv.commands
+                    if c["cmd"] == "gain"} == {
+                        k: float(v) for k, v in (src.gains or {}).items()}
+        blk = paced(4096)
+        assert blk.shape == (4096, 2) and blk.any()
+        assert blk.dtype == (np.uint16 if kind == "rtlsdr" else np.float32)
+        assert paced.zero_filled == 0
+    finally:
+        for s in live:
+            s.stop()
+        srv.close()
+    assert not live[0]._thread.is_alive()

@@ -25,6 +25,17 @@ from radiocapture_tpu_torch.tools import file_to_wav as TFW
 
 torch.set_num_threads(1)   # six test workers share the machine
 
+
+@pytest.fixture(autouse=True)
+def _isolate_port_vocoder(monkeypatch):
+    """Each test starts with no default vocoder in the port's recorder, as
+    the JAX package's has none (``tests/conftest.py`` restores it): a port
+    ``SiteRuntime`` of an earlier test in this process installs one, and
+    its decoder state would change this test's PCM."""
+    from radiocapture_tpu_torch.audio import recorder
+    monkeypatch.setattr(recorder, "_default_vocoder", None)
+
+
 SAMP_RATE = 2.4e6
 # The analog chain's 8 kHz float audio: the bank's float32 sums and the
 # de-emphasis IIR in another order, carried through scipy's resampler
