@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``radiocapture_tpu_torch``) on one CUDA
-card: builds the five CUDA kernels and drives the port's three paths,
-the scan slice and live SDR ingest.
+card: builds the five CUDA kernel files and drives the port's three
+paths, the scan slice, live SDR ingest and the mesh steps.
 
 1. P25 C4FM control: checks the bank and fsk tracker kernels against
    their plain PyTorch versions (the tracker with the P25 and the EDACS
@@ -70,6 +70,24 @@ the scan slice and live SDR ingest.
    one is not real time (``bench live:``), the control-plane soak at 256
    concurrent calls (``soak:``) and 30 s of call churn with flat
    ``memory_allocated`` (``longevity:``), and a ``live:`` JSON line.
+6. The mesh slice (``parallel/mesh.py`` on ``torch.distributed``): the
+   stream tracker (``track_stream``, the second entry of
+   ``csrc/fsk_track.cu``) against its plain version on a P25 fixture,
+   ragged noise and the bench shape (8192 lanes × 1250 track-rate
+   samples) with its floor, and ``fsk_track`` in turns with commit
+   3e03d30's kernel (``tools/fsk_track_3e03d30.cu``; every lane
+   bit-identical: ``mesh stream tracker:``, ``fsk track turns:``); the
+   P25 grant through ``entry.dryrun_multichip``'s two mesh steps at world
+   size 1 (NCCL) and 2 (gloo, both ranks on this card), each rank's
+   collectives log held to the JAX formulas, and the time-sharded stream
+   on the card against the CPU's (``mesh decode:``); then ``bench
+   mesh:``, both mesh steps at 128 sources × 64 slots × 240000-sample
+   blocks at world size 1 and 2 (step p50/p95, each collective's bytes
+   and ms, the staged host bytes, peak memory), with the complex bank's
+   general path at the time-sharded shape (1440 taps) beside its bound
+   (``mesh complex bank:``). Ranks are processes started by
+   ``parallel.mesh.spawn`` after the kernels are built here, so they
+   only load the library.
 
     python3 chip_smoke.py
 
@@ -182,6 +200,18 @@ SOAK_TARGET = 256
 SOAK_TIMEOUT_S = 420
 LONGEVITY_S = 30.0
 LONGEVITY_FLAT_FROM = 10   # cycles before memory_allocated is held flat
+# the mesh slice (parallel/mesh.py, entry.dryrun_multichip)
+MESH_SMALL = ((1, 5, 37), (2, 40, 200), (3, 64, 1250))   # (S, C, M) streams
+MESH_WORLDS = (1, 2)       # ranks on the one card: NCCL at 1, gloo at 2
+MESH_BENCH_STEPS = 30      # timed steps per world and step, for p50/p95
+MESH_TIMED_STEPS = 3       # steps with the communicator timing each op
+MESH_WARM_STEPS = 3
+# The time-sharded pre-scan stream of the grant lane, card vs CPU: the
+# complex bank's FMA chain against the CPU's GEMM (float32, sum order
+# only, within COMPLEX_REL_TOL of |y|), through the discriminator's gain
+# (~6.6 at 25 kS/s) and the boxcar: the pipeline's float32 tolerance
+# (test_ops_channelizer.py:28).
+MESH_TRK_ATOL = 2e-3
 # The analog WAV, card vs CPU: the card's bank takes bf16 operands, so
 # its channels are within BANK_REL_TOL of the CPU's; the FM discriminator
 # sees that as phase noise. Held as a share of PCM full scale.
@@ -244,14 +274,16 @@ def grid_offsets(n_sources: int, dev) -> torch.Tensor:
 
 
 def kernel_wrappers() -> dict:
-    """The five kernel wrappers by kernel name."""
+    """The kernel wrappers by kernel name (``fsk_track_stream`` is the
+    second entry of ``csrc/fsk_track.cu``)."""
     from radiocapture_tpu_torch.demod import cqpsk_kernel as cqk
     from radiocapture_tpu_torch.demod import track_kernel as tk
     from radiocapture_tpu_torch.ops import channelizer_kernel as ck
     from radiocapture_tpu_torch.ops import fm_kernel as fk
     return {"xlat_bank": ck.bank_fused, "fsk_track": tk.track,
             "xlat_complex": ck.bank_complex,
-            "cqpsk_track": cqk.track_cqpsk, "fm_voice": fk.voice_track}
+            "cqpsk_track": cqk.track_cqpsk, "fm_voice": fk.voice_track,
+            "fsk_track_stream": tk.track_stream}
 
 
 def kernel_counts() -> dict:
@@ -2634,6 +2666,400 @@ def phase_longevity(dev) -> dict:
         "cuda_max_allocated": res["samples"][-1]["cuda_max_allocated"]}
 
 
+def phase_mesh_stream_tracker(dev, pipe) -> tuple[dict, float]:
+    """``track_stream`` (``fsk_track_stream_launch``) against its plain
+    version (``fsk4_demod`` and the slicer): a P25 fixture's pre-scan
+    stream (compacted dibits identical, the grants decoded), noise at
+    MESH_SMALL's ragged shapes, then the bench shape (128 sources × 64
+    slots × 1250 track-rate samples: the pre-scan stream of the C4FM
+    bench planes), with its ms beside the plain version's, the bytes
+    bound and the chain's floor. Then ``fsk_track`` in turns with the
+    kernel of commit 3e03d30 (``tools/fsk_track_3e03d30.cu``, the file
+    before the stream entry): every lane's outputs and state must be
+    bit-identical. Returns (numbers, max |err|)."""
+    from radiocapture_tpu_torch.demod import fsk4 as K
+    from radiocapture_tpu_torch.demod import track_kernel as tk
+    from radiocapture_tpu_torch.ops import channelizer_kernel as ck
+    from radiocapture_tpu_torch.ops import fm
+    from radiocapture_tpu_torch.testing import modulators as M
+    from radiocapture_tpu_torch.testing import streams
+    from radiocapture_tpu_torch.tools import track_turns
+    prm = pipe.track_params
+    nt = len(prm.sym_taps)
+
+    dibits, expected = streams.p25_control_stream(
+        8, channel=0x1000, group=100, source=555000)
+    iq = M.c4fm_modulate(dibits, fs=pipe.channel_fs)
+    iq = iq[:len(iq) // prm.sym_decim * prm.sym_decim]
+    trk = pipe.prescan(torch.as_tensor(iq[None, None], device=dev),
+                       fm.quad_demod_init((1, 1), dev),
+                       torch.zeros((1, 1, nt - 1), device=dev)).contiguous()
+    got = tk.track_stream(trk, K.fsk4_init((1, 1), dev), prm)
+    want = tk.track_stream_plain(trk, K.fsk4_init((1, 1), dev), prm)
+    gd, wd = (o[3][0, 0][o[2][0, 0].bool()].cpu().numpy()
+              for o in (got, want))
+    g = streams.grants(gd)
+    if not np.array_equal(gd, wd) or len(g) < 4 or not all(
+            e in expected for e in g):
+        raise AssertionError(f"stream tracker on the fixture: {len(gd)} vs "
+                             f"{len(wd)} dibits, grants {g}")
+    err = float((got[1] - want[1]).abs().max())
+    log(f"mesh stream tracker: P25 fixture {trk.shape[-1]} track-rate "
+        f"samples: compacted dibits identical, {len(g)} grants, "
+        f"max_abs_err(syms)={err:.3e} ok")
+    rng = np.random.default_rng(3)
+    for s, c, m in MESH_SMALL:
+        x = torch.as_tensor(3.0 * rng.standard_normal((s, c, m)).astype(
+            np.float32), device=dev)
+        got = tk.track_stream(x, K.fsk4_init((s, c), dev), prm)
+        want = tk.track_stream_plain(x, K.fsk4_init((s, c), dev), prm)
+        err = max(err, check_track_noise(
+            [o.cpu().numpy() for o in got[1:3]],
+            [o.cpu().numpy() for o in want[1:3]],
+            f"stream S={s} C={c} M={m}"))
+
+    s = BENCH_SOURCES
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((s, BLOCK, 2), generator=gen, device=dev).to(
+        torch.bfloat16)
+    offs = grid_offsets(s, dev)
+    state = pipe.init(s, dev)
+    for _ in range(3):
+        state, _ = pipe.step(state, x, offs)
+    n = BLOCK // pipe.decim
+    z2, gk, step = pipe.bank.operands(state.bank, x, offs)
+    y_re, y_im = ck.bank_fused(z2, gk, state.bank.phase, step, n,
+                               pipe.bank.p, pipe.decim)
+    trk = pipe.prescan(torch.complex(y_re, y_im).transpose(1, 2),
+                       state.quad, state.sym_hist).contiguous()
+
+    def fresh():
+        return type(state.fsk4)(*(t.clone() for t in state.fsk4))
+
+    timed = fresh()
+    res = {"stream_ms": cuda_ms(lambda: tk.track_stream(trk, timed, prm), 5)}
+    got = tk.track_stream(trk, fresh(), prm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = tk.track_stream_plain(trk, fresh(), prm)
+    torch.cuda.synchronize()
+    res["stream_plain_ms"] = (time.perf_counter() - t0) * 1e3
+    err = max(err, check_track_noise(
+        [o.cpu().numpy() for o in got[1:3]],
+        [o.cpu().numpy() for o in want[1:3]],
+        f"stream bench shape S={s} C={SLOTS} M={trk.shape[-1]}",
+        BENCH_SYM_LANES))
+    res["stream_bound_ms"], res["stream_bound_by"] = bound(
+        FSK_OPS * trk.numel(), F32_PEAK, tensor_bytes(trk, fresh(), got))
+    m = trk.shape[-1]
+    rows = trk[0, :32, :tk.PROBE_ROWS].T.contiguous()
+    (res["stream_floor_ms"], res["stream_floor_how"], _,
+     res["sm_clock_mhz"]) = chain_floor(
+        "fsk_track_stream", lambda: tk.chain_probe(rows, m, prm), m,
+        "tracked samples", lambda: tk.track_stream(trk, timed, prm))
+    log(f"mesh stream tracker: bench shape [{s}, {SLOTS}, {m}]: "
+        f"{res['stream_ms']:.4f} ms (plain {res['stream_plain_ms']:.1f} ms), "
+        f"bound {res['stream_bound_ms']:.4f} ms ({res['stream_bound_by']}), "
+        f"floor {res['stream_floor_ms']:.4f} ms")
+    turns = track_turns.fsk_turns(track_turns.EARLIER_FSK, y_re, y_im, state,
+                                  prm)
+    res["fsk_track_turns"] = turns
+    same = turns["identical_lanes"] == turns["lanes"]
+    log(f"fsk track turns: 3e03d30 {turns['other_ms']} ms, package "
+        f"{turns['package_ms']} ms; {turns['identical_lanes']} of "
+        f"{turns['lanes']} lanes bit-identical {'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("fsk_track no longer gives 3e03d30's outputs")
+    return res, err
+
+
+def _mesh_trk_rank(dev) -> dict:
+    """One rank (a world of 1) of ``mesh decode:``'s card-vs-CPU check:
+    ``TimeShardedControlStep.step_debug`` over the dry run's grant
+    capture on ``make_mesh3(1)``; returns the pre-scan stream and the
+    grant lane's decoded grants."""
+    from radiocapture_tpu_torch import entry
+    from radiocapture_tpu_torch.frontend.pipeline import ControlPipeline
+    from radiocapture_tpu_torch.parallel import mesh as MESH
+    from radiocapture_tpu_torch.testing import streams
+    pipe = ControlPipeline.p25_c4fm(8, entry.DRYRUN_RATE)
+    tsh = MESH.TimeShardedControlStep(pipe, MESH.make_mesh3(1), 1)
+    wide = entry.grant_capture()
+    blk = pipe.block_multiple * 64
+    offs = torch.zeros((1, 8), device=dev)
+    offs[0, 0] = entry.DRYRUN_OFFSET / entry.DRYRUN_RATE
+    st, outs = tsh.init(dev), []
+    for i in range(len(wide) // blk):
+        xb = wide[i * blk:(i + 1) * blk]
+        x = torch.as_tensor(np.stack([xb.real, xb.imag], -1)[None],
+                            device=dev)
+        st, o = tsh.step_debug(st, x, offs)
+        outs.append([v.cpu().numpy() for v in o])
+    dib, val, trk = (np.concatenate([o[i] for o in outs], -1)
+                     for i in (2, 1, 3))
+    return {"trk": trk, "grants": streams.grants(dib[0, 0][val[0, 0] > 0])}
+
+
+def phase_mesh_decode(dev) -> dict:
+    """``entry.dryrun_multichip`` on the card, at world size 1 (NCCL) and 2
+    (gloo, both ranks on this card: ``make_mesh(2)`` is 1 × 2, tiles of 4
+    of the 8 slots; ``make_mesh3(2)`` is 1 × 1 × 2, the block in two
+    chunks): the P25 grant through ``ShardedControlStep`` and through
+    ``TimeShardedControlStep``, the ranks holding their logs (dp×tp
+    empty; time-sharded one halo, one all_to_all and one all_reduce per
+    step at the formulas' bytes) and importing no JAX. Then the
+    time-sharded pre-scan stream on the card against the CPU path's
+    (``_mesh_trk_rank``, one rank each): the grant lane within
+    MESH_TRK_ATOL, the same grants. Fails unless every kernel of both
+    steps ran. Returns the launches summed over both worlds."""
+    from radiocapture_tpu_torch.entry import dryrun_multichip
+    from radiocapture_tpu_torch.parallel import mesh as MESH
+    total: dict = {}
+    need = {"dp_tp_launches": ("xlat_bank", "fsk_track"),
+            "time_launches": ("xlat_complex", "fsk_track_stream")}
+    for n in MESH_WORLDS:
+        t0 = time.perf_counter()
+        r = dryrun_multichip(n)
+        dt = time.perf_counter() - t0
+        for rk in r["ranks"]:
+            if rk["imported"]:
+                raise AssertionError(f"rank {rk['rank']} imported "
+                                     f"{rk['imported']}")
+            log(f"mesh decode: world {n} ({r['backend']}) rank {rk['rank']} "
+                f"on {rk['device']}: dp x tp mesh {r['mesh']} tile "
+                f"{rk['dp_tp_shape']} grants {rk['dp_tp_grants']}, no "
+                f"collective; time mesh {r['mesh3']} tile {rk['time_shape']} "
+                f"grants {rk['time_grants']}, {rk['time_steps']} steps, per "
+                f"step {rk['time_bytes']} bytes, staged "
+                f"{rk['time_staged_bytes']} B in all; fir max_abs_err "
+                f"{rk['fir_max_abs_err']:.3e}")
+        for k, names in need.items():
+            if min(r["launches"][k][name] for name in names) < 1:
+                raise AssertionError(f"world {n}: a kernel of the path never "
+                                     f"ran: {r['launches']}")
+            for name, v in r["launches"][k].items():
+                total[name] = total.get(name, 0) + v
+        log(f"mesh decode: world {n} ok in {dt:.1f} s; launches "
+            f"{json.dumps(r['launches'])}")
+    card = MESH.spawn(1, _mesh_trk_rank)[0]
+    cpu = MESH.spawn(1, _mesh_trk_rank, device="cpu")[0]
+    err = float(np.abs(card["trk"][:, 0] - cpu["trk"][:, 0]).max())
+    ok = err <= MESH_TRK_ATOL and card["grants"] == cpu["grants"] and len(
+        card["grants"]) >= 4
+    log(f"mesh decode: time-sharded pre-scan stream, card vs CPU, grant "
+        f"lane max_abs_err={err:.3e} (tol {MESH_TRK_ATOL}); grants "
+        f"{len(card['grants'])} / {len(cpu['grants'])} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the time-sharded step on the card disagrees "
+                             "with its CPU path")
+    return {"launches": total, "trk_card_vs_cpu": err}
+
+
+def mesh_complex_bank(dev, pipe) -> tuple[dict, float]:
+    """``xlat_complex``'s general path at the time-sharded step's shape at
+    world size 1: 128 sources × 64 slots, K = 1440 taps, D = 96, the
+    100 ms block and the c_ctx·D halo samples before it (2503 outputs),
+    float32 wire. Its ms beside the plain version's, the f32 operations
+    bound and one f32 ``bmm`` of the window matrix (no TF32, no
+    rotation) as the library yardstick; held to the plain version within
+    COMPLEX_REL_TOL. Returns (numbers, max |err|)."""
+    from radiocapture_tpu_torch.ops import channelizer_kernel as ck
+    from radiocapture_tpu_torch.ops.fir import phase_step_u32
+    bank = pipe.bank
+    d, k, s = bank.decim, bank.ntaps, BENCH_SOURCES
+    t = BLOCK + len(pipe.sym_taps) * d
+    n = t // d
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((s, t, 2), generator=gen, device=dev)
+    hist = torch.view_as_complex(torch.randn((s, k - 1, 2), generator=gen,
+                                             device=dev))
+    offs = grid_offsets(s, dev)
+    grev = bank.modulated_taps(offs).contiguous()
+    phase0 = torch.randint(0, 2 ** 32, (s, SLOTS), generator=gen,
+                           device=dev, dtype=torch.int64)
+    step = phase_step_u32(offs, d)
+
+    def kern():
+        return ck.bank_complex(x, hist, grev, phase0, step, d)
+
+    res = {"ms": cuda_ms(kern, 3)}
+    z = ck.complex_z(x, hist)
+    ck.bank_complex_plain(z, grev, phase0, step, n, d)  # allocator warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ck.bank_complex_plain(z, grev, phase0, step, n, d)
+    torch.cuda.synchronize()
+    res["plain_ms"] = (time.perf_counter() - t0) * 1e3
+    got = kern()
+    err = check_complex_bank(got, want, f"general path S={s} T={t} K={k} "
+                             f"D={d} C={SLOTS}")
+    del want
+    flops = 8.0 * s * SLOTS * n * k
+    res["bound_ms"], res["bound_by"] = bound(
+        flops, F32_PEAK, tensor_bytes(x, hist, grev, phase0, step, got))
+    zr = torch.view_as_real(z).reshape(s, -1)
+    win = zr.as_strided((s, n, 2 * k), (zr.stride(0), 2 * d, 1)).contiguous()
+    gt = grev.transpose(1, 2)
+    g2 = torch.stack([torch.cat([gt.real, gt.imag], -1),
+                      torch.cat([-gt.imag, gt.real], -1)],
+                     dim=2).reshape(s, 2 * k, 2 * SLOTS)
+    res["library_ms"] = cuda_ms(lambda: torch.bmm(win, g2), 3)
+    del win, z, zr
+    res["share_of_bound"] = res["bound_ms"] / res["ms"]
+    log(f"mesh complex bank: general path S={s} N={n} K={k} D={d} "
+        f"C={SLOTS}: {res['ms']:.3f} ms, bound {res['bound_ms']:.3f} ms "
+        f"({res['bound_by']}, {flops:.4g} FLOP), share "
+        f"{res['share_of_bound']:.4f}; library (f32 bmm, no rotation) "
+        f"{res['library_ms']:.3f} ms; plain {res['plain_ms']:.1f} ms")
+    return res, err
+
+
+def mesh_tile_bank(dev, pipe) -> dict:
+    """The wire bank kernel on the tiles a slot split leaves, alone on
+    the card: 128 sources × 240000 bf16 samples at 64, 32 and 4 slots.
+    The kernel computes slots in groups of 64, so the 32- and 4-slot
+    tiles cost about what 64 slots do: this is the padded columns'
+    cost (ms by slot count)."""
+    from radiocapture_tpu_torch.ops import channelizer_kernel as ck
+    s, bank = BENCH_SOURCES, pipe.bank
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((s, BLOCK, 2), generator=gen, device=dev).to(
+        torch.bfloat16)
+    res = {}
+    for c in (SLOTS, SLOTS // 2, 4):
+        offs = grid_offsets(s, dev)[:, :c].contiguous()
+        st = bank.init(s, dev)._replace(
+            phase=torch.zeros((s, c), dtype=torch.int64, device=dev))
+        z2, gk, step = bank.operands(st, x, offs)
+        res[c] = cuda_ms(lambda: ck.bank_fused(
+            z2, gk, st.phase, step, BLOCK // bank.decim, bank.p,
+            bank.decim), 10)
+    log("mesh tile bank: wire bank kernel at 128 sources x 240000 "
+        "samples: " + ", ".join(f"{c} slots {ms:.4f} ms"
+                                for c, ms in res.items())
+        + f" (slot groups of {ck.SLOT_GROUP})")
+    return res
+
+
+def _bench_mesh_rank(dev) -> dict:
+    """One rank of ``bench mesh:``: ``ShardedControlStep`` on
+    ``make_mesh()`` and ``TimeShardedControlStep`` on ``make_mesh3()`` at
+    128 sources × 64 slots × 240000-sample bf16 blocks (the same
+    random-normal block every step, on the card from a seed), each on
+    this rank's tile: step ms p50/p95 over MESH_BENCH_STEPS (host clock,
+    the device synchronized after each), peak memory, then
+    MESH_TIMED_STEPS with the communicator timing each collective; for
+    the time-sharded step the complex bank alone on this rank's chunk
+    and its bound."""
+    import torch.distributed as dist
+
+    from radiocapture_tpu_torch import entry
+    from radiocapture_tpu_torch.frontend.pipeline import ControlPipeline
+    from radiocapture_tpu_torch.ops import channelizer_kernel as ck
+    from radiocapture_tpu_torch.ops.fir import phase_step_u32
+    from radiocapture_tpu_torch.parallel import mesh as MESH
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pipe = ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE)
+    s = BENCH_SOURCES
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((s, BLOCK, 2), generator=gen, device=dev).to(
+        torch.bfloat16)
+    offs = grid_offsets(s, dev)
+    out = {"rank": dist.get_rank(), "world": dist.get_world_size(),
+           "backend": dist.get_backend(), "device": str(dev)}
+    for name, make, cls in (
+            ("dp_tp", MESH.make_mesh, MESH.ShardedControlStep),
+            ("time", MESH.make_mesh3, MESH.TimeShardedControlStep)):
+        step = cls(pipe, make(), s)
+        xl, ol = step.shard(x, offs)
+        state = step.init(dev)
+        for _ in range(MESH_WARM_STEPS):
+            state, outs = step.step(state, xl, ol)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        lat = []
+        for _ in range(MESH_BENCH_STEPS):
+            t0 = time.perf_counter()
+            state, outs = step.step(state, xl, ol)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated(dev)
+        lat.sort()
+        step.comm.log.clear()
+        step.comm.timed = True
+        for _ in range(MESH_TIMED_STEPS):
+            state, outs = step.step(state, xl, ol)
+        torch.cuda.synchronize()
+        ops: dict = {}
+        for e in step.comm.collectives():
+            o = ops.setdefault(e["op"], {"bytes": e["bytes"], "ms": []})
+            o["ms"].append(e["ms"])
+        r = {"mesh": list(step.layout.shape), "tile": list(xl.shape),
+             "slots": ol.shape[1], "out": list(outs[0].shape),
+             "p50_ms": lat[len(lat) // 2], "p95_ms": lat[int(len(lat) * 0.95)],
+             "steps": len(lat), "peak_mem_bytes": peak,
+             "collectives": ops,
+             "staged_bytes_per_step": step.comm.staged_bytes()
+             // MESH_TIMED_STEPS}
+        if name == "dp_tp" and step.comm.log:
+            raise AssertionError(f"dp x tp step ran collectives {step.comm.log}")
+        if name == "time":
+            r["formula_bytes"] = entry.check_time_log(
+                step, xl.shape[0], BLOCK, MESH_TIMED_STEPS)
+            bank, d = pipe.bank, pipe.decim
+            t = xl.shape[1] + step.c_ctx * d
+            xb = torch.randn((s, t, 2), generator=gen, device=dev)
+            hist = torch.zeros((s, bank.ntaps - 1), dtype=torch.complex64,
+                               device=dev)
+            grev = bank.modulated_taps(ol).contiguous()
+            stp = phase_step_u32(ol, d)
+            y = ck.bank_complex(xb, hist, grev, state.phase, stp, d)
+            r["bank_ms"] = cuda_ms(lambda: ck.bank_complex(
+                xb, hist, grev, state.phase, stp, d), 3)
+            r["bank_bound_ms"], r["bank_bound_by"] = bound(
+                8.0 * s * ol.shape[1] * (t // d) * bank.ntaps, F32_PEAK,
+                tensor_bytes(xb, hist, grev, state.phase, stp, y))
+        out[name] = r
+    return out
+
+
+def phase_bench_mesh(dev, pipe) -> dict:
+    """``bench mesh:``: the complex bank's general path at the C4FM shape
+    (``mesh_complex_bank``), the wire bank at the tiles' slot counts
+    (``mesh_tile_bank``), then ``_bench_mesh_rank`` at world size 1
+    (NCCL) and 2 (gloo, both ranks sharing this card: dp×tp 1 × 2 gives
+    each rank 32 slots, which the wire bank pads to its 64-slot group;
+    time 1 × 1 × 2 gives each rank half the block). Returns the numbers
+    and the general path's max |err|."""
+    from radiocapture_tpu_torch.parallel import mesh as MESH
+    bank, err = mesh_complex_bank(dev, pipe)
+    torch.cuda.empty_cache()
+    res = {"complex_bank": bank, "tile_bank_ms": mesh_tile_bank(dev, pipe),
+           "worlds": {}}
+    for n in MESH_WORLDS:
+        ranks = MESH.spawn(n, _bench_mesh_rank)
+        res["worlds"][n] = ranks
+        for rk in ranks:
+            for name in ("dp_tp", "time"):
+                r = rk[name]
+                coll = ", ".join(
+                    f"{op} {c['bytes']} B {np.median(c['ms']):.3f} ms"
+                    for op, c in r["collectives"].items()) or "none"
+                extra = (f"; its complex bank {r['bank_ms']:.3f} ms, bound "
+                         f"{r['bank_bound_ms']:.3f} ms ({r['bank_bound_by']})"
+                         if name == "time" else "")
+                log(f"bench mesh: world {n} ({rk['backend']}) rank "
+                    f"{rk['rank']} {name} mesh {r['mesh']} tile {r['tile']} "
+                    f"x {r['slots']} slots: step p50 {r['p50_ms']:.3f} / p95 "
+                    f"{r['p95_ms']:.3f} ms over {r['steps']}; collectives "
+                    f"per step {coll}; staged {r['staged_bytes_per_step']} B "
+                    f"per step; peak {r['peak_mem_bytes'] / 2 ** 30:.2f} GiB"
+                    f"{extra}")
+    log("bench mesh: " + json.dumps(res))
+    return {**res, "complex_bank_err": err}
+
+
 def main() -> None:
     from radiocapture_tpu_torch import kernels
     from radiocapture_tpu_torch.device import require_cuda
@@ -2735,6 +3161,12 @@ def main() -> None:
                                            for f in live_gap["fills"]]},
         "bench": bench_live,
         "soak": soak, "longevity": longev}))
+    # the mesh slice: the stream tracker, the grant through both mesh
+    # steps at world size 1 (NCCL) and 2 (gloo on this card), the bench
+    stream, stream_err = phase_mesh_stream_tracker(dev, pipe)
+    mesh = phase_mesh_decode(dev)
+    bench_mesh = phase_bench_mesh(dev, pipe)
+    mbank = bench_mesh["complex_bank"]
     loaded = [m for m in ("jax", "radiocapture_tpu") if m in sys.modules]
     if loaded:
         raise AssertionError(f"imported {loaded}")
@@ -2771,7 +3203,13 @@ def main() -> None:
          "pfb_fine_plain_ms_64_rows": res_fine["pfb_fine_plain_ms_rows"],
          "pfb_fine_bound_ms": res_fine["pfb_fine_bound_ms"],
          "pfb_fine_bound_by": res_fine["pfb_fine_bound_by"],
-         "pfb_fine_library_ms": res_fine["pfb_fine_library_ms"]},
+         "pfb_fine_library_ms": res_fine["pfb_fine_library_ms"],
+         "mesh_c4fm_launches": mesh["launches"]["xlat_complex"],
+         "mesh_c4fm_max_abs_err": bench_mesh["complex_bank_err"],
+         "mesh_c4fm_ms": mbank["ms"], "mesh_c4fm_plain_ms": mbank["plain_ms"],
+         "mesh_c4fm_bound_ms": mbank["bound_ms"],
+         "mesh_c4fm_bound_by": mbank["bound_by"],
+         "mesh_c4fm_library_ms": mbank["library_ms"]},
         {"name": "cqpsk_track", "route": "cuda",
          "source": "radiocapture_tpu_torch/csrc/cqpsk_track.cu",
          "replaces": "radiocapture_tpu/demod/cqpsk.py:133",
@@ -2790,6 +3228,16 @@ def main() -> None:
          "bound_ms": res3["fm_voice_bound_ms"],
          "bound_by": res3["fm_voice_bound_by"], "library_ms": None,
          "traffic_ms": res3["fm_voice_traffic_ms"]},
+        {"name": "fsk_track_stream", "route": "cuda",
+         "source": "radiocapture_tpu_torch/csrc/fsk_track.cu",
+         "replaces": "radiocapture_tpu/demod/fsk4.py:105",
+         "launches": mesh["launches"]["fsk_track_stream"],
+         "max_abs_err": stream_err, "ms": stream["stream_ms"],
+         "plain_ms": stream["stream_plain_ms"],
+         "bound_ms": stream["stream_bound_ms"],
+         "bound_by": stream["stream_bound_by"], "library_ms": None,
+         "floor_ms": stream["stream_floor_ms"],
+         "floor_how": stream["stream_floor_how"]},
     ]}))
     log(smi_line())
     log(json.dumps({"ok": True, "device": {

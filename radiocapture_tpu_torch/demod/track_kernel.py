@@ -10,6 +10,9 @@ launch ~30 tiny kernels per sample; the CUDA kernel
 of one source: one warp runs the fsk4 feedback loop, one lane per thread,
 while producer warps load the time-major bank planes and compute the
 discriminator and boxcar into a shared-memory ring ahead of it.
+``track_stream`` is the same loop on a track-rate stream that is already
+discriminated and filtered (the time-sharded mesh step's), the kernel's
+second entry.
 """
 
 from __future__ import annotations
@@ -59,11 +62,16 @@ def track_plain(y_re: torch.Tensor, y_im: torch.Tensor,
     else:
         fsk4, (syms, valid) = _fsk4.fsk4_demod(
             fsk4, filt, prm.track_fs, prm.symbol_rate, levels=prm.levels)
-    if len(prm.levels) == 4:
-        dibits = _fsk4.slice_dibits_torch(syms)
-    else:
-        dibits = (syms > 0.0).to(torch.int32)
-    return quad, sym_hist, fsk4, syms, valid.to(torch.int32), dibits
+    return quad, sym_hist, fsk4, syms, valid.to(torch.int32), dibits_of(
+        syms, prm.levels)
+
+
+def dibits_of(syms: torch.Tensor, levels: tuple) -> torch.Tensor:
+    """The slicer after the fsk4 loop: C4FM dibits for a 4-level
+    alphabet, the sign bit for a binary one (int32)."""
+    if len(levels) == 4:
+        return _fsk4.slice_dibits_torch(syms)
+    return (syms > 0.0).to(torch.int32)
 
 
 def kernel_args(y_re: torch.Tensor, y_im: torch.Tensor,
@@ -154,6 +162,67 @@ def track(y_re: torch.Tensor, y_im: torch.Tensor,
 
 
 track.launches = 0
+
+
+def track_stream_plain(x: torch.Tensor, fsk4: _fsk4.Fsk4State,
+                       prm: TrackParams):
+    """Plain version of the stream tracker: ``fsk4_demod`` and the slicer
+    on x [S, C, M] float32, a track-rate stream already discriminated and
+    boxcar-filtered (what the JAX time-sharded step runs after its
+    all_to_all, parallel/mesh.py:315-321). Returns (fsk4, syms [S, C, M]
+    f32, valid [S, C, M] int32, dibits [S, C, M] int32); the state is
+    new tensors."""
+    fsk4, (syms, valid) = _fsk4.fsk4_demod(
+        fsk4, x, prm.track_fs, prm.symbol_rate, levels=prm.levels)
+    return fsk4, syms, valid.to(torch.int32), dibits_of(syms, prm.levels)
+
+
+def track_stream(x: torch.Tensor, fsk4: _fsk4.Fsk4State, prm: TrackParams):
+    """The tracker on a track-rate stream: ``track_stream_plain`` on CPU
+    tensors, the CUDA kernel (``fsk_track_stream_launch`` in
+    ``csrc/fsk_track.cu``: ``track``'s consumer loop, its producer warps
+    copying x into the ring) on CUDA tensors. On CUDA the fsk4 state is
+    updated IN PLACE and returned; the outputs are [S, C, M] views of
+    time-major [S, M, C] buffers. x must be a contiguous float32
+    [S, C, M] tensor; another dtype, layout or device raises."""
+    if x.device.type == "cpu":
+        return track_stream_plain(x, fsk4, prm)
+    if x.device.type != "cuda":
+        raise ValueError(f"track_stream: unsupported device {x.device}")
+    from radiocapture_tpu_torch import kernels
+    if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
+        raise ValueError(f"track_stream: x must be a contiguous float32 "
+                         f"[S, C, M] tensor, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    s, c, m = x.shape
+    for name, t, shape in (
+            ("fsk4.clock", fsk4.clock, (s, c)),
+            ("fsk4.fine_freq", fsk4.fine_freq, (s, c)),
+            ("fsk4.hist", fsk4.hist, (s, c, _fsk4.HIST))):
+        if (t.device != x.device or t.dtype != torch.float32
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"track_stream: {name} must be a contiguous "
+                             f"float32 tensor of shape {shape} on "
+                             f"{x.device}, got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}")
+    syms = torch.empty((s, m, c), dtype=torch.float32, device=x.device)
+    valid = torch.empty((s, m, c), dtype=torch.int32, device=x.device)
+    dibits = torch.empty_like(valid)
+    lo, spacing = _fsk4.uniform_alphabet(prm.levels)
+    kernels.check(kernels.load().fsk_track_stream_launch(
+        x.data_ptr(), fsk4.clock.data_ptr(), fsk4.fine_freq.data_ptr(),
+        fsk4.hist.data_ptr(), syms.data_ptr(), valid.data_ptr(),
+        dibits.data_ptr(), consts(prm).ctypes, s, m, c,
+        _fsk4.f32(prm.symbol_rate / prm.track_fs), lo, spacing,
+        len(prm.levels), _fsk4.f32(_fsk4.K_FINE_FREQ),
+        _fsk4.f32(_fsk4.K_TIMING),
+        torch.cuda.current_stream(x.device).cuda_stream), "fsk_track_stream")
+    track_stream.launches += 1
+    return (fsk4, syms.transpose(1, 2), valid.transpose(1, 2),
+            dibits.transpose(1, 2))
+
+
+track_stream.launches = 0
 
 
 def chain_probe(xn: torch.Tensor, steps: int, prm: TrackParams) -> int:

@@ -47,7 +47,7 @@ from radiocapture_tpu_torch.ops import fm as _fm
 from radiocapture_tpu_torch.ops.channelizer import (PfbXlatBank, XlatBank,
                                                     XlatBankState)
 from radiocapture_tpu_torch.ops.fft_bank import FftXlatBank
-from radiocapture_tpu_torch.ops.fir import phase_step_u32
+from radiocapture_tpu_torch.ops.fir import batched_fir, phase_step_u32
 from radiocapture_tpu_torch.ops.fm_kernel import voice_track
 
 
@@ -177,6 +177,38 @@ class ControlPipeline:
         dibits [S, C, M] int32)) with M = T // (decim · sym_decim)."""
         _check_block(x, self.block_multiple)
         bs, y_re, y_im = self.bank.call_planes(state.bank, x, offsets_norm)
+        return self._track(state, bs, y_re, y_im)
+
+    def step_debug(self, state: ControlPipelineState, x: torch.Tensor,
+                   offsets_norm: torch.Tensor):
+        """Like :meth:`step`, with a 4th output: the pre-scan track-rate
+        stream [S, C, M] (channelized, discriminated, boxcar-filtered,
+        before the fsk4 loop), as the JAX ``step_debug``
+        (pipeline.py:235-242). The tracker kernel fuses the discriminator
+        and the boxcar, so on the card that stream never exists: it is
+        computed beside the step from the bank's planes by the plain ops
+        (:meth:`prescan`), before the tracker updates the lane state in
+        place. A debug and test surface; :meth:`step` is unchanged."""
+        _check_block(x, self.block_multiple)
+        bs, y_re, y_im = self.bank.call_planes(state.bank, x, offsets_norm)
+        trk = self.prescan(torch.complex(y_re, y_im).transpose(1, 2),
+                           state.quad, state.sym_hist)
+        new_state, outs = self._track(state, bs, y_re, y_im)
+        return new_state, outs + (trk,)
+
+    def prescan(self, y: torch.Tensor, quad: _fm.QuadDemodState,
+                sym_hist: torch.Tensor) -> torch.Tensor:
+        """Channels y [S, C, N] complex64 → the track-rate stream
+        [S, C, N // sym_decim]: discriminator, then the boxcar at stride
+        ``sym_decim`` (the JAX ``_step_impl``, pipeline.py:198-201), in
+        plain torch, the ops ``track_plain`` runs. The states are read,
+        not updated."""
+        _, disc = _fm.quadrature_demod(quad, y, self.disc_gain)
+        _, filt = batched_fir(sym_hist, disc, self.sym_taps, self.sym_decim)
+        return filt
+
+    def _track(self, state: ControlPipelineState, bs, y_re: torch.Tensor,
+               y_im: torch.Tensor):
         if self.fsk4_block > 1:
             quad, sym_hist, fsk4, syms, valid, dibits = track_plain(
                 y_re, y_im, state.quad, state.sym_hist, state.fsk4,

@@ -42,6 +42,10 @@ _SIGNATURES = {
     # nlevels, k_ff, k_t, stream
     "fsk_track_launch": (_P,) * 11 + (_I,) * 5 + (_F,) * 4 + (_I, _F, _F,
                                                                 _P),
+    # x, clock, ff, hist, syms, valid, dibits, consts, S, M, C, step, lo,
+    # spacing, nlevels, k_ff, k_t, stream
+    "fsk_track_stream_launch": (_P,) * 8 + (_I,) * 3 + (_F,) * 3 + (
+        _I, _F, _F, _P),
     # xn, steps, syms, valid, dibits, state_out, cycles, consts, step, lo,
     # spacing, nlevels, k_ff, k_t, stream
     "fsk_chain_probe_launch": (_P, _I) + (_P,) * 6 + (_F,) * 3 + (_I, _F,

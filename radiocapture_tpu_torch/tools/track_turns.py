@@ -10,6 +10,11 @@ samples whose symbol, emit flag and dibit agree)::
     git show <commit>:radiocapture_tpu_torch/csrc/fsk_track.cu > old.cu
     python3 -m radiocapture_tpu_torch.tools.track_turns old.cu
 
+``fsk_track_3e03d30.cu`` beside this module is the tracker as commit
+3e03d30 had it, before the stream entry was added to the file; the
+package's ``fsk_track`` must give its outputs bit for bit
+(``chip_smoke.py`` and ``tests/test_torch_card.py`` call ``fsk_turns``).
+
 ``--kernel fm_voice``: the other source must export ``fm_voice_launch``
 with the one-thread-per-lane kernel's signature (the package's without
 ``chunk`` and ``warps``); ``fm_voice_334afe8.cu`` beside this module is
@@ -85,6 +90,7 @@ ITERS = 10
 EARLIER_VOICE = Path(__file__).with_name("fm_voice_334afe8.cu")
 EARLIER_CQPSK = Path(__file__).with_name("cqpsk_track_54b2cf5.cu")
 EARLIER_COMPLEX = Path(__file__).with_name("xlat_complex_54b2cf5.cu")
+EARLIER_FSK = Path(__file__).with_name("fsk_track_3e03d30.cu")
 CQ_GRID_HZ = 12.5e3      # the CQPSK slot grid around each split2 half
 # fm_voice_launch of the one-thread-per-lane kernel: y_re, y_im, prev,
 # y_last, x_last, audio, power, S, N, C, gain, z1, b0, stream
@@ -373,30 +379,17 @@ def main_complex(src: str) -> None:
     print(json.dumps(res))
 
 
-def main(argv: list[str]) -> None:
-    if argv[:1] == ["--kernel"] and len(argv) == 3 and argv[1] in (
-            "fsk_track", "fm_voice", "cqpsk_track", "xlat_complex"):
-        kernel, argv = argv[1], argv[2:]
-    else:
-        kernel = "fsk_track"
-    if len(argv) != 1:
-        raise SystemExit(__doc__)
-    if kernel == "fm_voice":
-        return main_voice(argv[0])
-    if kernel == "cqpsk_track":
-        return main_cqpsk(argv[0])
-    if kernel == "xlat_complex":
-        return main_complex(argv[0])
-    dev = require_cuda()
-    card = card_line()
-    other = build_other(Path(argv[0]))
-    pipe = ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE)
-    state, x, offs = bench_state(pipe, dev)
-    n = BLOCK // pipe.decim
-    z2, gk, step = pipe.bank.operands(state.bank, x, offs)
-    y_re, y_im = ck.bank_fused(z2, gk, state.bank.phase, step, n,
-                               pipe.bank.p, pipe.decim)
-    prm = pipe.track_params
+def fsk_turns(src: Path, y_re: torch.Tensor, y_im: torch.Tensor, state,
+              prm, iters: int = ITERS) -> dict:
+    """The fsk tracker built from ``src`` (exporting ``fsk_track_launch``
+    with the package's signature) and the package's, in turns (other,
+    package, package, other) on the [S, N, C] planes from a pipeline
+    ``state``'s lane state, each with its own copy of it; then each once
+    more from a fresh copy. Returns both ms lists, the speedup, the lanes
+    whose outputs and carried state are bit-identical and the share of
+    samples whose symbol, emit flag and dibit agree."""
+    other = build_other(src)
+    s, _, c = y_re.shape
 
     def lane_state():
         return (state.quad._replace(prev=state.quad.prev.clone()),
@@ -413,25 +406,50 @@ def main(argv: list[str]) -> None:
     launch = {"other": other, "package": package}
     ms = {"other": [], "package": []}
     for k in ("other", "package", "package", "other"):
-        ms[k].append(cuda_ms(lambda: run(launch[k], timed[k]), ITERS))
+        ms[k].append(cuda_ms(lambda: run(launch[k], timed[k]), iters))
     st = {k: lane_state() for k in launch}
     outs = {k: run(launch[k], st[k]) for k in launch}
     torch.cuda.synchronize()
-    same = torch.ones((SOURCES, SLOTS), dtype=torch.bool, device=dev)
+    same = torch.ones((s, c), dtype=torch.bool, device=y_re.device)
     for a, b in zip(outs["other"], outs["package"]):      # [S, M, C]
         same &= (a == b).all(1)
     for a, b in zip(leaves(st["other"]), leaves(st["package"])):
-        same &= (a == b).reshape(SOURCES, SLOTS, -1).all(-1)
+        same &= (a == b).reshape(s, c, -1).all(-1)
     agree = {name: float((a == b).float().mean()) for name, a, b in zip(
         ("syms", "valid", "dibits"), outs["other"], outs["package"])}
+    return {"other_ms": ms["other"], "package_ms": ms["package"],
+            "speedup": sum(ms["other"]) / sum(ms["package"]),
+            "identical_lanes": int(same.sum()), "lanes": same.numel(),
+            "identical_lane_share": float(same.float().mean()),
+            "sample_agreement": agree}
+
+
+def main(argv: list[str]) -> None:
+    if argv[:1] == ["--kernel"] and len(argv) == 3 and argv[1] in (
+            "fsk_track", "fm_voice", "cqpsk_track", "xlat_complex"):
+        kernel, argv = argv[1], argv[2:]
+    else:
+        kernel = "fsk_track"
+    if len(argv) != 1:
+        raise SystemExit(__doc__)
+    if kernel == "fm_voice":
+        return main_voice(argv[0])
+    if kernel == "cqpsk_track":
+        return main_cqpsk(argv[0])
+    if kernel == "xlat_complex":
+        return main_complex(argv[0])
+    dev = require_cuda()
+    card = card_line()
+    pipe = ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE)
+    state, x, offs = bench_state(pipe, dev)
+    n = BLOCK // pipe.decim
+    z2, gk, step = pipe.bank.operands(state.bank, x, offs)
+    y_re, y_im = ck.bank_fused(z2, gk, state.bank.phase, step, n,
+                               pipe.bank.p, pipe.decim)
+    res = fsk_turns(Path(argv[0]), y_re, y_im, state, pipe.track_params)
     print(card)
-    print(json.dumps({
-        "shape": [SOURCES, n, SLOTS], "other": argv[0],
-        "other_ms": ms["other"], "package_ms": ms["package"],
-        "speedup": sum(ms["other"]) / sum(ms["package"]),
-        "identical_lanes": int(same.sum()), "lanes": same.numel(),
-        "identical_lane_share": float(same.float().mean()),
-        "sample_agreement": agree}))
+    print(json.dumps({"shape": [SOURCES, n, SLOTS], "other": argv[0],
+                      **res}))
 
 
 if __name__ == "__main__":

@@ -1020,3 +1020,111 @@ def test_live_rtl_tcp_runtime_on_card_decodes_as_cpu(cuda_device, tmp_path):
     assert any(m.get("name") == "GRP_V_CH_GRANT" and m.get("crc") == 0
                and m["Group Address"] == 900 for m in msgs["card"])
     assert msgs["card"] == msgs["cpu"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,c,nb", [(1, 2, 2000), (3, 5, 1998), (2, 40, 50),
+                                    (1, 64, 8)])
+@pytest.mark.parametrize("ctor", ["p25_c4fm", "edacs"])
+def test_track_stream_kernel_matches_plain(cuda_device, ctor, s, c, nb):
+    """The stream tracker (``fsk_track_stream_launch``) on the pre-scan
+    stream of modulated lanes, three blocks in a row (state written back
+    in place), against ``track_stream_plain``: identical valid masks and
+    dibits, syms and the fsk4 state within 1e-3. Lane counts off the
+    32-slot tile, M off the 128-row ring stage and shorter than one
+    16-sample producer segment."""
+    pipe = getattr(ControlPipeline, ctor)(2, 200e3)
+    prm = pipe.track_params
+    lanes = _track_lanes(pipe, ctor, s, c, 3 * nb, np.random.default_rng(c))
+    y = torch.as_tensor(lanes, device=cuda_device).transpose(1, 2)
+    trk = pipe.prescan(y, fm.quad_demod_init((s, c), cuda_device),
+                       torch.zeros((s, c, len(prm.sym_taps) - 1),
+                                   device=cuda_device))
+    m = nb // prm.sym_decim
+    st = [K.fsk4_init((s, c), cuda_device) for _ in range(2)]
+    before = tk.track_stream.launches
+    for b in range(3):
+        x = trk[..., b * m:(b + 1) * m].contiguous()
+        got = tk.track_stream(x, st[0], prm)
+        want = tk.track_stream_plain(x, st[1], prm)
+        st = [got[0], want[0]]
+        assert got[1].shape == (s, c, m)
+        assert torch.equal(got[2], want[2])
+        assert torch.equal(got[3], want[3])
+        assert float((got[1] - want[1]).abs().max()) <= 1e-3
+        for g_, w_ in zip(got[0], want[0]):
+            assert float((g_ - w_).abs().max()) <= 1e-3
+    assert tk.track_stream.launches == before + 3
+    with pytest.raises(ValueError, match="contiguous float32"):
+        tk.track_stream(trk[..., :m], st[0], prm)
+
+
+@pytest.mark.cuda
+def test_fsk_track_unchanged_from_3e03d30(cuda_device):
+    """``fsk_track`` gives the outputs and state of the kernel as commit
+    3e03d30 had it (``tools/fsk_track_3e03d30.cu``, the file before the
+    stream entry) bit for bit, lane for lane."""
+    from radiocapture_tpu_torch.tools import track_turns
+    pipe = ControlPipeline.p25_c4fm(64, 2.4e6)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    y_re, y_im = (torch.randn((2, 2500, 64), generator=gen,
+                              device=cuda_device) for _ in range(2))
+    res = track_turns.fsk_turns(track_turns.EARLIER_FSK, y_re, y_im,
+                                pipe.init(2, cuda_device), pipe.track_params,
+                                iters=1)
+    assert res["identical_lanes"] == res["lanes"] == 128
+
+
+def _mesh_steps_rank(dev, slots: int) -> dict:
+    """A world of one rank: the dry run's grant capture on two sources
+    through ``ShardedControlStep`` on ``make_mesh(1)`` and
+    ``TimeShardedControlStep.step_debug`` on ``make_mesh3(1)`` at
+    ``slots`` slots (the tile a slot split leaves), float32 wire."""
+    from radiocapture_tpu_torch import entry
+    from radiocapture_tpu_torch.parallel import mesh as MESH
+    pipe = ControlPipeline.p25_c4fm(slots, entry.DRYRUN_RATE)
+    wide = entry.grant_capture()
+    offs = torch.zeros((2, slots), device=dev)
+    offs[:, 0] = entry.DRYRUN_OFFSET / entry.DRYRUN_RATE
+    out = {}
+    for name, step, blk in (
+            ("dp_tp", MESH.ShardedControlStep(pipe, MESH.make_mesh(1), 2),
+             pipe.block_multiple * 32),
+            ("time", MESH.TimeShardedControlStep(pipe, MESH.make_mesh3(1), 2),
+             pipe.block_multiple * 64)):
+        st, outs = step.init(dev), []
+        run = step.step_debug if name == "time" else step.step
+        for i in range(len(wide) // blk):
+            xb = wide[i * blk:(i + 1) * blk]
+            x = torch.as_tensor(np.stack([xb.real, xb.imag], -1)[None],
+                                device=dev).expand(2, -1, 2).contiguous()
+            st, o = run(st, x, offs)
+            outs.append([v.cpu().numpy() for v in o])
+        out[name] = [np.concatenate([o[i] for o in outs], -1)
+                     for i in range(len(outs[0]))]
+        out[name + "_log"] = step.comm.collectives()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [4, 32])
+def test_mesh_steps_on_card_match_cpu(cuda_device, slots):
+    """World-size-1 mesh steps on the card (NCCL) against the same steps
+    on a CPU rank, at the tiles a slot split leaves (C/tp = 4 and 32; the
+    wire bank pads both to its 64-slot group): the same grants from the
+    grant lane through both steps; the time-sharded pre-scan stream of
+    that lane within 2e-3 (float32 complex bank, sum order only, through
+    the discriminator's gain); the same collectives."""
+    from radiocapture_tpu_torch.parallel import mesh as MESH
+    kernels.build()     # here, so the rank only loads the library
+    card = MESH.spawn(1, _mesh_steps_rank, slots)[0]
+    cpu = MESH.spawn(1, _mesh_steps_rank, slots, device="cpu")[0]
+    for name in ("dp_tp", "time"):
+        for s in range(2):
+            got = [streams.grants(r[name][2][s, 0][r[name][1][s, 0] > 0])
+                   for r in (card, cpu)]
+            assert len(got[0]) >= 4 and got[0] == got[1]
+        assert card[name + "_log"] == cpu[name + "_log"]
+    assert card["dp_tp_log"] == []
+    assert float(np.abs(card["time"][3][:, 0] - cpu["time"][3][:, 0])
+                 .max()) <= 2e-3
