@@ -29,10 +29,13 @@ paths, the scan slice, live SDR ingest and the mesh steps.
    Then the ``pfb`` and ``fft`` frontend modes: a P25 grant through
    ``ControlPipeline.p25_c4fm(64, 2.4e6, frontend=...)`` for each, the
    pfb fine stage (``PfbXlatBank``: one K2 = 467-tap filter per slot on
-   the complex bank kernel's general path) against its plain version
-   and timed at 8192 rows beside its bound and a grouped ``conv1d``
-   (``pfb fine bank:``), both modes' step at 128 sources (``bench
-   pfb:``, ``bench fft:``; fft's block is 390336 samples, 162.6 ms), and
+   the complex bank kernel's general path, its narrow plan) against its
+   plain version and timed at 8192 rows beside its bound and a grouped
+   ``conv1d`` (``pfb fine bank:``) and in turns with the general path it
+   replaced (``complex general turns: pfb fine``; every output must be
+   bit-identical to ``tools/xlat_complex_54b2cf5.cu``'s), both modes'
+   step at 128 sources (``bench pfb:``, ``bench fft:``; fft's block is
+   390336 samples, 162.6 ms), and
    the step with ``fsk4_block = 10`` against the tracker kernel's
    (``fsk4 block:``) and a P25 grant through it (``decode fsk4
    block:``, no tracker kernel launched).
@@ -84,8 +87,10 @@ paths, the scan slice, live SDR ingest and the mesh steps.
    mesh:``, both mesh steps at 128 sources × 64 slots × 240000-sample
    blocks at world size 1 and 2 (step p50/p95, each collective's bytes
    and ms, the staged host bytes, peak memory), with the complex bank's
-   general path at the time-sharded shape (1440 taps) beside its bound
-   (``mesh complex bank:``). Ranks are processes started by
+   general path at the time-sharded shape (1440 taps, the wide plan)
+   beside its bound (``mesh complex bank:``) and in turns with the
+   general path it replaced (``complex general turns: mesh``; every
+   output bit-identical). Ranks are processes started by
    ``parallel.mesh.spawn`` after the kernels are built here, so they
    only load the library.
 
@@ -824,12 +829,39 @@ def check_complex_bank(got, want, what: str) -> float:
     return err
 
 
+def general_turns(what: str, x, hist, grev, phase0, step, d) -> dict:
+    """``complex general turns:``: the general path in turns with the one
+    it replaced (``tools/xlat_complex_54b2cf5.cu``, the same loop) on the
+    same complex64 values, old, new, new, old; fails unless every output
+    is bit-identical."""
+    from radiocapture_tpu_torch.tools import track_turns
+    t = track_turns.complex_turns(track_turns.EARLIER_COMPLEX, x, hist,
+                                  grev, phase0, step, d, iters=3,
+                                  pairings=("kernel",))
+    old = Path(t["other"]).name
+    res = {"shape": t["shape"], "other_ms": t["kernel_other_ms"],
+           "package_ms": t["kernel_package_ms"],
+           "speedup": t["kernel_speedup"],
+           "identical_outputs": t["kernel_identical_outputs"],
+           "outputs": t["outputs"]}
+    log(f"complex general turns: {what} [S, T, C, K, D] {t['shape']}: "
+        f"{old} {res['other_ms'][0]:.4f}, kernel {res['package_ms'][0]:.4f}"
+        f", {res['package_ms'][1]:.4f}, {old} {res['other_ms'][1]:.4f} ms: "
+        f"{res['speedup']:.2f}x; bit-identical outputs "
+        f"{res['identical_outputs']} of {res['outputs']}")
+    if res["identical_outputs"] != res["outputs"]:
+        raise AssertionError(f"complex bank's general path ({what}) differs "
+                             f"from the kernel it replaced")
+    return res
+
+
 def phase_complex_bank(dev, sp) -> float:
     """Complex bank kernel vs plain on the operands the split2 step passes
     (the wire block read in place, the complex64 history): split2's taps
     and phase step on one 100 ms block at S = 1 and 2, bf16, float32 and
     complex64 blocks, a ragged N off the kernel's warp tile, and a ragged
-    wide case on the kernel's general path; returns max |err|."""
+    wide cases (C = 40, 64) on the kernel's general path; returns max
+    |err|."""
     from radiocapture_tpu_torch.ops import channelizer_kernel as ck
     from radiocapture_tpu_torch.ops.fir import phase_step_u32
     rng = np.random.default_rng(5)
@@ -838,7 +870,8 @@ def phase_complex_bank(dev, sp) -> float:
                                 (2, BLOCK // 2, sp.bank.ntaps, 2, 2, "f32"),
                                 (2, BLOCK // 2, sp.bank.ntaps, 2, 2, "c64"),
                                 (3, 1001, sp.bank.ntaps, 2, 2, "bf16"),
-                                (3, 1001, 1440, 96, 40, "bf16")):
+                                (3, 1001, 1440, 96, 40, "bf16"),
+                                (2, 613, 1440, 96, 64, "f32")):
         x = torch.as_tensor(rng.standard_normal((s, n * d, 2)).astype(
             np.float32), device=dev)
         if wire == "bf16":
@@ -1685,6 +1718,9 @@ def phase_pfb_fine(dev) -> tuple[dict, float]:
         f"library (grouped conv1d, groups={rows}, no rotation) "
         f"{res['pfb_fine_library_ms']:.4f} ms, |y| within {mag_err:.3e}; "
         f"plain on {PFB_ROWS} rows {res['pfb_fine_plain_ms_rows']:.3f} ms")
+    del out, y
+    res["pfb_fine_turns"] = general_turns("pfb fine", xf, hist, grev, phase0,
+                                          step, d)
     return res, worst
 
 
@@ -2912,6 +2948,7 @@ def mesh_complex_bank(dev, pipe) -> tuple[dict, float]:
         f"({res['bound_by']}, {flops:.4g} FLOP), share "
         f"{res['share_of_bound']:.4f}; library (f32 bmm, no rotation) "
         f"{res['library_ms']:.3f} ms; plain {res['plain_ms']:.1f} ms")
+    res["turns"] = general_turns("mesh", x, hist, grev, phase0, step, d)
     return res, err
 
 
@@ -3204,12 +3241,14 @@ def main() -> None:
          "pfb_fine_bound_ms": res_fine["pfb_fine_bound_ms"],
          "pfb_fine_bound_by": res_fine["pfb_fine_bound_by"],
          "pfb_fine_library_ms": res_fine["pfb_fine_library_ms"],
+         "pfb_fine_turns": res_fine["pfb_fine_turns"],
          "mesh_c4fm_launches": mesh["launches"]["xlat_complex"],
          "mesh_c4fm_max_abs_err": bench_mesh["complex_bank_err"],
          "mesh_c4fm_ms": mbank["ms"], "mesh_c4fm_plain_ms": mbank["plain_ms"],
          "mesh_c4fm_bound_ms": mbank["bound_ms"],
          "mesh_c4fm_bound_by": mbank["bound_by"],
-         "mesh_c4fm_library_ms": mbank["library_ms"]},
+         "mesh_c4fm_library_ms": mbank["library_ms"],
+         "mesh_c4fm_turns": mbank["turns"]},
         {"name": "cqpsk_track", "route": "cuda",
          "source": "radiocapture_tpu_torch/csrc/cqpsk_track.cu",
          "replaces": "radiocapture_tpu/demod/cqpsk.py:133",

@@ -53,12 +53,18 @@
 //     output (other phase steps take one per output);
 //   - the rotated outputs are staged in the planes' shared memory and
 //     stored back in whole coalesced rows.
-// Other (P, D, C) take a general kernel: a block stages the span of BM
-// outputs of one source (history and wire read in place and converted)
-// in shared memory, then one thread per (output, slot) computes as the
-// fast path does. It is correct for any K, D, C and a ragged N; a span
-// too large for 48 KB reads z straight from device memory. No port path
-// sends such shapes on the hot path (the wire pipelines use xlat_bank.cu).
+// Other (K, D, C) take the general path, whose outputs are that kernel's
+// bit for bit too (the same chain per output): a block stages the span
+// of its outputs (history and wire read in place) in shared memory as
+// float32 polyphase planes at an odd pitch, so a warp's rows hit
+// distinct banks. C >= 8 slots (the time-sharded mesh step: C=64,
+// K=1440, D=96) take the wide plan, a register tile of 4 outputs x 8
+// slots per thread with the taps streamed through shared memory one
+// chunk ahead; fewer slots at D=16 (the pfb fine stage: C=1, K=467) the
+// narrow plan, 3 consecutive outputs per lane fed by one plane load a
+// row. Both are bound by float32 CUDA-core FMAs (8 FLOP per tap, output
+// and slot; no tensor cores, which would lose the bits). A span too
+// large for shared memory reads z straight from device memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -75,11 +81,6 @@ constexpr int FAST_C = 2;
 constexpr int R = 7;
 constexpr int WARPS = 4;
 constexpr int STAGES = 2;
-
-// The general path.
-constexpr int THREADS = 256;
-constexpr int BM_MAX = 1024;
-constexpr size_t SMEM_BYTES = 48 * 1024;
 
 // One wire sample (re, im): a bf16 pair read as one 32-bit word, or a
 // float32 pair. Both convert to float2 exactly.
@@ -311,6 +312,322 @@ xlat_complex_split2(const typename W::T* __restrict__ x,
 }
 
 // ---- the general path --------------------------------------------------
+//
+// Every accumulator is one chain in k order, as in the kernel this path
+// replaced (tools/xlat_complex_54b2cf5.cu:69-80): k ascending, the same
+// four fmaf per tap (fma4), the same rotation epilogue. How outputs and
+// slots are spread over threads does not touch a chain, so every output
+// is that kernel's bit for bit. A block stages the span of its outputs
+// (history and wire read in place) as D float32 planes, plane j row m =
+// z[(n0 + m)*D + j], so tap q*D + j of output n0 + m' is row m' + q of
+// plane j. The plane pitch is odd: a warp's 64-bit stores of consecutive
+// samples (consecutive planes) and its loads of rows at an odd stride
+// hit distinct banks.
+
+// The wide plan (any shape but the narrow plan's; the time-sharded mesh
+// step: C=64, K=1440, D=96): a thread holds WIDE_R outputs (lane + 32*r)
+// x WIDE_RC slots; a warp's taps are shared-memory broadcasts, float4 =
+// two taps of a slot; the taps stream through shared memory in chunks
+// of WIDE_KC, cp.async one chunk ahead. Per pair of taps a thread does
+// 8*R*RC = 256 FMAs for 2R plane loads and RC tap loads: FMA-bound.
+constexpr int WIDE_R = 4;
+constexpr int WIDE_RC = 8;
+constexpr int WIDE_WARPS = 8;       // warps per block at most
+constexpr int WIDE_KC = 96;         // taps per staged chunk (even)
+// The narrow plan (C < WIDE_RC slots at D = NARROW_D, the pfb fine
+// stage: C=1, K=467, D=16): a block stages the span of 32*R*warps
+// outputs of one source, by cp.async, then each slot's taps in turn. A
+// lane holds NARROW_R consecutive outputs of the slot (R odd: lanes at
+// stride R rows hit distinct banks) and walks rows m of its span with
+// the row's D planes in registers: one plane load serves the R outputs
+// (q = m - r). On the rows where every r has a full tap row the last R
+// tap rows sit in registers too, so a tap row is read from shared
+// memory once for R rows and the R chains interleave.
+constexpr int NARROW_R = 3;
+constexpr int NARROW_WARPS = 4;     // warps per block at most
+constexpr int NARROW_BLOCKS = 3;    // blocks per SM asked of the compiler
+constexpr int NARROW_D = 16;        // the decimation it is built for
+// Spans too large for shared memory take the direct kernel: one thread
+// per (output, slot), z read from device memory.
+constexpr int DIRECT_THREADS = 256;
+constexpr int DIRECT_BM = 1024;
+static_assert(WIDE_KC % 2 == 0 && NARROW_R % 2 == 1 && NARROW_D % 2 == 0,
+              "tap pairs and bank-free rows");
+
+__device__ __forceinline__ void fma4(float& ar, float& ai, float2 gv,
+                                     float2 zv) {
+  ar = fmaf(gv.x, zv.x, ar);
+  ar = fmaf(-gv.y, zv.y, ar);
+  ai = fmaf(gv.x, zv.y, ai);
+  ai = fmaf(gv.y, zv.x, ai);
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+               "l"(src));
+}
+
+// float2s of the planes, rounded up so what follows is 16-byte aligned
+__host__ __device__ constexpr int plane_floats2(int D, int pitch) {
+  return (D * pitch + 1) & ~1;
+}
+
+// The narrow plan's shared memory: the planes and one slot's taps,
+// padded to Q*D.
+__host__ __device__ constexpr int narrow_floats2(int D, int pitch, int Q) {
+  return plane_floats2(D, pitch) + Q * D;
+}
+
+// Stage samples [z0, z0 + span) of history ++ x into the planes: sample
+// z0 + i goes to plane i % D, row i / D. History and a float32 wire are
+// copied by cp.async (the caller commits and waits); a bf16 wire is
+// converted through registers.
+template <typename W>
+__device__ __forceinline__ void stage_planes(float2* planes, int pitch,
+                                             const typename W::T* xs,
+                                             const float2* hs, int K, int D,
+                                             int z0, int span) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int dm = nt / D, dj = nt - dm * D;
+  int m = tid / D, j = tid - m * D;
+  for (int i = tid; i < span; i += nt) {
+    const int zi = z0 + i;
+    float2* dst = planes + j * pitch + m;
+    if (zi < K - 1)
+      cp_async8(dst, hs + zi);
+    else if constexpr (sizeof(typename W::T) == sizeof(float2))
+      cp_async8(dst, xs + (zi - (K - 1)));
+    else
+      *dst = W::cvt(__ldg(xs + (zi - (K - 1))));
+    m += dm;
+    j += dj;
+    if (j >= D) { j -= D; ++m; }
+  }
+}
+
+template <typename W>
+__global__ void __launch_bounds__(WIDE_WARPS * 32, 1)
+xlat_complex_wide(const typename W::T* __restrict__ x,
+                  const float2* __restrict__ hist,
+                  const float2* __restrict__ g,
+                  const long long* __restrict__ phase0,
+                  const long long* __restrict__ step,
+                  float2* __restrict__ y, int T, int N, int K, int D, int C,
+                  int wn_warps, int pitch) {
+  constexpr int R = WIDE_R, RC = WIDE_RC, KC = WIDE_KC;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cb = blockDim.x / (32 * wn_warps) * RC;   // slots of the block
+  const int nb = wn_warps * 32 * R;                   // outputs of the block
+  const int s = blockIdx.z, n0 = blockIdx.x * nb, c0 = blockIdx.y * cb;
+  const int count = min(nb, N - n0);
+  const int cn = min(cb, C - c0);
+  float2* planes = reinterpret_cast<float2*>(smem);
+  float2* tbuf = planes + plane_floats2(D, pitch);    // [2][cb][KC]
+
+  stage_planes<W>(planes, pitch, x + (long long)s * T,
+                  hist + (long long)s * (K - 1), K, D, n0 * D,
+                  (count - 1) * D + K);
+  cp_async_commit();
+  const float2* gs = g + ((long long)s * C + c0) * K;
+  const int chunks = (K + KC - 1) / KC;
+  auto issue = [&](int ch) {        // taps [ch*KC, ch*KC + KC) of cn slots
+    if (ch < chunks) {
+      const int k0 = ch * KC, kc = min(KC, K - k0);
+      float2* dst = tbuf + (ch & 1) * cb * KC;
+      for (int i = tid; i < cn * KC; i += blockDim.x) {
+        const int c = i / KC, kk = i - c * KC;
+        if (kk < kc) cp_async8(dst + i, gs + (long long)c * K + k0 + kk);
+      }
+    }
+    cp_async_commit();
+  };
+  issue(0);
+
+  const int wn = warp % wn_warps, wc = warp / wn_warps;
+  const int row0 = wn * 32 * R + lane;       // the thread's first output
+  const bool active = wc * RC < cn && wn * 32 * R < count;   // warp-uniform
+  float ar[R][RC], ai[R][RC];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < RC; ++c) ar[r][c] = ai[r][c] = 0.0f;
+
+  for (int ch = 0; ch < chunks; ++ch) {
+    issue(ch + 1);                 // one chunk ahead
+    cp_async_wait<1>();            // the planes and chunk ch have landed
+    __syncthreads();
+    if (active) {
+      const int k0 = ch * KC, kc = min(KC, K - k0);
+      const float2* tb = tbuf + (ch & 1) * cb * KC + wc * RC * KC;
+      int q = k0 / D, j = k0 - q * D;        // tap k0 + kk is (q, j)
+      int kk = 0;
+      for (; kk + 1 < kc; kk += 2) {
+        const float2* za = planes + j * pitch + q + row0;
+        if (++j == D) { j = 0; ++q; }
+        const float2* zb = planes + j * pitch + q + row0;
+        if (++j == D) { j = 0; ++q; }
+        float2 z0[R], z1[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          z0[r] = za[32 * r];
+          z1[r] = zb[32 * r];
+        }
+        float4 t[RC];
+#pragma unroll
+        for (int c = 0; c < RC; ++c)
+          t[c] = *reinterpret_cast<const float4*>(tb + c * KC + kk);
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int c = 0; c < RC; ++c)
+            fma4(ar[r][c], ai[r][c], make_float2(t[c].x, t[c].y), z0[r]);
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int c = 0; c < RC; ++c)
+            fma4(ar[r][c], ai[r][c], make_float2(t[c].z, t[c].w), z1[r]);
+      }
+      if (kk < kc) {                 // an odd chunk's last tap
+        const float2* za = planes + j * pitch + q + row0;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float2 zv = za[32 * r];
+#pragma unroll
+          for (int c = 0; c < RC; ++c)
+            fma4(ar[r][c], ai[r][c], tb[c * KC + kk], zv);
+        }
+      }
+    }
+    __syncthreads();               // chunk ch's buffer is free
+  }
+  cp_async_wait<0>();
+  if (!active) return;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int n = n0 + row0 + 32 * r;
+    if (n >= N) continue;
+#pragma unroll
+    for (int c = 0; c < RC; ++c) {
+      const int cc = c0 + wc * RC + c;
+      if (cc >= C) continue;
+      const long long sc = (long long)s * C + cc;
+      const uint32_t u = (uint32_t)phase0[sc]
+                         + (uint32_t)step[sc] * (uint32_t)n;
+      y[sc * N + n] = rotate(ar[r][c], ai[r][c], u);
+    }
+  }
+}
+
+template <typename W>
+__global__ void __launch_bounds__(NARROW_WARPS * 32, NARROW_BLOCKS)
+xlat_complex_narrow(const typename W::T* __restrict__ x,
+                    const float2* __restrict__ hist,
+                    const float2* __restrict__ g,
+                    const long long* __restrict__ phase0,
+                    const long long* __restrict__ step,
+                    float2* __restrict__ y, int T, int N, int K, int C,
+                    int pitch) {
+  constexpr int R = NARROW_R, D = NARROW_D;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nb = blockDim.x * R;                       // outputs of the block
+  const int s = blockIdx.y, n0 = blockIdx.x * nb;
+  const int count = min(nb, N - n0);
+  const int Q = (K + D - 1) / D, JL = K - (Q - 1) * D;  // JL taps in row Q-1
+  const int QF = JL == D ? Q : Q - 1;                    // full tap rows
+  float2* planes = reinterpret_cast<float2*>(smem);
+  float2* taps = planes + plane_floats2(D, pitch);   // [Q*D]: one slot's K
+
+  stage_planes<W>(planes, pitch, x + (long long)s * T,
+                  hist + (long long)s * (K - 1), K, D, n0 * D,
+                  (count - 1) * D + K);
+  const int base = warp * 32 * R + lane * R;    // the lane's first output
+  const bool active = warp * 32 * R < count;    // warp-uniform
+  for (int c = 0; c < C; ++c) {
+    const long long sc = (long long)s * C + c;
+    for (int i = tid; i < K; i += blockDim.x)
+      cp_async8(taps + i, g + sc * K + i);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    if (active) {
+      float ar[R], ai[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) ar[r] = ai[r] = 0.0f;
+      // row m feeds output r its tap row q = m - r: per accumulator q
+      // ascending, then j ascending, i.e. k ascending
+      float2 zr[D];
+      // a row whose tap rows come from shared memory: the first and
+      // last rows, clamping q and skipping the taps past each r's row
+      auto edge_row = [&](int m) {
+#pragma unroll
+        for (int j = 0; j < D; ++j) zr[j] = planes[j * pitch + base + m];
+        int lim[R], qc[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int q = m - r;
+          lim[r] = q < 0 || q >= Q ? 0 : q < Q - 1 ? D : JL;
+          qc[r] = min(max(q, 0), Q - 1);
+        }
+#pragma unroll
+        for (int j = 0; j < D; j += 2)
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const float4 t = *reinterpret_cast<const float4*>(
+                taps + qc[r] * D + j);
+            if (j < lim[r])
+              fma4(ar[r], ai[r], make_float2(t.x, t.y), zr[j]);
+            if (j + 1 < lim[r])
+              fma4(ar[r], ai[r], make_float2(t.z, t.w), zr[j + 1]);
+          }
+      };
+      int m = 0;
+      for (; m < R - 1; ++m) edge_row(m);
+      if (m + R <= QF) {
+        // every r on a full tap row: tap row q sits in registers, slot
+        // q % R, for the R rows that use it; rows m = R-1 (mod R) open
+        // each unrolled group, so every slot index is a constant
+        float2 gw[R][D];
+#pragma unroll
+        for (int q = 0; q < R - 1; ++q)
+#pragma unroll
+          for (int j = 0; j < D; ++j) gw[q][j] = taps[q * D + j];
+        for (; m + R <= QF; m += R) {
+#pragma unroll
+          for (int u = 0; u < R; ++u) {
+            const int mm = m + u;
+#pragma unroll
+            for (int j = 0; j < D; j += 2) {
+              const float4 t =
+                  *reinterpret_cast<const float4*>(taps + mm * D + j);
+              gw[(R - 1 + u) % R][j] = make_float2(t.x, t.y);
+              gw[(R - 1 + u) % R][j + 1] = make_float2(t.z, t.w);
+            }
+#pragma unroll
+            for (int j = 0; j < D; ++j)
+              zr[j] = planes[j * pitch + base + mm];
+#pragma unroll
+            for (int j = 0; j < D; ++j)
+#pragma unroll
+              for (int r = 0; r < R; ++r)
+                fma4(ar[r], ai[r], gw[(R - 1 + u - r + R) % R][j], zr[j]);
+          }
+        }
+      }
+      for (; m < R + Q - 1; ++m) edge_row(m);
+      const uint32_t p0 = (uint32_t)phase0[sc], st = (uint32_t)step[sc];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int n = n0 + base + r;
+        if (n < N)
+          y[sc * N + n] = rotate(ar[r], ai[r], p0 + st * (uint32_t)n);
+      }
+    }
+    __syncthreads();               // the taps are free for the next slot
+  }
+}
 
 template <typename W>
 __device__ __forceinline__ float2 z_at(const typename W::T* xs,
@@ -318,42 +635,28 @@ __device__ __forceinline__ float2 z_at(const typename W::T* xs,
   return zi < K - 1 ? hs[zi] : W::cvt(xs[zi - (K - 1)]);
 }
 
-template <typename W, bool STAGED>
-__global__ void __launch_bounds__(THREADS)
-xlat_complex_general(const typename W::T* __restrict__ x,
-                     const float2* __restrict__ hist,
-                     const float2* __restrict__ g,
-                     const long long* __restrict__ phase0,
-                     const long long* __restrict__ step,
-                     float2* __restrict__ y, int T, int N, int K, int D,
-                     int C, int BM) {
-  extern __shared__ float2 zs[];
+template <typename W>
+__global__ void __launch_bounds__(DIRECT_THREADS)
+xlat_complex_direct(const typename W::T* __restrict__ x,
+                    const float2* __restrict__ hist,
+                    const float2* __restrict__ g,
+                    const long long* __restrict__ phase0,
+                    const long long* __restrict__ step,
+                    float2* __restrict__ y, int T, int N, int K, int D,
+                    int C) {
   const int s = blockIdx.y;
-  const int n0 = blockIdx.x * BM;
-  const int rows = min(BM, N - n0);
+  const int n0 = blockIdx.x * DIRECT_BM;
+  const int rows = min(DIRECT_BM, N - n0);
   const typename W::T* xs = x + (long long)s * T;
   const float2* hs = hist + (long long)s * (K - 1);
-  if (STAGED) {
-    const int span = (rows - 1) * D + K;
-    for (int i = threadIdx.x; i < span; i += THREADS)
-      zs[i] = z_at<W>(xs, hs, K, n0 * D + i);
-    __syncthreads();
-  }
   const float2* gs = g + (long long)s * C * K;
-  for (int idx = threadIdx.x; idx < rows * C; idx += THREADS) {
+  for (int idx = threadIdx.x; idx < rows * C; idx += DIRECT_THREADS) {
     const int c = idx / rows;
     const int r = idx - c * rows;
     const float2* gc = gs + (long long)c * K;
     float ar = 0.0f, ai = 0.0f;
-    for (int k = 0; k < K; ++k) {
-      const float2 gv = __ldg(gc + k);
-      const float2 zv = STAGED ? zs[r * D + k]
-                               : z_at<W>(xs, hs, K, (n0 + r) * D + k);
-      ar = fmaf(gv.x, zv.x, ar);
-      ar = fmaf(-gv.y, zv.y, ar);
-      ai = fmaf(gv.x, zv.y, ai);
-      ai = fmaf(gv.y, zv.x, ai);
-    }
+    for (int k = 0; k < K; ++k)
+      fma4(ar, ai, __ldg(gc + k), z_at<W>(xs, hs, K, (n0 + r) * D + k));
     const int n = n0 + r;
     const uint32_t u = (uint32_t)phase0[(long long)s * C + c]
                        + (uint32_t)step[(long long)s * C + c] * (uint32_t)n;
@@ -399,23 +702,57 @@ template <typename W>
 int launch_general(const void* x, const void* hist, const void* g,
                    const void* phase0, const void* step, void* y, int S,
                    int T, int N, int K, int D, int C, cudaStream_t st) {
-  const size_t per = sizeof(float2);
-  int bm = BM_MAX;
-  while (bm > 1 && ((size_t)(bm - 1) * D + K) * per > SMEM_BYTES) bm /= 2;
-  const bool staged = ((size_t)(bm - 1) * D + K) * per <= SMEM_BYTES;
-  if (!staged) bm = BM_MAX;
-  dim3 grid((N + bm - 1) / bm, S);
-  const auto* xt = (const typename W::T*)x;
-  if (staged) {
-    const size_t smem = ((size_t)(bm - 1) * D + K) * per;
-    xlat_complex_general<W, true><<<grid, THREADS, smem, st>>>(
-        xt, (const float2*)hist, (const float2*)g, (const long long*)phase0,
-        (const long long*)step, (float2*)y, T, N, K, D, C, bm);
-  } else {
-    xlat_complex_general<W, false><<<grid, THREADS, 0, st>>>(
-        xt, (const float2*)hist, (const float2*)g, (const long long*)phase0,
-        (const long long*)step, (float2*)y, T, N, K, D, C, bm);
+  static int smem_max = 0;   // per process: one card
+  if (smem_max == 0) {
+    int dev, opt;
+    if (cudaError_t e = cudaGetDevice(&dev)) return (int)e;
+    if (cudaError_t e = cudaDeviceGetAttribute(
+            &opt, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev))
+      return (int)e;
+    const void* kernels[] = {(const void*)xlat_complex_wide<W>,
+                             (const void*)xlat_complex_narrow<W>};
+    for (const void* k : kernels)
+      if (cudaError_t e = cudaFuncSetAttribute(
+              k, cudaFuncAttributeMaxDynamicSharedMemorySize, opt))
+        return (int)e;
+    smem_max = opt;
   }
+  const auto* xt = (const typename W::T*)x;
+  const auto* ht = (const float2*)hist;
+  const auto* gt = (const float2*)g;
+  const auto* p0 = (const long long*)phase0;
+  const auto* sp = (const long long*)step;
+  auto* yt = (float2*)y;
+  const int Q = (K + D - 1) / D;
+  // the largest block whose planes (nb + Q - 1 rows at an odd pitch)
+  // and taps fit; the narrow plan's shape first, any other the wide's
+  if (C < WIDE_RC && D == NARROW_D) {
+    for (int nw = NARROW_WARPS; nw >= 1; --nw) {
+      const int nb = nw * 32 * NARROW_R, pitch = (nb + Q - 1) | 1;
+      const size_t smem =
+          sizeof(float2) * (size_t)narrow_floats2(D, pitch, Q);
+      if (smem > (size_t)smem_max) continue;
+      const dim3 grid((N + nb - 1) / nb, S);
+      xlat_complex_narrow<W><<<grid, nw * 32, smem, st>>>(
+          xt, ht, gt, p0, sp, yt, T, N, K, C, pitch);
+      return (int)cudaGetLastError();
+    }
+  }
+  const int wc = min(WIDE_WARPS, (C + WIDE_RC - 1) / WIDE_RC);
+  for (int wn = WIDE_WARPS / wc; wn >= 1; --wn) {
+    const int nb = wn * 32 * WIDE_R, pitch = (nb + Q - 1) | 1;
+    const size_t smem = sizeof(float2) * (size_t)(
+        plane_floats2(D, pitch) + 2 * wc * WIDE_RC * WIDE_KC);
+    if (smem > (size_t)smem_max) continue;
+    const dim3 grid((N + nb - 1) / nb,
+                    (C + wc * WIDE_RC - 1) / (wc * WIDE_RC), S);
+    xlat_complex_wide<W><<<grid, wn * wc * 32, smem, st>>>(
+        xt, ht, gt, p0, sp, yt, T, N, K, D, C, wn, pitch);
+    return (int)cudaGetLastError();
+  }
+  const dim3 grid((N + DIRECT_BM - 1) / DIRECT_BM, S);
+  xlat_complex_direct<W><<<grid, DIRECT_THREADS, 0, st>>>(
+      xt, ht, gt, p0, sp, yt, T, N, K, D, C);
   return (int)cudaGetLastError();
 }
 

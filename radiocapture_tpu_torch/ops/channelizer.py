@@ -345,11 +345,12 @@ class PfbXlatBank:
     The fine stage is the complex bank kernel (``bank_complex``,
     ``csrc/xlat_complex.cu``) with each slot as a one-slot source: S·C
     rows of its bin's samples, one K2-tap filter each, decimating by
-    ``decim2``. That is what the JAX ``vmap(freq_xlating_fir)`` computes
-    (ops/fir.py:117-143: the same tap modulation, correlation order and
-    uint32 ramp). The bins are gathered into an [S·C, T/M] complex64
-    block first: 2.6 GB per step at 128 sources × 64 slots × 100 ms of
-    2.4 MS/s."""
+    ``decim2``; one slot a row takes the kernel's narrow plan (a row's
+    taps held in shared memory, 3 consecutive outputs a lane). That is
+    what the JAX ``vmap(freq_xlating_fir)`` computes (ops/fir.py:117-143:
+    the same tap modulation, correlation order and uint32 ramp). The
+    bins are gathered into an [S·C, T/M] complex64 block first: 2.6 GB
+    per step at 128 sources × 64 slots × 100 ms of 2.4 MS/s."""
 
     def __init__(self, num_slots: int, samp_rate: float,
                  channel_rate: float, bin_rate: float = 400e3,

@@ -280,8 +280,13 @@ def bank_complex(x: torch.Tensor, history: torch.Tensor, grev: torch.Tensor,
     in shared memory by ``cp.async``, one tile ahead, as float32
     polyphase planes, and each lane computes R consecutive outputs of
     every slot from the planes' rows with the taps in registers. Other
-    shapes take a general path: one thread per output and slot over a
-    block's staged span."""
+    shapes take the general path, bound by float32 FMAs: a block stages
+    its outputs' span as polyphase planes; with 8 slots or more (the
+    time-sharded mesh step, C=64) each thread holds 4 outputs × 8 slots
+    and the taps stream through shared memory, with fewer (the pfb fine
+    stage, C=1) each lane holds 3 consecutive outputs of a slot, whose
+    taps stay in shared memory. Every output is one ``fmaf`` chain in k
+    order, the same bits on every path."""
     if x.device.type == "cpu":
         return bank_complex_plain(complex_z(x, history), grev, phase0, step,
                                   x.shape[1] // d, d)

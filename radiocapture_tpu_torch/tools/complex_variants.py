@@ -2,9 +2,11 @@
 another plan or part of the work changed against the package's build, on
 one CUDA card at the split2 bench shape (128 sources × 240,000 bf16 wire
 samples, mid-stream after three steps, as
-``track_turns.complex_bench_operands`` makes them).
+``track_turns.complex_bench_operands`` makes them), or with ``--shape
+mesh`` or ``--shape pfb`` first at a shape of the general path
+(``track_turns.complex_general_operands``).
 
-Each variant rewrites a copy of the source:
+Each variant rewrites a copy of the source (``a+b`` applies both):
 
 - ``r=N``: N outputs per lane (odd; the package's 7);
 - ``warps=N``: N warps per block (the package's 4);
@@ -15,6 +17,13 @@ Each variant rewrites a copy of the source:
   source, not loaded from shared memory for each tile;
 - ``sincos``: one ``sincosf`` per output and slot, not split2's two
   phasors per slot;
+- ``wide_unroll2``: the wide plan's loop over tap pairs unrolled by two;
+- the general path's plans: ``wide_r=N`` outputs and ``wide_rc=N``
+  slots per thread, ``wide_warps=N`` warps per block at most,
+  ``wide_kc=N`` taps per staged chunk (the package's 4, 8, 8, 96);
+  ``narrow_r=N`` outputs per lane (odd), ``narrow_warps=N`` warps per
+  block, ``narrow_blocks=N`` blocks per SM asked of the compiler (the
+  package's 3, 4, 3);
 
 and, wrong on purpose, to show what one part of the work costs:
 
@@ -24,10 +33,13 @@ and, wrong on purpose, to show what one part of the work costs:
 
     python3 -m radiocapture_tpu_torch.tools.complex_variants \\
         r=5 r=9 blocks=3 taps_held sincos fma1
+    python3 -m radiocapture_tpu_torch.tools.complex_variants --shape pfb \\
+        narrow_r=7 narrow_warps=2
 
 Every variant is built with the package's flags (all at once, one nvcc
 process each) into ``_build/variants/``; for each its ptxas line (the
-bf16 instance of the split2 kernel), the count of outputs bit-identical
+bf16 instance of the split2 kernel; at ``mesh`` the float32 wide kernel,
+at ``pfb`` the float32 narrow one), the count of outputs bit-identical
 to the package's, and its ms in ROUNDS rounds (the order reversed every
 other round, ITERS launches each timed by CUDA events). Prints the
 card's ``nvidia-smi`` name and power limit, then one JSON line.
@@ -37,6 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import re
 import subprocess
 import sys
 
@@ -44,10 +57,9 @@ import torch
 
 from radiocapture_tpu_torch import kernels
 from radiocapture_tpu_torch.device import require_cuda
-from radiocapture_tpu_torch.tools.track_turns import (card_line,
-                                                      complex_bench_operands,
-                                                      cuda_ms,
-                                                      identical_outputs)
+from radiocapture_tpu_torch.tools.track_turns import (
+    card_line, complex_bench_operands, complex_general_operands, cuda_ms,
+    identical_outputs)
 
 ITERS = 20
 ROUNDS = 4
@@ -79,24 +91,44 @@ EDITS = {
                   (TAPS_PER_TILE, TAPS_HELD)],
     "sincos": [("\n    if (two) {\n", "\n    if (false) {\n")],
     "fma1": [(FMA4, FMA1)],
+    "wide_unroll2": [("      for (; kk + 1 < kc; kk += 2) {\n",
+                      "#pragma unroll 2\n"
+                      "      for (; kk + 1 < kc; kk += 2) {\n")],
 }
-SIZED = {"r": ("constexpr int R = {};", 7),
-         "warps": ("constexpr int WARPS = {};", 4),
-         "stages": ("constexpr int STAGES = {};", 2),
-         "blocks": ("__launch_bounds__(WARPS * 32, {})", 4)}
+SIZED = {"r": "constexpr int R = {};",
+         "warps": "constexpr int WARPS = {};",
+         "stages": "constexpr int STAGES = {};",
+         "blocks": "__launch_bounds__(WARPS * 32, {})",
+         "wide_r": "constexpr int WIDE_R = {};",
+         "wide_rc": "constexpr int WIDE_RC = {};",
+         "wide_warps": "constexpr int WIDE_WARPS = {};",
+         "wide_kc": "constexpr int WIDE_KC = {};",
+         "narrow_r": "constexpr int NARROW_R = {};",
+         "narrow_warps": "constexpr int NARROW_WARPS = {};",
+         "narrow_blocks": "constexpr int NARROW_BLOCKS = {};"}
+# the kernel whose ptxas line a shape's run prints
+PTXAS_OF = {"split2": ("xlat_complex_split2", "Bf16Pair"),
+            "mesh": ("xlat_complex_wide", "F32Pair"),
+            "pfb": ("xlat_complex_narrow", "F32Pair")}
 
 
 def variant_source(src: str, name: str) -> str:
-    """The package's source with the variant ``name``'s edits; each edited
-    text must occur once."""
-    key, _, size = name.partition("=")
-    if key in SIZED and size.isdigit():
-        text, package = SIZED[key]
-        edits = [(text.format(package), text.format(int(size)))]
-    elif name in EDITS:
-        edits = EDITS[name]
-    else:
-        raise SystemExit(f"unknown variant {name!r}\n{__doc__}")
+    """The package's source with the variant ``name``'s edits (``a+b``:
+    both); each edited text must occur once."""
+    edits = []
+    for part in name.split("+"):
+        key, _, size = part.partition("=")
+        if key in SIZED and size.isdigit():
+            text = SIZED[key]
+            found = re.search(re.escape(text).replace(r"\{\}", r"(\d+)"),
+                              src)
+            if found is None:
+                raise RuntimeError(f"{part}: the source has no {text!r}")
+            edits.append((found.group(0), text.format(int(size))))
+        elif part in EDITS:
+            edits += EDITS[part]
+        else:
+            raise SystemExit(f"unknown variant {part!r}\n{__doc__}")
     for old, new in edits:
         if src.count(old) != 1:
             raise RuntimeError(f"{name}: the source does not hold {old!r} "
@@ -105,15 +137,16 @@ def variant_source(src: str, name: str) -> str:
     return src
 
 
-def build(names: list) -> tuple:
+def build(names: list, shape: str = "split2") -> tuple:
     """({variant: its ``xlat_complex_launch``}, {variant: its ptxas line
-    for the bf16 split2 kernel})."""
+    for ``shape``'s kernel, ``PTXAS_OF``})."""
     src = (kernels.CSRC / "xlat_complex.cu").read_text()
     out_dir = kernels.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         cu = out_dir / f"xlat_complex_{name.replace('=', '')}.cu"
+        cu = cu.with_name(cu.name.replace("+", "_"))
         so = cu.with_suffix(".so")
         cu.write_text(variant_source(src, name))
         procs[name] = (so, subprocess.Popen(
@@ -121,13 +154,15 @@ def build(names: list) -> tuple:
              "-shared", "-o", str(so), str(cu)], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     fns, ptxas = {}, {}
+    kernel, wire = PTXAS_OF[shape]
     for name, (so, proc) in procs.items():
         text = proc.communicate(timeout=600)[0]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{text}")
+        so.with_suffix(".ptxas.txt").write_text(text)
         lines = text.splitlines()
-        at = max(i for i, l in enumerate(lines)
-                 if "xlat_complex_split2" in l and "Bf16Pair" in l)
+        at = min(i for i, l in enumerate(lines) if "Function properties" in l
+                 and kernel in l and wire in l)
         ptxas[name] = " | ".join(l.split(":", 1)[-1].strip()
                                  for l in lines[at + 1:at + 3])
         print(name, ptxas[name], flush=True)
@@ -139,11 +174,16 @@ def build(names: list) -> tuple:
 
 
 def main(argv: list[str]) -> None:
-    if not argv:
+    shape = "split2"
+    if argv[:1] == ["--shape"] and len(argv) > 1:
+        shape, argv = argv[1], argv[2:]
+    if not argv or shape not in PTXAS_OF:
         raise SystemExit(__doc__)
     dev = require_cuda()
-    x, hist, grev, phase0, step, d = complex_bench_operands(dev)
-    fns, ptxas = build(argv)
+    x, hist, grev, phase0, step, d = (
+        complex_bench_operands(dev) if shape == "split2"
+        else complex_general_operands(dev, shape))
+    fns, ptxas = build(argv, shape)
     fns["package"] = kernels.load().xlat_complex_launch
     s, t = x.shape[:2]
     c, k = grev.shape[1:]
@@ -154,7 +194,8 @@ def main(argv: list[str]) -> None:
         y = torch.empty((s, c, n), dtype=torch.complex64, device=dev)
         kernels.check(fns[name](
             x.data_ptr(), hist.data_ptr(), grev.data_ptr(), phase0.data_ptr(),
-            step.data_ptr(), y.data_ptr(), s, t, n, k, d, c, 1, stream),
+            step.data_ptr(), y.data_ptr(), s, t, n, k, d, c,
+            int(x.dtype == torch.bfloat16), stream),
             f"xlat_complex {name}")
         return y
 

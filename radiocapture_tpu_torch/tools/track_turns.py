@@ -47,6 +47,18 @@ and counts the outputs that are bit-identical::
     python3 -m radiocapture_tpu_torch.tools.track_turns --kernel \
         xlat_complex radiocapture_tpu_torch/tools/xlat_complex_54b2cf5.cu
 
+``--shape mesh`` or ``--shape pfb`` (after ``--kernel xlat_complex``)
+takes the complex bank's general path instead, the kernels alone on the
+same complex64 values: the time-sharded mesh step's bank (128 sources ×
+64 slots × 2503 outputs, K = 1440, D = 96, a float32 block) or the pfb
+fine stage (8192 one-slot rows × 2500 outputs, K = 467, D = 16, from a
+mid-stream ``PfbXlatBank`` state); 54b2cf5's kernel is the general path
+the package's replaced, the same loop::
+
+    python3 -m radiocapture_tpu_torch.tools.track_turns --kernel \
+        xlat_complex --shape pfb \
+        radiocapture_tpu_torch/tools/xlat_complex_54b2cf5.cu
+
 The planes are the bank's output at the bench shape (128 sources × 64
 slots × 2500 samples, random-normal bf16 wire, mid-stream after three
 steps; for ``cqpsk_track`` the split2 → CQPSK shape, 256 halves × 64
@@ -242,16 +254,17 @@ def identical_outputs(a: torch.Tensor, b: torch.Tensor) -> int:
 
 def complex_turns(src: Path, x: torch.Tensor, history: torch.Tensor,
                   grev: torch.Tensor, phase0: torch.Tensor,
-                  step: torch.Tensor, d: int, iters: int = ITERS) -> dict:
+                  step: torch.Tensor, d: int, iters: int = ITERS,
+                  pairings: tuple = ("chain", "kernel")) -> dict:
     """The complex bank built from ``src`` (commit 54b2cf5's signature, one
-    complex64 z) against the package's on the CUDA operands of one split2
-    step: the wire block x [S, T, 2] and the history [S, K-1]. In turns
-    (other, package, package, other): that kernel's chain (x to float32,
-    history ++ block, the other kernel) against ``bank_complex`` on x in
-    place; then the two kernels alone on the same complex64 values (the
-    other on z, the package on the block's float32 view and the
-    history). Counts the outputs that are bit-identical in both
-    pairings."""
+    complex64 z) against the package's on the CUDA operands of one step:
+    the wire block x [S, T, 2] and the history [S, K-1]. In turns (other,
+    package, package, other), for each of ``pairings``: ``chain``, that
+    kernel's chain (x to float32, history ++ block, the other kernel)
+    against ``bank_complex`` on x in place; ``kernel``, the two kernels
+    alone on the same complex64 values (the other on z, the package on
+    the block's float32 view and the history). Counts the outputs that
+    are bit-identical in each pairing."""
     other = build_other(Path(src), "xlat_complex_launch",
                         COMPLEX_Z_SIGNATURE)
     s, t = x.shape[:2]
@@ -276,7 +289,8 @@ def complex_turns(src: Path, x: torch.Tensor, history: torch.Tensor,
                                                 step, d))}
     res = {"shape": [s, t, c, k, d], "wire": str(x.dtype).split(".")[-1],
            "other": str(src), "outputs": s * c * n}
-    for name, (old, new) in pairs.items():
+    for name in pairings:
+        old, new = pairs[name]
         ms = {"other": [], "package": []}
         for who, fn in (("other", old), ("package", new), ("package", new),
                         ("other", old)):
@@ -305,6 +319,48 @@ def complex_bench_operands(dev):
             phase_step_u32(offs, sp.bank.decim), sp.bank.decim)
 
 
+def complex_general_operands(dev, shape: str):
+    """The complex bank's operands where its general path runs at the
+    bench shape: ``mesh``, the time-sharded step's bank at world size 1
+    (128 sources × 64 slots, K = 1440, D = 96, the 100 ms block and the
+    sym-filter halo before it, a random-normal float32 block and history,
+    random phases) or ``pfb``, the pfb fine stage's 8192 one-slot rows
+    from ``PfbXlatBank.fine_operands`` after two steps of a random-normal
+    bf16 block. Returns (x, history, grev, phase0, step, D)."""
+    if shape == "pfb":
+        bank = ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE, frontend="pfb").bank
+        gen = torch.Generator(device=dev).manual_seed(3)
+        x = torch.randn((SOURCES, BLOCK, 2), generator=gen, device=dev).to(
+            torch.bfloat16)
+        offs = grid_offsets(SOURCES, dev)
+        state = bank.init(SOURCES, dev)
+        for _ in range(2):
+            state, _ = bank(state, x, offs)
+        _, xf, hist, grev, phase0, step = bank.fine_operands(state, x, offs)
+        return xf, hist, grev, phase0, step, bank.decim2
+    if shape != "mesh":
+        raise ValueError(f"unknown shape {shape!r}: mesh or pfb")
+    pipe = ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE)
+    bank = pipe.bank
+    d, k = bank.decim, bank.ntaps
+    t = BLOCK + len(pipe.sym_taps) * d
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((SOURCES, t, 2), generator=gen, device=dev)
+    hist = torch.view_as_complex(torch.randn((SOURCES, k - 1, 2),
+                                             generator=gen, device=dev))
+    offs = grid_offsets(SOURCES, dev)
+    phase0 = torch.randint(0, 2 ** 32, (SOURCES, SLOTS), generator=gen,
+                           device=dev, dtype=torch.int64)
+    return (x, hist, bank.modulated_taps(offs).contiguous(), phase0,
+            phase_step_u32(offs, d), d)
+
+
+def grid_offsets(n_sources: int, dev) -> torch.Tensor:
+    """The bench's slot grid: 25 kHz spacing around the centre."""
+    return ((torch.arange(SLOTS, device=dev) - SLOTS // 2) * 25e3
+            / SAMP_RATE).expand(n_sources, SLOTS).contiguous()
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -318,8 +374,7 @@ def bench_state(pipe, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn((SOURCES, BLOCK, 2), generator=gen, device=dev).to(
         torch.bfloat16)
-    offs = ((torch.arange(SLOTS, device=dev) - SLOTS // 2) * 25e3
-            / SAMP_RATE).expand(SOURCES, SLOTS).contiguous()
+    offs = grid_offsets(SOURCES, dev)
     state = pipe.init(SOURCES, dev)
     for _ in range(3):
         state, _ = pipe.step(state, x, offs)
@@ -373,8 +428,13 @@ def main_cqpsk(src: str) -> None:
     print(json.dumps(res))
 
 
-def main_complex(src: str) -> None:
-    res = complex_turns(Path(src), *complex_bench_operands(require_cuda()))
+def main_complex(src: str, shape: str | None = None) -> None:
+    dev = require_cuda()
+    if shape is None:
+        res = complex_turns(Path(src), *complex_bench_operands(dev))
+    else:
+        res = complex_turns(Path(src), *complex_general_operands(dev, shape),
+                            pairings=("kernel",))
     print(card_line())
     print(json.dumps(res))
 
@@ -425,19 +485,22 @@ def fsk_turns(src: Path, y_re: torch.Tensor, y_im: torch.Tensor, state,
 
 
 def main(argv: list[str]) -> None:
-    if argv[:1] == ["--kernel"] and len(argv) == 3 and argv[1] in (
+    if argv[:1] == ["--kernel"] and len(argv) >= 3 and argv[1] in (
             "fsk_track", "fm_voice", "cqpsk_track", "xlat_complex"):
         kernel, argv = argv[1], argv[2:]
     else:
         kernel = "fsk_track"
-    if len(argv) != 1:
+    shape = None
+    if kernel == "xlat_complex" and argv[:1] == ["--shape"] and len(argv) > 1:
+        shape, argv = argv[1], argv[2:]
+    if len(argv) != 1 or shape not in (None, "mesh", "pfb"):
         raise SystemExit(__doc__)
     if kernel == "fm_voice":
         return main_voice(argv[0])
     if kernel == "cqpsk_track":
         return main_cqpsk(argv[0])
     if kernel == "xlat_complex":
-        return main_complex(argv[0])
+        return main_complex(argv[0], shape)
     dev = require_cuda()
     card = card_line()
     pipe = ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE)

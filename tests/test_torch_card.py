@@ -255,26 +255,33 @@ def _complex_operands(rng, s, n, k, d, c, wire, dev, split2=False):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,n,p,d,c,wire,split2", [
-    (1, 120000, 10, 2, 2, "bf16", True), (4, 120000, 10, 2, 2, "bf16", True),
-    (1, 120000, 10, 2, 2, "float32", True),
-    (4, 120000, 10, 2, 2, "float32", False),
-    (1, 120000, 10, 2, 2, "complex64", False),
-    (4, 120000, 10, 2, 2, "complex64", True),
-    (3, 1001, 10, 2, 2, "bf16", True), (2, 5, 10, 2, 2, "float32", True),
-    (3, 1001, 15, 96, 40, "bf16", False),
-    (2, 37, 15, 96, 40, "float32", False)])
-def test_complex_bank_kernel_matches_plain(cuda_device, s, n, p, d, c, wire,
+@pytest.mark.parametrize("s,n,k,d,c,wire,split2", [
+    (1, 120000, 20, 2, 2, "bf16", True), (4, 120000, 20, 2, 2, "bf16", True),
+    (1, 120000, 20, 2, 2, "float32", True),
+    (4, 120000, 20, 2, 2, "float32", False),
+    (1, 120000, 20, 2, 2, "complex64", False),
+    (4, 120000, 20, 2, 2, "complex64", True),
+    (3, 1001, 20, 2, 2, "bf16", True), (2, 5, 20, 2, 2, "float32", True),
+    (3, 1001, 1440, 96, 40, "bf16", False),
+    (2, 37, 1440, 96, 40, "float32", False),
+    (3, 613, 1440, 96, 64, "bf16", False),
+    (3, 613, 1440, 96, 64, "float32", False),
+    (2, 5, 1440, 96, 64, "float32", False),
+    (64, 2500, 467, 16, 1, "float32", False),
+    (3, 37, 467, 16, 1, "bf16", False)])
+def test_complex_bank_kernel_matches_plain(cuda_device, s, n, k, d, c, wire,
                                            split2):
     """Split2's shape (one 100 ms block of 2.4 MS/s, 20 taps, 2 slots) at
     S = 1 and 4 on bf16, float32 and complex64 blocks read in place, with
     split2's taps and phase step (π per output) or random ones; a ragged
-    N off the 224-output warp tile, a block shorter than K-1 (N = 5), and
-    the wide C = 40 / K = 1440 / D = 96 case at ragged N: within
-    1e-4·max|y| of the plain version on history ++ block, from a random
-    history and uint32 phase."""
+    N off the 224-output warp tile, a block shorter than K-1 (N = 5); the
+    general path's wide plan at K = 1440 / D = 96 with C = 40 and the
+    time-sharded mesh step's C = 64 (bf16 and float32, ragged N, N = 5)
+    and its narrow plan at the pfb fine stage's C = 1 / K = 467 / D = 16
+    (64 rows of a 100 ms block; K % D ≠ 0): within 1e-4·max|y| of the
+    plain version on history ++ block, from a random history and uint32
+    phase."""
     rng = np.random.default_rng(n + c + s)
-    k = p * d
     x, hist, grev, phase0, step = _complex_operands(
         rng, s, n, k, d, c, wire, cuda_device, split2)
     before = ck.bank_complex.launches
@@ -299,18 +306,27 @@ def _earlier_complex():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,n,p,d,c,wire,split2", [
-    (4, 120000, 10, 2, 2, "bf16", True), (3, 1001, 10, 2, 2, "float32", False),
-    (2, 5, 10, 2, 2, "bf16", True), (3, 1001, 15, 96, 40, "bf16", False)])
-def test_complex_bank_matches_earlier_kernel(cuda_device, s, n, p, d, c,
+@pytest.mark.parametrize("s,n,k,d,c,wire,split2", [
+    (4, 120000, 20, 2, 2, "bf16", True), (3, 1001, 20, 2, 2, "float32", False),
+    (2, 5, 20, 2, 2, "bf16", True), (3, 1001, 1440, 96, 40, "bf16", False),
+    (3, 613, 1440, 96, 64, "bf16", False),
+    (3, 613, 1440, 96, 64, "float32", False),
+    (2, 5, 1440, 96, 64, "float32", False),
+    (64, 2500, 467, 16, 1, "float32", False),
+    (2, 5, 467, 16, 1, "bf16", False), (2, 333, 47, 3, 12, "float32", False),
+    (2, 64, 30000, 1, 1, "float32", False)])
+def test_complex_bank_matches_earlier_kernel(cuda_device, s, n, k, d, c,
                                              wire, split2):
     """The kernel against the one it replaced on the same values (that one
     on history ++ block as complex64): every output bit-identical, on
     split2's fast path (its two phasors per slot, and ``sincosf`` per
-    output for other offsets) and on the general path."""
+    output for other offsets) and on the general path's three plans: wide
+    (C = 40 and the mesh step's C = 64 at K = 1440 / D = 96, bf16 and
+    float32, ragged N, N = 5; K % D ≠ 0 at an odd D with C = 12), narrow
+    (the pfb fine stage's C = 1 / K = 467 / D = 16) and direct (a span
+    too large for shared memory)."""
     from radiocapture_tpu_torch.tools import track_turns
     rng = np.random.default_rng(n + s)
-    k = p * d
     x, hist, grev, phase0, step = _complex_operands(
         rng, s, n, k, d, c, wire, cuda_device, split2)
     got = ck.bank_complex(x, hist, grev, phase0, step, d)
