@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``radiocapture_tpu_torch``) on one CUDA
-card: builds the five CUDA kernel files and drives the port's three
+card: builds the seven CUDA kernel files and drives the port's three
 paths, the scan slice, live SDR ingest and the mesh steps.
 
 1. P25 C4FM control: checks the bank and fsk tracker kernels against
@@ -17,7 +17,9 @@ paths, the scan slice, live SDR ingest and the mesh steps.
    ``SpectrumSplit2.step`` → ``CqpskControlPipeline.step`` (two 2.4 MS/s
    sources → four 1.2 MS/s halves × 64 slots), and times its bench shape
    (128 physical sources → 256 halves × 64 slots = 16384 CQPSK lanes),
-   with the complex bank on the bf16 wire block and history in place
+   with the AGC kernel (``csrc/agc.cu``) against ``cqpsk.agc_scale``
+   within AGC_REL_TOL (``agc kernel:``), the complex bank on the bf16
+   wire block and history in place
    beside ``SpectrumSplit2.step`` alone, in turns with the chain it
    replaced (the block converted and concatenated, then the kernel of
    ``radiocapture_tpu_torch/tools/xlat_complex_54b2cf5.cu``; every output
@@ -25,7 +27,15 @@ paths, the scan slice, live SDR ingest and the mesh steps.
    per-sample-loop kernel it replaced
    (``radiocapture_tpu_torch/tools/cqpsk_track_54b2cf5.cu``; every lane's
    outputs and state must be bit-identical) and its chain's floor
-   (``cqpsk_kernel.chain_probe``, as for the fsk tracker).
+   (``cqpsk_kernel.chain_probe``, as for the fsk tracker). Then the
+   wire bank's operands kernel (``csrc/bank_operands.cu``) against
+   ``XlatBank.operands_plain`` at the C4FM bench, the CQPSK bench (split2's
+   float32 halves), the 32-slot dp×tp tile and a block shorter than K-1:
+   z2, the phase step and the bank's outputs bit-identical, the taps up
+   to the sign of zero, in turns with the eager build (``operands
+   kernel:``). Both bench steps' profiles must show none of the eager
+   glue's kernels (GLUE_KERNELS: the z2 ``cat``, the tap build's
+   sin/cos/complex multiplies, the AGC's hypot/pow/mean).
    Then the ``pfb`` and ``fft`` frontend modes: a P25 grant through
    ``ControlPipeline.p25_c4fm(64, 2.4e6, frontend=...)`` for each, the
    pfb fine stage (``PfbXlatBank``: one K2 = 467-tap filter per slot on
@@ -143,6 +153,12 @@ HALF_RATE = SAMP_RATE / 2          # each split2 half
 CQ_GRID_HZ = 12.5e3                # slot grid around each half's centre
 CHANNEL_FS = 25000.0               # CQPSK channel rate (bank output)
 COMPLEX_REL_TOL = 1e-4             # f32 complex bank: sum order only
+AGC_REL_TOL = 2e-6                 # agc gain vs plain: float32 sum order
+AGC_SMALL = ((3, 37, 5), (2, 100, 70))   # (S, N, C) beside the bench's
+TILE_SLOTS = SLOTS // 2            # the dp x tp tile at world 2
+# device kernels the glue kernels replaced; no profiled step may run one
+GLUE_KERNELS = ("CatArrayBatchedCopy", "cos_kernel_cuda", "sin_kernel_cuda",
+                "MulFunctor<c10::complex", "hypot", "pow_tensor", "MeanOps")
 CQ_NOISE_AGREE = 0.99              # CQPSK tracker on noise: emit masks
 # first NOISE_SYM_N symbols within NOISE_SYM_ATOL on this share of the
 # noise lanes. No all-lane bound here: a differential phase near the ±4
@@ -285,8 +301,9 @@ def kernel_wrappers() -> dict:
     from radiocapture_tpu_torch.demod import track_kernel as tk
     from radiocapture_tpu_torch.ops import channelizer_kernel as ck
     from radiocapture_tpu_torch.ops import fm_kernel as fk
-    return {"xlat_bank": ck.bank_fused, "fsk_track": tk.track,
-            "xlat_complex": ck.bank_complex,
+    return {"bank_operands": ck.bank_operands, "xlat_bank": ck.bank_fused,
+            "fsk_track": tk.track, "xlat_complex": ck.bank_complex,
+            "agc": cqk.agc_scale_kernel,
             "cqpsk_track": cqk.track_cqpsk, "fm_voice": fk.voice_track,
             "fsk_track_stream": tk.track_stream}
 
@@ -453,7 +470,7 @@ def frontend_block(pipe) -> int:
 
 
 def phase_decode(dev, pipe, what: str = "decode",
-                 need=("xlat_bank", "fsk_track")) -> dict:
+                 need=("bank_operands", "xlat_bank", "fsk_track")) -> dict:
     """The port's main path: 4 sources × 64 slots at 2.4 MS/s, bf16 wire
     blocks, P25 control channel at +50 kHz on source 0 and −300 kHz on
     source 3, through ``pipe`` (its frontend's bank). Fails unless every
@@ -509,11 +526,12 @@ def phase_decode(dev, pipe, what: str = "decode",
     return launches
 
 
-def profile_steps(step, what: str) -> float:
+def profile_steps(step, what: str, forbid: tuple = ()) -> float:
     """``torch.profiler`` over PROFILE_STEPS steady-state calls of
     ``step()``: logs the device kernels and copies by time per step (share
-    of all device time). Returns the device busy share: kernel time
-    (copies excluded) over wall time, profiler on."""
+    of all device time). Fails if a device kernel's name holds one of
+    ``forbid``. Returns the device busy share: kernel time (copies
+    excluded) over wall time, profiler on."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -545,6 +563,12 @@ def profile_steps(step, what: str) -> float:
         log(f"profile: {what}: {ms:8.3f} ms/step "
             f"{100 * ms / (dev_ms + copy_ms):5.1f}% "
             f"x{e.count / PROFILE_STEPS:<4.1f} {e.key[:90]}")
+    if forbid:
+        found = [e.key for e in dev if any(f in e.key for f in forbid)]
+        log(f"profile: {what}: {len(dev)} device kernels, none of "
+            f"{list(forbid)}: {'ok' if not found else found}")
+        if found:
+            raise AssertionError(f"{what}: the step ran {found}")
     return dev_ms / wall_ms
 
 
@@ -710,7 +734,7 @@ def phase_bench(dev, pipe) -> tuple[dict, float, float]:
     def one_step():
         box[0] = pipe.step(box[0], x, offs)[0]
 
-    busy = profile_steps(one_step, "c4fm")
+    busy = profile_steps(one_step, "c4fm", GLUE_KERNELS)
     state = box[0]
     med, mn = float(np.median(win_ms)), min(win_ms)
     res = {"step_ms_median": med, "step_ms_min": mn,
@@ -781,6 +805,163 @@ def phase_bench(dev, pipe) -> tuple[dict, float, float]:
         f"{res['bank_bound_ms']:.3f} ms, library "
         f"{res['bank_library_ms']:.3f} ms; peak {peak / 2 ** 30:.2f} GiB")
     return res, bank_err, track_err
+
+
+def turns(plain, kernel, iters: int) -> dict:
+    """``plain`` and ``kernel`` timed in turns (plain, kernel, kernel,
+    plain; CUDA events, ``iters`` calls each)."""
+    t = [cuda_ms(f, iters) for f in (plain, kernel, kernel, plain)]
+    return {"plain_turns_ms": [t[0], t[3]], "kernel_turns_ms": [t[1], t[2]],
+            "speedup": (t[0] + t[3]) / (t[1] + t[2])}
+
+
+def check_operands(bank, state, x, offs, what: str) -> dict:
+    """The operands kernel (``XlatBank.operands``) against
+    ``operands_plain`` on one block: z2 and the phase step bit-identical,
+    g2 bit-identical up to the sign of zero, and the wire bank's outputs on
+    the two operand sets bit-identical. Times the two in turns, each part
+    of the kernel alone (the taps and step, the z2 rows), beside their
+    bytes bounds."""
+    from radiocapture_tpu_torch import kernels
+    from radiocapture_tpu_torch.ops import channelizer_kernel as ck
+    p, d = bank.p, bank.decim
+    taps = bank.device_taps(x.device)
+    z2, g2, step = bank.operands(state, x, offs)
+    pz2, pg2, pstep = bank.operands_plain(state, x, offs)
+    z_same = torch.equal(z2.view(torch.int16), pz2.view(torch.int16))
+    diff = g2.view(torch.int16) != pg2.view(torch.int16)
+    signs = int(diff.sum())
+    g_same = torch.equal(g2, pg2) and bool(
+        (g2[diff] == 0).all() and (pg2[diff] == 0).all())
+    s_same = torch.equal(step, pstep)
+    n = x.shape[1] // d
+    y = ck.bank_fused(z2, g2, state.phase, step, n, p, d)
+    py = ck.bank_fused(pz2, pg2, state.phase, pstep, n, p, d)
+    y_same = all(torch.equal(a, b) for a, b in zip(y, py))
+    err = max(float((z2.float() - pz2.float()).abs().max()),
+              float((g2.float() - pg2.float()).abs().max()))
+    res = turns(lambda: bank.operands_plain(state, x, offs),
+                lambda: bank.operands(state, x, offs), 10)
+    lib = kernels.load()
+    part_ms, part_bytes = {}, {}
+    for part, name, tensors in ((1, "taps", (offs, taps, g2, step)),
+                                (2, "rows", (state.history, x, z2))):
+        args, _ = ck.operands_args(state.history, x, offs, taps, p, d, part)
+        part_ms[name] = cuda_ms(lambda: kernels.check(
+            lib.bank_operands_launch(*args), "bank_operands"), 10)
+        part_bytes[name] = tensor_bytes(*tensors)
+    nbytes = tensor_bytes(state.history, x, offs, taps, z2, g2, step)
+    res.update({"ms": res["kernel_turns_ms"][0],
+                "plain_ms": res["plain_turns_ms"][0],
+                "bound_ms": nbytes / HBM_RATE * 1e3, "bound_by": "bytes",
+                "max_abs_err": err, "g2_sign_of_zero_bits": signs,
+                "taps_ms": part_ms["taps"], "rows_ms": part_ms["rows"],
+                "taps_bound_ms": part_bytes["taps"] / HBM_RATE * 1e3,
+                "rows_bound_ms": part_bytes["rows"] / HBM_RATE * 1e3})
+    ok = z_same and g_same and s_same and y_same
+    log(f"operands kernel: {what} S={x.shape[0]} T={x.shape[1]} "
+        f"{str(x.dtype).split('.')[-1]} wire C={offs.shape[1]} K={bank.ntaps}"
+        f": z2 identical {z_same}, g2 identical {g_same} ({signs} "
+        f"sign-of-zero bits), step identical {s_same}, xlat_bank outputs "
+        f"identical {y_same}; eager {res['plain_turns_ms'][0]:.4f}, kernel "
+        f"{res['kernel_turns_ms'][0]:.4f}, {res['kernel_turns_ms'][1]:.4f}, "
+        f"eager {res['plain_turns_ms'][1]:.4f} ms: {res['speedup']:.2f}x; "
+        f"bound "
+        f"{res['bound_ms']:.4f} ms ({nbytes} B), share "
+        f"{res['bound_ms'] / res['ms']:.3f}; taps part alone "
+        f"{res['taps_ms']:.4f} ms (bound {res['taps_bound_ms']:.4f}), rows "
+        f"part alone {res['rows_ms']:.4f} ms (bound "
+        f"{res['rows_bound_ms']:.4f}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("operands kernel differs from operands_plain")
+    return res
+
+
+def mid_state(bank, s: int, c: int, dev, gen):
+    """A random mid-stream wire bank state: complex64 history, uint32
+    phase."""
+    return bank.init(s, dev)._replace(
+        history=torch.randn((s, bank.ntaps - 1), dtype=torch.complex64,
+                            generator=gen, device=dev),
+        phase=torch.randint(0, 2 ** 32, (s, c), generator=gen, device=dev))
+
+
+def phase_operands_kernel(dev, pipe, sp) -> dict:
+    """``operands kernel:`` at the three shapes the main path gives it:
+    the C4FM bench (128 sources x 240000 bf16 samples, 64 slots), the
+    CQPSK bench (split2's float32 halves, 256 logical sources x 120000
+    samples, 64 slots) and the dp x tp tile at world 2 (the C4FM block,
+    32 slots), each from a random mid-stream state; and a block shorter
+    than K-1 at three sources."""
+    from radiocapture_tpu_torch.frontend.pipeline import (
+        CqpskControlPipeline, split2_sources)
+    s = BENCH_SOURCES
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn((s, BLOCK, 2), generator=gen, device=dev).to(
+        torch.bfloat16)
+    bank = pipe.bank
+    res = {"c4fm": check_operands(bank, mid_state(bank, s, SLOTS, dev, gen),
+                                  x, grid_offsets(s, dev), "c4fm bench")}
+    tile = grid_offsets(s, dev)[:, :TILE_SLOTS].contiguous()
+    res["tile"] = check_operands(bank, mid_state(bank, s, TILE_SLOTS, dev,
+                                                 gen), x, tile,
+                                 f"dp x tp tile {TILE_SLOTS} slots")
+    short = x[:3, :bank.decim * 7].contiguous()
+    check_operands(bank, mid_state(bank, 3, SLOTS, dev, gen), short,
+                   grid_offsets(3, dev), "short block")
+    cq = CqpskControlPipeline.p25_cqpsk(SLOTS, HALF_RATE)
+    _, halves = sp.step(sp.init(s, dev), x)
+    xh = split2_sources(halves)
+    res["cqpsk"] = check_operands(cq.bank, mid_state(cq.bank, 2 * s, SLOTS,
+                                                     dev, gen), xh,
+                                  cq_offsets(2 * s, dev), "cqpsk bench")
+    return res
+
+
+def agc_at_bench(y_re, y_im) -> dict:
+    """``agc kernel:`` the CQPSK AGC kernel against ``cqpsk.agc_scale`` on
+    the bench's bank planes and on small and ragged ones with a silent
+    lane: every gain within AGC_REL_TOL relative. Its ms beside the plain
+    version's, the bytes bound and ``torch.linalg.vector_norm`` over dim 1
+    of each plane (the nearest library form)."""
+    from radiocapture_tpu_torch.demod import cqpsk as cq
+    from radiocapture_tpu_torch.demod import cqpsk_kernel as cqk
+    gen = torch.Generator(device=y_re.device).manual_seed(7)
+    cases = [(f"S={s} N={n} C={c} silent lane",
+              torch.randn((s, n, c), generator=gen, device=y_re.device),
+              torch.randn((s, n, c), generator=gen, device=y_re.device))
+             for s, n, c in AGC_SMALL]
+    for _, a, b in cases:
+        a[0, :, 0] = 0.0
+        b[0, :, 0] = 0.0
+    cases.append((f"bench shape S={y_re.shape[0]} N={y_re.shape[1]} "
+                  f"C={y_re.shape[2]}", y_re, y_im))
+    worst = worst_abs = 0.0
+    for what, a, b in cases:
+        got, want = cqk.agc_scale_kernel(a, b), cq.agc_scale(a, b, dim=1)
+        rel = float(((got - want).abs() / want.abs()).max())
+        worst, worst_abs = max(worst, rel), max(
+            worst_abs, float((got - want).abs().max()))
+        ok = rel <= AGC_REL_TOL
+        log(f"agc kernel vs plain: {what}: max rel err {rel:.3e} "
+            f"(<= {AGC_REL_TOL}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("agc kernel disagrees with plain")
+    res = {"agc_max_rel_err": worst, "agc_max_abs_err": worst_abs,
+           "agc_ms": cuda_ms(lambda: cqk.agc_scale_kernel(y_re, y_im), 20),
+           "agc_plain_ms": cuda_ms(
+               lambda: cq.agc_scale(y_re, y_im, dim=1), 20),
+           "agc_library_ms": cuda_ms(lambda: (
+               torch.linalg.vector_norm(y_re, dim=1),
+               torch.linalg.vector_norm(y_im, dim=1)), 20),
+           "agc_bound_ms": tensor_bytes(y_re, y_im, got) / HBM_RATE * 1e3,
+           "agc_bound_by": "bytes"}
+    log(f"agc kernel: bench shape: {res['agc_ms']:.4f} ms, plain "
+        f"{res['agc_plain_ms']:.4f} ms, bound {res['agc_bound_ms']:.4f} ms "
+        f"(bytes), share {res['agc_bound_ms'] / res['agc_ms']:.3f}; library "
+        f"(vector_norm over dim 1 of each plane) "
+        f"{res['agc_library_ms']:.4f} ms; max rel err {worst:.3e}")
+    return res
 
 
 def cqpsk_floor(y_re, y_im, scale, state_fn, baud) -> dict:
@@ -1078,7 +1259,8 @@ def phase_split2_decode(dev, sp) -> dict:
     log(f"split2 decode: {n_src} physical sources x {n_blocks} blocks of "
         f"{BLOCK} complex64 -> {2 * n_src} halves x {SLOTS} slots, two "
         f"CQPSK pipelines, in {dt:.3f} s; launches {launches}")
-    need = ("xlat_complex", "xlat_bank", "cqpsk_track")
+    need = ("xlat_complex", "bank_operands", "xlat_bank", "agc",
+            "cqpsk_track")
     if min(launches[k] for k in need) < 1:
         raise AssertionError(f"a kernel of the path never ran: {launches}")
     return launches
@@ -1091,7 +1273,6 @@ def phase_split2_bench(dev, sp) -> tuple[dict, float, float, float]:
     its plain version, and holds each kernel's output at this shape
     against the plain version's. Returns (timings, complex bank max |err|,
     CQPSK tracker max |err|, wire bank max |err|)."""
-    from radiocapture_tpu_torch.demod import cqpsk as cq_mod
     from radiocapture_tpu_torch.demod import cqpsk_kernel as cqk
     from radiocapture_tpu_torch.frontend.pipeline import (
         CqpskControlPipeline, split2_sources)
@@ -1124,7 +1305,7 @@ def phase_split2_bench(dev, sp) -> tuple[dict, float, float, float]:
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t0) * 1e3)
     lat.sort()
-    busy = profile_steps(one_step, "split2+cqpsk")
+    busy = profile_steps(one_step, "split2+cqpsk", GLUE_KERNELS)
     med, mn = float(np.median(win_ms)), min(win_ms)
     res = {"step_ms_median": med, "step_ms_min": mn,
            "phys_msps_median": s * BLOCK / med / 1e3,
@@ -1205,7 +1386,8 @@ def phase_split2_bench(dev, sp) -> tuple[dict, float, float, float]:
     box[0], halves = sp.step(box[0], x)
     _, y_re, y_im = cq.bank.call_planes(box[1].bank, split2_sources(halves),
                                         offs)
-    scale = cq_mod.agc_scale(y_re, y_im, dim=1)
+    res.update(agc_at_bench(y_re, y_im))
+    scale = cqk.agc_scale_kernel(y_re, y_im)
 
     def lane_state():   # the kernel updates its lane state in place
         return type(box[1].cqpsk)(*(t.clone() for t in box[1].cqpsk))
@@ -1524,8 +1706,8 @@ def phase_runtime_decode(dev, frontend: str = "xlat") -> dict:
     log(f"{what}: 2 sources x {SLOTS} slots x {n_blocks} blocks, "
         f"groups {sorted(str(k) for k in rt.groups)} in {dt:.3f} s; "
         f"launches {launches}")
-    need = ({"xlat": "xlat_bank", "pfb": "xlat_complex"}[frontend],
-            "fsk_track", "fm_voice")
+    need = {"xlat": ("bank_operands", "xlat_bank"),
+            "pfb": ("xlat_complex",)}[frontend] + ("fsk_track", "fm_voice")
     if min(launches[k] for k in need) < 1:
         raise AssertionError(f"a kernel of the path never ran: {launches}")
     return launches
@@ -1804,7 +1986,8 @@ def phase_fsk4_block(dev, pipe) -> dict:
     # the block tracker's output: the decode phase's P25 grants, with the
     # tracker kernel launched no time
     pipe.fsk4_block = 10
-    launches = phase_decode(dev, pipe, "decode fsk4 block", ("xlat_bank",))
+    launches = phase_decode(dev, pipe, "decode fsk4 block",
+                            ("bank_operands", "xlat_bank"))
     if launches["fsk_track"]:
         raise AssertionError(f"fsk4_block ran the tracker kernel: {launches}")
     pipe.fsk4_block = 0
@@ -1901,7 +2084,8 @@ def phase_decode_scan(dev) -> dict:
         raise AssertionError(f"scan CLI: no locked line in {lines}")
     log(f"decode scan: scan CLI fft: {len(lines)} lines, locked: "
         f"{locked}; launches {launches}")
-    if min(launches[k] for k in ("xlat_bank", "fsk_track")) < 1:
+    if min(launches[k] for k in ("bank_operands", "xlat_bank",
+                                 "fsk_track")) < 1:
         raise AssertionError(f"a kernel of the path never ran: {launches}")
     return {"launches": launches, "spectrum_max_abs_err": err}
 
@@ -1930,7 +2114,8 @@ def phase_decode_scanner(dev) -> dict:
     log(f"decode scanner: {SCAN_CHANNELS} channels, events {kinds} (the "
         f"CPU port's), CDR group {opened[0]['system_group_local']:.0f} ok; "
         f"launches {launches}")
-    if min(launches[k] for k in ("xlat_bank", "fm_voice")) < 1:
+    if min(launches[k] for k in ("bank_operands", "xlat_bank",
+                                 "fm_voice")) < 1:
         raise AssertionError(f"a kernel of the path never ran: {launches}")
     return {"launches": launches}
 
@@ -1979,7 +2164,8 @@ def phase_decode_file_to_wav(dev) -> dict:
     log(f"decode file_to_wav: p25 {p25} (the CPU port's); vocoder PCM "
         f"{'produced, ' + str(len(pcm_audio)) + ' samples' if len(pcm_audio) else 'not produced (no vocoder): frame stats only'}"
         f"; launches {launches}")
-    if min(launches[k] for k in ("xlat_bank", "fm_voice", "fsk_track")) < 1:
+    if min(launches[k] for k in ("bank_operands", "xlat_bank", "fm_voice",
+                                 "fsk_track")) < 1:
         raise AssertionError(f"a kernel of the path never ran: {launches}")
     return {"launches": launches, "wav_max_abs_err": err,
             "p25_pcm": bool(len(pcm_audio)), "p25_stats": p25}
@@ -2348,7 +2534,8 @@ def phase_live_rtl_tcp(dev) -> dict:
     try:
         res = live_run(
             dev, live_config("rtlsdr", f"rtl_tcp={srv.host}:{srv.port}"),
-            "decode live rtl_tcp", ("xlat_bank", "fsk_track", "fm_voice"),
+            "decode live rtl_tcp",
+            ("bank_operands", "xlat_bank", "fsk_track", "fm_voice"),
             lambda rt, msgs: rt.run(duration_s=LIVE_DECODE_S))
     finally:
         srv.close()
@@ -2386,7 +2573,8 @@ def phase_live_split2(dev) -> dict:
     cfg.receiver_split2 = True
     try:
         res = live_run(dev, cfg, "decode live rciq split2",
-                       ("xlat_complex", "cqpsk_track"),
+                       ("xlat_complex", "bank_operands", "xlat_bank",
+                        "agc", "cqpsk_track"),
                        lambda rt, msgs: rt.run(duration_s=LIVE_DECODE_S))
     finally:
         feeder.stop()
@@ -2444,7 +2632,8 @@ def phase_live_dropout(dev) -> dict:
     try:
         res = live_run(dev, live_config("usrp",
                                         f"rciq={srv.host}:{srv.port}"),
-                       "decode live dropout", ("xlat_bank", "fsk_track"),
+                       "decode live dropout",
+                       ("bank_operands", "xlat_bank", "fsk_track"),
                        run)
     finally:
         feeder.stop()
@@ -2851,7 +3040,7 @@ def phase_mesh_decode(dev) -> dict:
     from radiocapture_tpu_torch.entry import dryrun_multichip
     from radiocapture_tpu_torch.parallel import mesh as MESH
     total: dict = {}
-    need = {"dp_tp_launches": ("xlat_bank", "fsk_track"),
+    need = {"dp_tp_launches": ("bank_operands", "xlat_bank", "fsk_track"),
             "time_launches": ("xlat_complex", "fsk_track_stream")}
     for n in MESH_WORLDS:
         t0 = time.perf_counter()
@@ -3146,6 +3335,7 @@ def main() -> None:
     cbank_err = max(cbank_err, bench_cbank_err)
     cq_err = max(cq_err, bench_cq_err)
     bank_err = max(bank_err, bench_bank_err)
+    ops = phase_operands_kernel(dev, pipe, sp)
 
     voice_err, res3 = phase_voice_kernel(dev)
     launches3 = phase_runtime_decode(dev)
@@ -3209,6 +3399,28 @@ def main() -> None:
         raise AssertionError(f"imported {loaded}")
 
     log(json.dumps({"kernels": [
+        {"name": "bank_operands", "route": "cuda",
+         "source": "radiocapture_tpu_torch/csrc/bank_operands.cu",
+         "replaces": "radiocapture_tpu/ops/channelizer.py:200",
+         "replaces_what": "XLA fusion of XlatBank.call_wire's operand "
+                          "build (:200-224), not a Pallas kernel",
+         "launches": launches["bank_operands"],
+         "max_abs_err": max(o["max_abs_err"] for o in ops.values()),
+         **{k: ops["c4fm"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by")},
+         "library_ms": None,
+         **{f"{shape}_{k}": v for shape, o in ops.items()
+            for k, v in o.items()},
+         "cqpsk_launches": launches2["bank_operands"]},
+        {"name": "agc", "route": "cuda",
+         "source": "radiocapture_tpu_torch/csrc/agc.cu",
+         "replaces": "radiocapture_tpu/demod/cqpsk.py:261",
+         "replaces_what": "XLA fusion of block_agc, not a Pallas kernel",
+         "launches": launches2["agc"], "max_abs_err": res2["agc_max_abs_err"],
+         "max_rel_err": res2["agc_max_rel_err"], "ms": res2["agc_ms"],
+         "plain_ms": res2["agc_plain_ms"], "bound_ms": res2["agc_bound_ms"],
+         "bound_by": res2["agc_bound_by"],
+         "library_ms": res2["agc_library_ms"]},
         {"name": "xlat_bank", "route": "cuda",
          "source": "radiocapture_tpu_torch/csrc/xlat_bank.cu",
          "replaces": "radiocapture_tpu/ops/pallas_channelizer.py:201",

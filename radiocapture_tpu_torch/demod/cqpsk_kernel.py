@@ -5,11 +5,12 @@ lane of the bank output.
 Replaces the chain after the bank in ``radiocapture_tpu.frontend.
 pipeline.CqpskControlPipeline._step_impl`` (pipeline.py:340-350): the
 ``cqpsk.cqpsk_demod`` ``lax.scan`` and ``slice_dibits_jax``, with the
-per-lane gain of ``cqpsk.block_agc`` applied as samples are read. In
-eager PyTorch the scan would launch ~110 tiny kernels per sample; the
-CUDA kernel (``csrc/cqpsk_track.cu``) runs one thread per lane with the
-lane's whole state in registers, symbol by symbol, and reads the
-time-major bank planes once.
+per-lane gain of ``cqpsk.block_agc`` applied as samples are read; the
+gain itself is one reduction over the planes (``agc_scale_kernel``,
+``csrc/agc.cu``). In eager PyTorch the scan would launch ~110 tiny
+kernels per sample; the CUDA kernel (``csrc/cqpsk_track.cu``) runs one
+thread per lane with the lane's whole state in registers, symbol by
+symbol, and reads the time-major bank planes once.
 """
 
 from __future__ import annotations
@@ -88,6 +89,47 @@ def kernel_args(y_re: torch.Tensor, y_im: torch.Tensor, scale: torch.Tensor,
             *_loop_args(prm),
             torch.cuda.current_stream(y_re.device).cuda_stream)
     return args, (syms, valid, dibits)
+
+
+def agc_args(y_re: torch.Tensor, y_im: torch.Tensor):
+    """Validate the AGC kernel's planes and allocate its output: (the
+    arguments of the C entry point ``agc_launch``, scale [S, C]). Raises
+    ValueError on what the kernel does not take: another dtype or shape,
+    a non-contiguous plane, planes on different devices or off the
+    card."""
+    if y_re.dim() != 3:
+        raise ValueError(f"agc_scale_kernel: y_re must be [S, N, C], got "
+                         f"{tuple(y_re.shape)}")
+    s, n, c = y_re.shape
+    _check("agc_scale_kernel", y_re.device,
+           [("y_re", y_re, (s, n, c)), ("y_im", y_im, (s, n, c))])
+    if y_re.device.type != "cuda":
+        raise ValueError(f"agc_scale_kernel: the kernel takes CUDA "
+                         f"tensors, got {y_re.device}")
+    scale = torch.empty((s, c), dtype=torch.float32, device=y_re.device)
+    return (y_re.data_ptr(), y_im.data_ptr(), scale.data_ptr(), s, n, c,
+            torch.cuda.current_stream(y_re.device).cuda_stream), scale
+
+
+def agc_scale_kernel(y_re: torch.Tensor, y_im: torch.Tensor
+                     ) -> torch.Tensor:
+    """The per-lane AGC gain of a block of [S, N, C] float32 bank planes,
+    ``1 / max(rms over N, 1e-9)`` as [S, C] float32: ``cqpsk.agc_scale``
+    (dim 1) on CPU tensors, the CUDA kernel ``csrc/agc.cu`` on CUDA
+    tensors, which reads each plane once and sums re² + im² in float32 in
+    a fixed order (not the plain version's: the gain agrees within a
+    stated bound, not bit for bit). On CUDA what the kernel does not take
+    raises (``agc_args``)."""
+    if y_re.device.type == "cpu":
+        return _cq.agc_scale(y_re, y_im, dim=1)
+    from radiocapture_tpu_torch import kernels
+    args, scale = agc_args(y_re, y_im)
+    kernels.check(kernels.load().agc_launch(*args), "agc")
+    agc_scale_kernel.launches += 1
+    return scale
+
+
+agc_scale_kernel.launches = 0
 
 
 def track_cqpsk(y_re: torch.Tensor, y_im: torch.Tensor, scale: torch.Tensor,

@@ -64,7 +64,8 @@ def grant_capture(samp_rate: float = DRYRUN_RATE) -> np.ndarray:
 def _launches() -> dict:
     from radiocapture_tpu_torch.demod import track_kernel as tk
     from radiocapture_tpu_torch.ops import channelizer_kernel as ck
-    return {"xlat_bank": ck.bank_fused.launches,
+    return {"bank_operands": ck.bank_operands.launches,
+            "xlat_bank": ck.bank_fused.launches,
             "fsk_track": tk.track.launches,
             "xlat_complex": ck.bank_complex.launches,
             "fsk_track_stream": tk.track_stream.launches}
@@ -73,7 +74,8 @@ def _launches() -> dict:
 def _reset_launches() -> None:
     from radiocapture_tpu_torch.demod import track_kernel as tk
     from radiocapture_tpu_torch.ops import channelizer_kernel as ck
-    for fn in (ck.bank_fused, tk.track, ck.bank_complex, tk.track_stream):
+    for fn in (ck.bank_operands, ck.bank_fused, tk.track, ck.bank_complex,
+               tk.track_stream):
         fn.launches = 0
 
 

@@ -39,7 +39,8 @@ import torch
 
 from radiocapture_tpu_torch.demod import cqpsk as _cqpsk
 from radiocapture_tpu_torch.demod import fsk4 as _fsk4
-from radiocapture_tpu_torch.demod.cqpsk_kernel import track_cqpsk
+from radiocapture_tpu_torch.demod.cqpsk_kernel import (agc_scale_kernel,
+                                                      track_cqpsk)
 from radiocapture_tpu_torch.demod.track_kernel import (TrackParams, track,
                                                       track_plain)
 from radiocapture_tpu_torch.ops import taps as _taps
@@ -302,7 +303,7 @@ class CqpskControlPipeline:
         M = T // decim (one output per channel sample)."""
         _check_block(x, self.block_multiple)
         bs, y_re, y_im = self.bank.call_planes(state.bank, x, offsets_norm)
-        scale = _cqpsk.agc_scale(y_re, y_im, dim=1)          # [S, C]
+        scale = agc_scale_kernel(y_re, y_im)                 # [S, C]
         cs, syms, valid, dibits = track_cqpsk(
             y_re, y_im, scale, state.cqpsk, self.channel_fs,
             self.symbol_rate)

@@ -63,6 +63,11 @@ _SIGNATURES = {
     # y_re, y_im, prev, y_last, x_last, audio, power, S, N, C, gain, z1,
     # b0, chunk, warps, stream
     "fm_voice_launch": (_P,) * 7 + (_I,) * 3 + (_F,) * 3 + (_I, _I, _P),
+    # hist, x, offs, taps, z2, g2, step, S, T, C, P, D, W, x_bf16, parts,
+    # stream
+    "bank_operands_launch": (_P,) * 7 + (_I,) * 8 + (_P,),
+    # y_re, y_im, scale, S, N, C, stream
+    "agc_launch": (_P,) * 3 + (_I,) * 3 + (_P,),
 }
 
 

@@ -25,7 +25,8 @@ import torch
 
 from radiocapture_tpu_torch.ops import taps as _taps
 from radiocapture_tpu_torch.ops.channelizer_kernel import (
-    bank_complex, bank_fused, kernel_tap_matrix, tap_matrix)
+    bank_complex, bank_fused, bank_operands, bank_operands_plain, tap_matrix,
+    wire_z2)
 from radiocapture_tpu_torch.ops.fir import U32_MASK, XlatState, phase_step_u32
 
 
@@ -156,19 +157,30 @@ class XlatBank:
         The zero sample makes z2's row (N+P)·2D values long, N = T/D: a
         whole number of 2D-value rows, which the kernel's tensor map reads
         in place (its per-source stride must be a multiple of 16 bytes;
-        history ++ block alone is 2 values short of one). On CUDA z2 is
-        bf16 and g2 the bf16 tap matrix in the kernel's slot-group layout
-        (``kernel_tap_matrix``); on CPU z2 keeps the wire dtype and g2 is
-        the float32 [S, P·2D, 2C] ``tap_matrix``, the plain version's."""
-        cuda = x2.device.type == "cuda"
-        hist2 = torch.view_as_real(state.history).to(
-            torch.bfloat16 if cuda else x2.dtype)
-        z2 = torch.cat([hist2, x2.to(hist2.dtype),
-                        hist2.new_zeros((x2.shape[0], 1, 2))], dim=1)
-        build = kernel_tap_matrix if cuda else tap_matrix
-        g2 = build(self.device_taps(x2.device), offsets_norm, self.p,
-                   self.decim)
-        return (z2.reshape(x2.shape[0], -1), g2,
+        history ++ block alone is 2 values short of one). On CUDA one
+        launch of the operands kernel (``bank_operands``) writes all three:
+        z2 in bf16 and g2 in the bank kernel's slot-group layout, bit for
+        bit :meth:`operands_plain`'s. On CPU this is
+        :meth:`operands_plain`."""
+        if x2.device.type == "cpu":
+            return self.operands_plain(state, x2, offsets_norm)
+        return bank_operands(state.history, x2, offsets_norm,
+                             self.device_taps(x2.device), self.p, self.decim)
+
+    def operands_plain(self, state: XlatBankState, x2: torch.Tensor,
+                       offsets_norm: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """:meth:`operands` in plain PyTorch. On CUDA tensors the
+        operands kernel's plain version (``bank_operands_plain``: bf16 z2,
+        bf16 g2 in the kernel's layout, ``kernel_tap_matrix``); on CPU z2
+        keeps the wire dtype and g2 is the float32 [S, P·2D, 2C]
+        ``tap_matrix``, the plain bank's."""
+        taps = self.device_taps(x2.device)
+        if x2.device.type == "cuda":
+            return bank_operands_plain(state.history, x2, offsets_norm, taps,
+                                       self.p, self.decim)
+        return (wire_z2(state.history, x2, x2.dtype),
+                tap_matrix(taps, offsets_norm, self.p, self.decim),
                 phase_step_u32(offsets_norm, self.decim))
 
     def call_planes(self, state: XlatBankState, x2: torch.Tensor,

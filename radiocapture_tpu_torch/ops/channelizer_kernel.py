@@ -19,6 +19,13 @@ pass is gone. The window matrix is never materialized: chunk q of window
 row n is row n+q of z2 viewed as rows of 2D values (``kernel_rows``), so
 the kernel reads each operand tile as a plain box of that matrix.
 
+**The bank's operands** (``bank_operands``, ``csrc/bank_operands.cu``)
+replace no Pallas kernel: in the JAX package XLA fuses the operand build
+of ``XlatBank.call_wire`` (channelizer.py:200-224) under ``jit``. One
+launch writes z2 (history ++ block ++ one zero sample, bf16), the
+modulated taps in the bank kernel's slot-group layout and the phase
+step, bit for bit ``bank_operands_plain``, the eager build.
+
 **The complex bank** (``bank_complex``, ``csrc/xlat_complex.cu``)
 replaces ``bank_matmul_pallas`` (with ``_bank_kernel``) and the rotation
 after it in ``XlatBank.__call__``: the same correlation on history ++
@@ -32,7 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from radiocapture_tpu_torch.ops.fir import U32_MASK, rotate
+from radiocapture_tpu_torch.ops.fir import U32_MASK, phase_step_u32, rotate
 
 
 def _reversed_taps(taps: np.ndarray | torch.Tensor,
@@ -166,6 +173,102 @@ def kernel_tap_matrix(taps: np.ndarray | torch.Tensor,
     rows[:, 1, ..., 0].copy_(g[..., 1])
     rows[:, 1, ..., 1].copy_(rows[:, 0, ..., 0])           # (g_im, g_re)
     return _slot_groups(rows.reshape(s, 2, c, p, 2 * d), kernel_width(d))
+
+
+def wire_z2(history: torch.Tensor, x2: torch.Tensor,
+            dtype: torch.dtype) -> torch.Tensor:
+    """The bank's row buffer z2 [S, (K+T)·2] of ``dtype``: the [S, K-1]
+    complex64 history ++ the [S, T, 2] wire block ++ one zero sample, each
+    rounded once to ``dtype``. The zero sample makes the row (N+P)·2D
+    values long, a whole number of 2D-value rows (``kernel_rows``)."""
+    hist2 = torch.view_as_real(history).to(dtype)
+    return torch.cat([hist2, x2.to(dtype),
+                      hist2.new_zeros((x2.shape[0], 1, 2))],
+                     dim=1).reshape(x2.shape[0], -1)
+
+
+def bank_operands_plain(history: torch.Tensor, x2: torch.Tensor,
+                        offsets_norm: torch.Tensor,
+                        taps: torch.Tensor, p: int, d: int
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the operands kernel: (z2 bf16
+    ``wire_z2``, g2 ``kernel_tap_matrix`` in bf16, step
+    ``phase_step_u32``), what ``bank_fused`` takes on CUDA."""
+    return (wire_z2(history, x2, torch.bfloat16),
+            kernel_tap_matrix(taps, offsets_norm, p, d),
+            phase_step_u32(offsets_norm, d))
+
+
+def operands_args(history: torch.Tensor, x2: torch.Tensor,
+                  offsets_norm: torch.Tensor, taps: torch.Tensor, p: int,
+                  d: int, parts: int = 3):
+    """Validate the operands kernel's inputs and allocate its outputs:
+    (the arguments of the C entry point ``bank_operands_launch``, (z2, g2,
+    step)). Raises ValueError on what the kernel does not take: another
+    dtype or shape, a non-contiguous or misaligned block, tensors on
+    different devices, or tensors off the card. ``parts`` 1 or 2 has the
+    launch write only g2 and step, or only z2: a measurement aid."""
+    if (x2.dtype not in (torch.bfloat16, torch.float32) or x2.dim() != 3
+            or x2.shape[-1] != 2 or not x2.is_contiguous()
+            or x2.data_ptr() % (2 * x2.element_size())):
+        raise ValueError(f"bank_operands: x2 must be a contiguous [S, T, 2] "
+                         f"bf16 or float32 wire block, got {x2.dtype} "
+                         f"{tuple(x2.shape)} (contiguous: "
+                         f"{x2.is_contiguous()})")
+    s, t = x2.shape[:2]
+    c, k = offsets_norm.shape[-1], p * d
+    for name, v, dt, shape in (
+            ("history", history, torch.complex64, (s, k - 1)),
+            ("offsets_norm", offsets_norm, torch.float32, (s, c)),
+            ("taps", taps, torch.float32, (k,))):
+        if (v.device != x2.device or v.dtype != dt
+                or tuple(v.shape) != shape or not v.is_contiguous()):
+            raise ValueError(f"bank_operands: {name} must be a contiguous "
+                             f"{dt} tensor of shape {shape} on "
+                             f"{x2.device}, got {v.dtype} "
+                             f"{tuple(v.shape)} on {v.device}")
+    if x2.device.type != "cuda":
+        raise ValueError(f"bank_operands: the kernel takes CUDA tensors, "
+                         f"got {x2.device}")
+    w = kernel_width(d)
+    z2 = torch.empty((s, (k + t) * 2), dtype=torch.bfloat16,
+                     device=x2.device)
+    g2 = torch.empty((s, -(-c // SLOT_GROUP), 2 * SLOT_GROUP, p * w),
+                     dtype=torch.bfloat16, device=x2.device)
+    step = torch.empty((s, c), dtype=torch.int64, device=x2.device)
+    args = (history.data_ptr(), x2.data_ptr(), offsets_norm.data_ptr(),
+            taps.data_ptr(), z2.data_ptr(), g2.data_ptr(), step.data_ptr(),
+            s, t, c, p, d, w, int(x2.dtype == torch.bfloat16), parts,
+            torch.cuda.current_stream(x2.device).cuda_stream)
+    return args, (z2, g2, step)
+
+
+def bank_operands(history: torch.Tensor, x2: torch.Tensor,
+                  offsets_norm: torch.Tensor, taps: torch.Tensor, p: int,
+                  d: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The wire bank's operands for one block: ``bank_operands_plain`` on
+    CPU tensors, the CUDA kernel ``csrc/bank_operands.cu`` on CUDA tensors,
+    one launch for all three, bit for bit the plain version's on the card
+    (g2 up to the sign of a zero tap).
+
+    history [S, K-1] complex64; x2 [S, T, 2] bf16 or float32 wire block;
+    offsets_norm [S, C] float32; taps [K] float32, K = p·d. Returns z2
+    [S, (K+T)·2] bf16, g2 [S, G, 128, P·W] bf16, step [S, C] int64. On
+    CUDA what the kernel does not take raises (``operands_args``).
+
+    Bound by bytes (the block read once, z2 and the taps written once);
+    the taps' sin/cos come from the factorized phasor, C·(P+D) pairs a
+    source, in shared memory."""
+    if x2.device.type == "cpu":
+        return bank_operands_plain(history, x2, offsets_norm, taps, p, d)
+    from radiocapture_tpu_torch import kernels
+    args, outs = operands_args(history, x2, offsets_norm, taps, p, d)
+    kernels.check(kernels.load().bank_operands_launch(*args), "bank_operands")
+    bank_operands.launches += 1
+    return outs
+
+
+bank_operands.launches = 0
 
 
 def bank_fused(z2: torch.Tensor, g2: torch.Tensor, phase0: torch.Tensor,

@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import math
 import queue
-import socket
 import time
 import traceback
 from datetime import timedelta
@@ -347,19 +346,13 @@ class Communicator:
 
 # ---- the ranks --------------------------------------------------------
 
-def free_port() -> int:
-    """A TCP port on 127.0.0.1 that nothing listens on now."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def init_rank(rank: int, world_size: int, init_method: str,
+def init_rank(rank: int, world_size: int, port: int,
               device=None) -> torch.device:
-    """Join the process group as ``rank`` and return the device the rank
-    computes on. ``device`` a CPU device: a CPU rank. Otherwise (``None``
-    included) a CUDA rank, rank r on card r mod the card count: its own
-    card when there are enough, else sharing. The backend is
+    """Join the process group as ``rank`` through the ``TCPStore`` that
+    listens on 127.0.0.1:``port`` (:func:`spawn`'s) and return the device
+    the rank computes on. ``device`` a CPU device: a CPU rank. Otherwise
+    (``None`` included) a CUDA rank, rank r on card r mod the card count:
+    its own card when there are enough, else sharing. The backend is
     :meth:`Communicator.backend_for`'s."""
     if device is not None and torch.device(device).type == "cpu":
         dev = torch.device("cpu")
@@ -367,16 +360,19 @@ def init_rank(rank: int, world_size: int, init_method: str,
         require_cuda()
         dev = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(dev)
+    timeout = timedelta(seconds=TIMEOUT_S)
+    store = dist.TCPStore("127.0.0.1", port, is_master=False,
+                          timeout=timeout)
     dist.init_process_group(Communicator.backend_for(world_size, dev),
-                            init_method=init_method, world_size=world_size,
-                            rank=rank, timeout=timedelta(seconds=TIMEOUT_S))
+                            store=store, world_size=world_size, rank=rank,
+                            timeout=timeout)
     return dev
 
 
-def _rank_main(rank, world_size, init_method, device, fn, inbox, results):
+def _rank_main(rank, world_size, port, device, fn, inbox, results):
     try:
         args = inbox.get(timeout=TIMEOUT_S)
-        dev = init_rank(rank, world_size, init_method, device)
+        dev = init_rank(rank, world_size, port, device)
         if dev.type == "cpu":
             torch.set_num_threads(1)
         results.put((rank, True, fn(dev, *args)))
@@ -390,17 +386,25 @@ def _rank_main(rank, world_size, init_method, device, fn, inbox, results):
 def spawn(n: int, fn, *args, device=None) -> list:
     """Run ``fn(dev, *args)`` on ``n`` ranks and return the results by
     rank. Each rank is a process started by the ``spawn`` method (never
-    fork: the caller may have CUDA up) that joins a process group on
-    ``tcp://127.0.0.1:<free port>`` (:func:`init_rank`; ``device`` as
+    fork: the caller may have CUDA up) that joins a process group
+    through this process's store (:func:`init_rank`; ``device`` as
     there). ``fn`` must be a module-level function and return picklable
     values (numpy arrays, not tensors). A rank that raises, dies or
-    outlives TIMEOUT_S fails the call; the others are ended."""
+    outlives TIMEOUT_S fails the call; the others are ended.
+
+    The rendezvous is a ``TCPStore`` this process opens on port 0 before
+    any rank starts and keeps until they end: the port is bound from the
+    moment it is chosen, so no other socket on the host can take it while
+    the ranks import torch (a port found free, closed and bound again by
+    rank 0 seconds later could be)."""
     import multiprocessing as mp
     ctx = mp.get_context("spawn")
     inbox, results = ctx.Queue(), ctx.Queue()
-    init_method = f"tcp://127.0.0.1:{free_port()}"
+    store = dist.TCPStore("127.0.0.1", 0, is_master=True,
+                          wait_for_workers=False,
+                          timeout=timedelta(seconds=TIMEOUT_S))
     procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(r, n, init_method, device, fn, inbox,
+                         args=(r, n, store.port, device, fn, inbox,
                                results)) for r in range(n)]
     for p in procs:
         p.start()

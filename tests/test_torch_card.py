@@ -138,6 +138,92 @@ def test_bank_kernel_refuses_float32_operands(cuda_device):
         ck.bank_fused(z2, g2, ph, ph, n, p, d)
 
 
+# The CQPSK AGC kernel's gain against agc_scale's: float32 sums in
+# another order (chip_smoke.py's AGC_REL_TOL).
+AGC_REL = 2e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bank,s,t,wire,c", [
+    ("c4fm", 128, 240000, torch.bfloat16, 64),     # the C4FM bench
+    ("cqpsk", 256, 120000, torch.float32, 64),     # split2's halves
+    ("c4fm", 128, 240000, torch.bfloat16, 32),     # the dp x tp tile
+    ("c4fm", 3, 96 * 7, torch.bfloat16, 5),        # a block < K-1
+    ("cqpsk", 2, 48 * 33, torch.float32, 70)])     # two slot groups
+def test_operands_kernel_is_the_plain_version(cuda_device, bank, s, t, wire,
+                                              c):
+    """One launch of ``csrc/bank_operands.cu`` (``XlatBank.operands``)
+    against ``operands_plain`` from a random mid-stream state: z2 and the
+    phase step bit-identical, g2 bit-identical up to the sign of zero, the
+    wire bank's outputs on the two operand sets bit-identical."""
+    bank = (ControlPipeline.p25_c4fm(64, 2.4e6) if bank == "c4fm" else
+            CqpskControlPipeline.p25_cqpsk(64, 1.2e6)).bank
+    g = torch.Generator(device=cuda_device).manual_seed(s + c)
+    st = bank.init(s, cuda_device)._replace(
+        history=torch.randn((s, bank.ntaps - 1), dtype=torch.complex64,
+                            generator=g, device=cuda_device),
+        phase=torch.randint(0, 2 ** 32, (s, c), generator=g,
+                            device=cuda_device))
+    x2 = torch.randn((s, t, 2), generator=g, device=cuda_device).to(wire)
+    offs = (torch.rand((s, c), generator=g, device=cuda_device) - 0.5) * 0.9
+    before = ck.bank_operands.launches
+    z2, g2, step = bank.operands(st, x2, offs)
+    assert ck.bank_operands.launches == before + 1
+    pz2, pg2, pstep = bank.operands_plain(st, x2, offs)
+    assert torch.equal(z2.view(torch.int16), pz2.view(torch.int16))
+    diff = g2.view(torch.int16) != pg2.view(torch.int16)
+    assert torch.equal(g2, pg2) and bool((g2[diff] == 0).all())
+    assert torch.equal(step, pstep)
+    n = t // bank.decim
+    got = ck.bank_fused(z2, g2, st.phase, step, n, bank.p, bank.decim)
+    want = ck.bank_fused(pz2, pg2, st.phase, pstep, n, bank.p, bank.decim)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,n,c", [(3, 37, 5), (2, 100, 70),
+                                   (256, 2500, 64)])
+def test_agc_kernel_within_bound(cuda_device, s, n, c):
+    """``csrc/agc.cu`` against ``cqpsk.agc_scale`` on [S, N, C] planes
+    with a silent lane: every gain within AGC_REL, the silent one exactly
+    1/1e-9; the pipeline's wrapper launches the kernel once."""
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    y_re = torch.randn((s, n, c), generator=g, device=cuda_device)
+    y_im = torch.randn((s, n, c), generator=g, device=cuda_device)
+    y_re[0, :, 0] = 0.0
+    y_im[0, :, 0] = 0.0
+    before = cqk.agc_scale_kernel.launches
+    got = cqk.agc_scale_kernel(y_re, y_im)
+    assert cqk.agc_scale_kernel.launches == before + 1
+    want = CQ.agc_scale(y_re, y_im, dim=1)
+    assert got.shape == (s, c) and got.dtype == torch.float32
+    assert float(((got - want).abs() / want.abs()).max()) <= AGC_REL
+    assert float(got[0, 0]) == float(np.float32(1.0) / np.float32(1e-9))
+
+
+@pytest.mark.cuda
+def test_glue_kernels_refuse_what_they_cannot_take(cuda_device):
+    """On the card the two wrappers validate and never fall back: a wrong
+    dtype, a tensor on the CPU beside CUDA ones, or a mismatched plane
+    raises."""
+    bank = ControlPipeline.p25_c4fm(4, 2.4e6).bank
+    st = bank.init(2, cuda_device)
+    offs = torch.zeros((2, 4), device=cuda_device)
+    x2 = torch.zeros((2, 960, 2), device=cuda_device)
+    with pytest.raises(ValueError, match="x2 must be"):
+        bank.operands(st, x2.half(), offs)
+    with pytest.raises(ValueError, match="offsets_norm must be"):
+        bank.operands(st, x2, offs.cpu())
+    with pytest.raises(ValueError, match="history must be"):
+        ck.bank_operands(st.history.cpu(), x2, offs,
+                         bank.device_taps(cuda_device), bank.p, bank.decim)
+    y = torch.zeros((2, 10, 4), device=cuda_device)
+    with pytest.raises(ValueError, match="y_im must be"):
+        cqk.agc_scale_kernel(y, y.cpu())
+    with pytest.raises(ValueError, match="y_im must be"):
+        cqk.agc_scale_kernel(y, y.double())
+
+
 def _track_lanes(pipe, ctor, s, c, n, rng):
     """[S, n, C] complex64 modulated lanes at the channel rate: three
     streams of random symbols, each lane one of them at its own amplitude
