@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``radiocapture_tpu_torch``) on one CUDA
-card: builds the seven CUDA kernel files and drives the port's three
+card: builds the eight CUDA kernel files and drives the port's three
 paths, the scan slice, live SDR ingest and the mesh steps.
 
 1. P25 C4FM control: checks the bank and fsk tracker kernels against
@@ -37,7 +37,13 @@ paths, the scan slice, live SDR ingest and the mesh steps.
    glue's kernels (GLUE_KERNELS: the z2 ``cat``, the tap build's
    sin/cos/complex multiplies, the AGC's hypot/pow/mean).
    Then the ``pfb`` and ``fft`` frontend modes: a P25 grant through
-   ``ControlPipeline.p25_c4fm(64, 2.4e6, frontend=...)`` for each, the
+   ``ControlPipeline.p25_c4fm(64, 2.4e6, frontend=...)`` for each (pfb
+   launching ``pfb_rows`` once a step, as often as ``xlat_complex``), the
+   pfb combiner (``csrc/pfb_rows.cu``) against its eager plain version at
+   the bench shape on bf16 and float32 wires, complex64 at M = 8 and 16,
+   and a block shorter than (P-1)·M, every output and the new history
+   bit-identical, with eager / kernel / kernel / eager ms, its bytes
+   bound and a grouped ``conv1d`` yardstick (``pfb rows kernel:``); the
    pfb fine stage (``PfbXlatBank``: one K2 = 467-tap filter per slot on
    the complex bank kernel's general path, its narrow plan) against its
    plain version and timed at 8192 rows beside its bound and a grouped
@@ -45,7 +51,8 @@ paths, the scan slice, live SDR ingest and the mesh steps.
    replaced (``complex general turns: pfb fine``; every output must be
    bit-identical to ``tools/xlat_complex_54b2cf5.cu``'s), both modes'
    step at 128 sources (``bench pfb:``, ``bench fft:``; fft's block is
-   390336 samples, 162.6 ms), and
+   390336 samples, 162.6 ms; the pfb profile may run no ``cat``, no
+   ``addcmul_`` and no kernel P-1 times a step), and
    the step with ``fsk4_block = 10`` against the tracker kernel's
    (``fsk4 block:``) and a P25 grant through it (``decode fsk4
    block:``, no tracker kernel launched).
@@ -159,6 +166,12 @@ TILE_SLOTS = SLOTS // 2            # the dp x tp tile at world 2
 # device kernels the glue kernels replaced; no profiled step may run one
 GLUE_KERNELS = ("CatArrayBatchedCopy", "cos_kernel_cuda", "sin_kernel_cuda",
                 "MulFunctor<c10::complex", "hypot", "pow_tensor", "MeanOps")
+# the pfb combiner's eager chain (history ++ block, P-1 addcmul_ passes);
+# the pfb step's profile may run none of it, nor any kernel P-1 times
+PFB_GLUE = ("CatArrayBatchedCopy", "addcmul")
+# grouped conv1d yardstick of the pfb rows against the kernel's (cuDNN's
+# float32 sum order), × max|v|
+PFB_CONV_REL = 1e-4
 CQ_NOISE_AGREE = 0.99              # CQPSK tracker on noise: emit masks
 # first NOISE_SYM_N symbols within NOISE_SYM_ATOL on this share of the
 # noise lanes. No all-lane bound here: a differential phase near the ±4
@@ -301,11 +314,12 @@ def kernel_wrappers() -> dict:
     from radiocapture_tpu_torch.demod import track_kernel as tk
     from radiocapture_tpu_torch.ops import channelizer_kernel as ck
     from radiocapture_tpu_torch.ops import fm_kernel as fk
+    from radiocapture_tpu_torch.ops import pfb_kernel as pk
     return {"bank_operands": ck.bank_operands, "xlat_bank": ck.bank_fused,
             "fsk_track": tk.track, "xlat_complex": ck.bank_complex,
             "agc": cqk.agc_scale_kernel,
             "cqpsk_track": cqk.track_cqpsk, "fm_voice": fk.voice_track,
-            "fsk_track_stream": tk.track_stream}
+            "fsk_track_stream": tk.track_stream, "pfb_rows": pk.pfb_rows}
 
 
 def kernel_counts() -> dict:
@@ -526,12 +540,14 @@ def phase_decode(dev, pipe, what: str = "decode",
     return launches
 
 
-def profile_steps(step, what: str, forbid: tuple = ()) -> float:
+def profile_steps(step, what: str, forbid: tuple = (), most: int = 0
+                  ) -> float:
     """``torch.profiler`` over PROFILE_STEPS steady-state calls of
     ``step()``: logs the device kernels and copies by time per step (share
     of all device time). Fails if a device kernel's name holds one of
-    ``forbid``. Returns the device busy share: kernel time (copies
-    excluded) over wall time, profiler on."""
+    ``forbid``, or, with ``most``, if one runs ``most`` times a step or
+    more. Returns the device busy share: kernel time (copies excluded)
+    over wall time, profiler on."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -569,6 +585,13 @@ def profile_steps(step, what: str, forbid: tuple = ()) -> float:
             f"{list(forbid)}: {'ok' if not found else found}")
         if found:
             raise AssertionError(f"{what}: the step ran {found}")
+    if most:
+        many = [(e.key[:60], e.count / PROFILE_STEPS) for e in dev
+                if e.count >= most * PROFILE_STEPS]
+        log(f"profile: {what}: no device kernel {most} times a step or "
+            f"more: {'ok' if not many else many}")
+        if many:
+            raise AssertionError(f"{what}: the step ran {many}")
     return dev_ms / wall_ms
 
 
@@ -1707,7 +1730,8 @@ def phase_runtime_decode(dev, frontend: str = "xlat") -> dict:
         f"groups {sorted(str(k) for k in rt.groups)} in {dt:.3f} s; "
         f"launches {launches}")
     need = {"xlat": ("bank_operands", "xlat_bank"),
-            "pfb": ("xlat_complex",)}[frontend] + ("fsk_track", "fm_voice")
+            "pfb": ("pfb_rows", "xlat_complex")}[frontend] + ("fsk_track",
+                                                            "fm_voice")
     if min(launches[k] for k in need) < 1:
         raise AssertionError(f"a kernel of the path never ran: {launches}")
     return launches
@@ -1906,6 +1930,116 @@ def phase_pfb_fine(dev) -> tuple[dict, float]:
     return res, worst
 
 
+def pfb_rows_case(pfb, hist, x, what: str, timed: bool = False) -> dict:
+    """``pfb rows kernel:`` one case: ``pfb_rows`` (``csrc/pfb_rows.cu``)
+    against ``pfb_rows_plain`` on the card, v and the new history bit for
+    bit (fails otherwise). With ``timed``: eager, kernel, kernel, eager
+    ms, the bytes bound and the kernel's share of it, and the library
+    yardstick: one grouped ``conv1d`` (groups = M, reversed taps) over the
+    branch-major float32 rows of history ++ block, prepared outside the
+    timed region, its outputs within PFB_CONV_REL·max|v| of the kernel's."""
+    from radiocapture_tpu_torch.ops import pfb_kernel as pk
+    hp2 = pfb.device_hp2(x.device)
+    m, p = hp2.shape
+    s, t = x.shape[:2]
+    n = t // m
+    v, nh = pk.pfb_rows(hist, x, hp2)
+    pv, pnh = pk.pfb_rows_plain(hist, x, hp2)
+    same = int((torch.view_as_real(v).view(torch.int32)
+                == torch.view_as_real(pv).view(torch.int32)).all(-1).sum())
+    h_same = torch.equal(torch.view_as_real(nh).view(torch.int32),
+                         torch.view_as_real(pnh).view(torch.int32))
+    res = {"identical": same, "outputs": v.numel(),
+           "history_identical": h_same,
+           "max_abs_err": float((v - pv).abs().max()) if v.numel() else 0.0}
+    wire = str(x.dtype).split(".")[-1]
+    line = (f"pfb rows kernel: {what} S={s} T={t} {wire} M={m} P={p}: v "
+            f"{same} of {v.numel()} outputs bit-identical, new history "
+            f"identical {h_same}")
+    ok = same == v.numel() and h_same
+    if timed:
+        res.update(turns(lambda: pk.pfb_rows_plain(hist, x, hp2),
+                         lambda: pk.pfb_rows(hist, x, hp2), 20))
+        res["ms"] = float(np.mean(res["kernel_turns_ms"]))
+        res["plain_ms"] = float(np.mean(res["plain_turns_ms"]))
+        nbytes = tensor_bytes(hist, x, hp2, v, nh)
+        res["bound_ms"], res["bound_by"] = bound(
+            2.0 * 2 * s * n * m * p, F32_PEAK, nbytes)
+        res["share_of_bound"] = res["bound_ms"] / res["ms"]
+        # the yardstick: channel (s, re/im, m') is row m' of zr over time;
+        # conv1d correlates, so tap q sits at P-1-q
+        z = torch.view_as_real(torch.cat(
+            [hist, torch.view_as_complex(x.float().contiguous())], dim=1))
+        inp = z.view(s, n + p - 1, m, 2).permute(0, 3, 2, 1).reshape(
+            s * 2, m, n + p - 1).contiguous()
+        del z
+        w = hp2.flip(-1)[:, None, :].contiguous()
+        conv = torch.nn.functional.conv1d
+        res["library_ms"] = cuda_ms(lambda: conv(inp, w, groups=m), 10)
+        out = conv(inp, w, groups=m).view(s, 2, m, n)
+        want = torch.view_as_real(v.flip(-1)).permute(0, 3, 2, 1)
+        lib_err = float((out - want).abs().max())
+        scale = float(v.abs().max())
+        del inp, out
+        ok = ok and lib_err <= PFB_CONV_REL * scale
+        line += (f"; eager {res['plain_turns_ms'][0]:.4f}, kernel "
+                 f"{res['kernel_turns_ms'][0]:.4f}, "
+                 f"{res['kernel_turns_ms'][1]:.4f}, eager "
+                 f"{res['plain_turns_ms'][1]:.4f} ms: {res['speedup']:.2f}x; "
+                 f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}, "
+                 f"{nbytes} B), share {res['share_of_bound']:.3f}; library "
+                 f"(grouped conv1d, groups={m}) {res['library_ms']:.4f} ms, "
+                 f"within {lib_err:.3e} (tol {PFB_CONV_REL * scale:.3e})")
+    log(f"{line} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"pfb rows kernel: {what} disagrees")
+    return res
+
+
+def phase_pfb_rows(dev) -> dict:
+    """``pfb rows kernel:`` the pfb frontend's combiner at the shapes the
+    main path and the tests give it: the bench shape (128 sources × 240000
+    bf16 samples, M = 6, P = 24, a random mid-stream history) and the
+    runtime's float32 wire at the same shape, timed; complex64 blocks at
+    the CPU tests' M = 8 and M = 16 banks; and a 60-sample block (n = 10 <
+    P-1) after the bench block, from the kernel's own new history."""
+    from radiocapture_tpu_torch.ops.channelizer import PfbChannelizer
+    pfb = PfbChannelizer.for_rates(SAMP_RATE, 6, atten_db=80.0)
+    gen = torch.Generator(device=dev).manual_seed(8)
+
+    def cnormal(*shape):
+        return torch.view_as_complex(torch.randn(shape + (2,),
+                                                 generator=gen, device=dev))
+
+    s = BENCH_SOURCES
+    hist = cnormal(s, (pfb.p - 1) * pfb.num_channels)
+    x = torch.randn((s, BLOCK, 2), generator=gen, device=dev).to(
+        torch.bfloat16)
+    res = {"bf16": pfb_rows_case(pfb, hist, x, "bench", True),
+           "f32": pfb_rows_case(pfb, hist, x.float(), "runtime float32",
+                                True)}
+    for fs, m in ((800e3, 8), (1.6e6, 16)):
+        pm = PfbChannelizer.for_rates(fs, m)
+        res[f"m{m}"] = pfb_rows_case(pm, cnormal(4, (pm.p - 1) * m),
+                                     cnormal(4, m * 5000),
+                                     f"complex64 ({fs / 1e6:g} MS/s bank)")
+    after, _ = pfb.rows(pfb.init(s, dev)._replace(history=hist), x)
+    res["short"] = pfb_rows_case(pfb, after.history, x[:, :60].contiguous(),
+                                 "short block after the bench block")
+    res["max_abs_err"] = max(r["max_abs_err"] for r in res.values())
+    return res
+
+
+def pfb_launches_match(what: str, launches: dict) -> None:
+    """The pfb path's combiner ran once a pipeline step: as many
+    ``pfb_rows`` launches as fine-stage ``xlat_complex`` ones."""
+    ok = launches["pfb_rows"] == launches["xlat_complex"] > 0
+    log(f"{what}: pfb_rows {launches['pfb_rows']} launches, xlat_complex "
+        f"{launches['xlat_complex']}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: pfb_rows not once a step")
+
+
 def phase_frontend_bench(dev, frontend: str) -> dict:
     """``ControlPipeline.p25_c4fm(64, 2.4e6, frontend=...)`` at 128
     sources, bf16 wire blocks of ``frontend_block`` samples (fft: 390336,
@@ -1940,7 +2074,9 @@ def phase_frontend_bench(dev, frontend: str) -> dict:
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t0) * 1e3)
     lat.sort()
-    busy = profile_steps(one_step, f"c4fm {frontend}")
+    busy = (profile_steps(one_step, "c4fm pfb", PFB_GLUE,
+                          pipe.bank.pfb.p - 1) if frontend == "pfb" else
+            profile_steps(one_step, f"c4fm {frontend}"))
     med = float(np.median(win_ms))
     res = {"frontend": frontend, "sources": s, "slots": SLOTS, "block": blk,
            "block_ms": block_ms, "window_step_ms": win_ms,
@@ -3319,11 +3455,13 @@ def main() -> None:
     # fine stage on the complex bank's general path, both at 128 sources
     launches_pfb = phase_decode(
         dev, ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE, frontend="pfb"),
-        "decode pfb", ("xlat_complex", "fsk_track"))
+        "decode pfb", ("pfb_rows", "xlat_complex", "fsk_track"))
+    pfb_launches_match("decode pfb", launches_pfb)
     launches_fft = phase_decode(
         dev, ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE, frontend="fft"),
         "decode fft", ("fsk_track",))
     res_fine, fine_err = phase_pfb_fine(dev)
+    pfb_rows = phase_pfb_rows(dev)
     res_fe = {fe: phase_frontend_bench(dev, fe) for fe in ("pfb", "fft")}
 
     sp = SpectrumSplit2(SAMP_RATE)
@@ -3340,6 +3478,7 @@ def main() -> None:
     voice_err, res3 = phase_voice_kernel(dev)
     launches3 = phase_runtime_decode(dev)
     launches_rt_pfb = phase_runtime_decode(dev, "pfb")
+    pfb_launches_match("runtime decode pfb", launches_rt_pfb)
     phase_runtime_bench(dev)
     rt_pfb = phase_runtime_bench(dev, "pfb")
     log("frontends: " + json.dumps({
@@ -3349,6 +3488,8 @@ def main() -> None:
         "fft_block_ms": res_fe["fft"]["block_ms"],
         "fsk4_block10_step_ms": res_block["step_ms_block10"],
         "fsk4_exact_step_ms": res_block["step_ms_block0"],
+        "pfb_rows_ms": pfb_rows["bf16"]["ms"],
+        "pfb_rows_f32_ms": pfb_rows["f32"]["ms"],
         "runtime_pfb_p50_ms": rt_pfb["step_p50_ms"],
         "runtime_pfb_p95_ms": rt_pfb["step_p95_ms"],
         "launches": {"decode_pfb": launches_pfb, "decode_fft": launches_fft,
@@ -3421,6 +3562,18 @@ def main() -> None:
          "plain_ms": res2["agc_plain_ms"], "bound_ms": res2["agc_bound_ms"],
          "bound_by": res2["agc_bound_by"],
          "library_ms": res2["agc_library_ms"]},
+        {"name": "pfb_rows", "route": "cuda",
+         "source": "radiocapture_tpu_torch/csrc/pfb_rows.cu",
+         "replaces": "radiocapture_tpu/ops/channelizer.py:276",
+         "replaces_what": "XLA fusion of PfbChannelizer.__call__'s "
+                          "combiner (:276-290), not a Pallas kernel",
+         "launches": launches_pfb["pfb_rows"],
+         "max_abs_err": pfb_rows["max_abs_err"],
+         **{k: pfb_rows["bf16"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")},
+         **{f"{shape}_{k}": v for shape, r in pfb_rows.items()
+            if isinstance(r, dict) for k, v in r.items()},
+         "runtime_launches": launches_rt_pfb["pfb_rows"]},
         {"name": "xlat_bank", "route": "cuda",
          "source": "radiocapture_tpu_torch/csrc/xlat_bank.cu",
          "replaces": "radiocapture_tpu/ops/pallas_channelizer.py:201",

@@ -68,6 +68,8 @@ _SIGNATURES = {
     "bank_operands_launch": (_P,) * 7 + (_I,) * 8 + (_P,),
     # y_re, y_im, scale, S, N, C, stream
     "agc_launch": (_P,) * 3 + (_I,) * 3 + (_P,),
+    # hist, x, hp2, v, new_hist, S, T, M, P, x_bf16, stream
+    "pfb_rows_launch": (_P,) * 5 + (_I,) * 5 + (_P,),
 }
 
 

@@ -12,8 +12,9 @@ blocks) goes through the float32 complex bank (kernel
 JAX ``__call__`` does.
 
 Also the ``pfb`` frontend mode: ``PfbChannelizer`` (the coarse polyphase
-FFT channelizer) and ``PfbXlatBank`` (its bins, then a fine xlat filter
-per slot on the complex bank kernel).
+FFT channelizer, its combiner the kernel ``csrc/pfb_rows.cu``) and
+``PfbXlatBank`` (its bins, then a fine xlat filter per slot on the
+complex bank kernel).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from radiocapture_tpu_torch.ops.channelizer_kernel import (
     bank_complex, bank_fused, bank_operands, bank_operands_plain, tap_matrix,
     wire_z2)
 from radiocapture_tpu_torch.ops.fir import U32_MASK, XlatState, phase_step_u32
+from radiocapture_tpu_torch.ops.pfb_kernel import pfb_rows
 
 
 class XlatBankState(NamedTuple):
@@ -300,38 +302,35 @@ class PfbChannelizer:
             (n_sources, (self.p - 1) * self.num_channels),
             dtype=torch.complex64, device=device))
 
+    def device_hp2(self, device) -> torch.Tensor:
+        """The reversed-row polyphase taps [M, P] float32 on ``device``,
+        copied there once (``device_const``)."""
+        return device_const(self._consts, "hp2", self.hp2, device)
+
     def rows(self, state: PfbState, x: torch.Tensor
              ) -> tuple[PfbState, torch.Tensor]:
-        """x [S, T] complex64, T % M == 0 → (state, channels time-major
-        [S, T//M, M] complex64).
+        """x [S, T] complex64 or an [S, T, 2] bf16/float32 wire block,
+        T % M == 0 → (state, channels time-major [S, T//M, M] complex64).
 
-        The polyphase combiner accumulates the P shifted row views of
-        history ++ block (rows of M samples) in float32, one in-place
-        multiply-add each; the [N, P, M] window stack the JAX einsum reads
-        is never built (at 128 sources × 100 ms of 2.4 MS/s it would be
-        5.9 GB). Then one M-point inverse FFT per row (cuFFT on CUDA)."""
-        m, p = self.num_channels, self.p
-        s, t = x.shape
+        The polyphase combiner is ``pfb_rows``: on CUDA one launch of
+        ``csrc/pfb_rows.cu``, which reads the block and the history where
+        they lie and writes the flipped branch rows and the new history; on
+        CPU its plain version. Then one M-point inverse FFT per row (cuFFT
+        on CUDA) and the per-channel rotation."""
+        m = self.num_channels
+        t = x.shape[1]
         if t % m:
             raise ValueError(f"block {t} is not a multiple of M={m}")
-        n = t // m
-        z = torch.cat([state.history, x.to(torch.complex64)], dim=1)
-        zr = torch.view_as_real(z).view(s, n + p - 1, m, 2)
-        hp2 = device_const(self._consts, "hp2", self.hp2, x.device)[..., None]
-        # v'[t, m'] = Σ_q hp2[m', q] · zr[t + P-1-q, m']
-        acc = zr[:, p - 1:p - 1 + n] * hp2[:, 0]
-        for q in range(1, p):
-            acc.addcmul_(zr[:, p - 1 - q:p - 1 - q + n], hp2[:, q])
-        v = torch.view_as_complex(acc.contiguous()).flip(-1)  # undo the flip
+        v, hist = pfb_rows(state.history, x, self.device_hp2(x.device))
         # the branch combiner is an IDFT: y[n, c] = Σ_m v[n, m] e^{+j2πcm/M}
         y = torch.fft.ifft(v, dim=-1, norm="forward") * device_const(
             self._consts, "rot", self.rot, x.device)
-        hist = z[:, z.shape[1] - (p - 1) * m:].contiguous()
         return PfbState(history=hist), y
 
     def __call__(self, state: PfbState, x: torch.Tensor
                  ) -> tuple[PfbState, torch.Tensor]:
-        """x [S, T] complex64, T % M == 0 → channels [S, M, T//M]."""
+        """x [S, T] complex64 (or an [S, T, 2] wire block), T % M == 0 →
+        channels [S, M, T//M]."""
         state, y = self.rows(state, x)
         return state, y.transpose(1, 2)
 
@@ -411,7 +410,7 @@ class PfbXlatBank:
         operands, each slot a one-slot source: (PFB state, x [S·C, T/M, 2]
         float32 its bin's samples, history [S·C, K2-1], grev [S·C, 1, K2],
         phase0 and step [S·C, 1])."""
-        ps, rows = self.pfb.rows(state.pfb, as_complex(x))  # [S, T/M, M]
+        ps, rows = self.pfb.rows(state.pfb, x)        # [S, T/M, M]
         bins, fine = self.route(offsets_norm)
         s, c = bins.shape
         src = torch.arange(s, device=rows.device)[:, None]

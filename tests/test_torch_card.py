@@ -26,6 +26,7 @@ from radiocapture_tpu_torch.ops import channelizer as TCH
 from radiocapture_tpu_torch.ops import channelizer_kernel as ck
 from radiocapture_tpu_torch.ops import fm
 from radiocapture_tpu_torch.ops import fm_kernel as fk
+from radiocapture_tpu_torch.ops import pfb_kernel as pk
 from radiocapture_tpu_torch.ops.fir import phase_step_u32
 from radiocapture_tpu_torch.runtime import FileSource, SiteRuntime, _tree_map
 from radiocapture_tpu_torch.rxconfig import (RcConfig, SourceConfig,
@@ -901,10 +902,11 @@ def check_card_against_cpu(dev0, frontend, fs, fsk4_block=0):
     outs, chans = [], []
     for dev in (dev0, torch.device("cpu")):
         st = pipe.bank.init(1, dev)
-        before = ck.bank_complex.launches
+        before = ck.bank_complex.launches, pk.pfb_rows.launches
         _, y = pipe.bank(st, x[:, :bm].to(dev), offs.to(dev))
         if frontend == "pfb" and dev.type == "cuda":
-            assert ck.bank_complex.launches == before + 1
+            assert (ck.bank_complex.launches,
+                    pk.pfb_rows.launches) == (before[0] + 1, before[1] + 1)
         chans.append(y.cpu())
         st = pipe.init(1, dev)
         got = []
@@ -928,6 +930,56 @@ def check_card_against_cpu(dev0, frontend, fs, fsk4_block=0):
     g = [streams.grants(o[2][0, 2][o[1][0, 2].bool()].numpy()) for o in outs]
     assert g[0] == g[1] and len(g[0]) >= 2, g
     assert all(x in expected for x in g[0])
+
+
+# ---- the pfb frontend's combiner: csrc/pfb_rows.cu
+
+def _pfb_rows_inputs(dev, case):
+    """(bank, history, block) of a ``test_pfb_rows_kernel_matches_plain``
+    case: the bench shape on a bf16 or float32 wire, complex64 at the CPU
+    tests' M = 8 / M = 16 banks, or 60 samples after a bench block."""
+    rng = np.random.default_rng(len(case))
+    m, fs, atten = {"m8": (8, 800e3, 60.0), "m16": (16, 1.6e6, 60.0)}.get(
+        case, (6, 2.4e6, 80.0))
+    pfb = TCH.PfbChannelizer.for_rates(fs, m, atten_db=atten)
+    s = 4 if case in ("m8", "m16") else 128
+    hist = torch.as_tensor(_complex_normal(rng, (s, (pfb.p - 1) * m)),
+                           device=dev)
+    if case in ("m8", "m16"):
+        return pfb, hist, torch.as_tensor(_complex_normal(rng, (s, m * 5000)),
+                                          device=dev)
+    x = torch.as_tensor(rng.standard_normal((s, 240000, 2)).astype(
+        np.float32), device=dev)
+    if case != "bench_f32":
+        x = x.to(torch.bfloat16)
+    if case == "short":
+        hist = pfb.rows(TCH.PfbState(history=hist), x)[0].history
+        x = x[:, :60].contiguous()
+    return pfb, hist, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["bench_bf16", "bench_f32", "m8", "m16",
+                                  "short"])
+def test_pfb_rows_kernel_matches_plain(cuda_device, case):
+    """The pfb combiner's kernel against ``pfb_rows_plain`` on the card,
+    one launch: the bench shape (128 × 240000 samples, M = 6, P = 24) on
+    bf16 and float32 wires, complex64 blocks at M = 8 and 16, and a
+    60-sample block (n = 10 < P-1) after a bench block. The rows and the
+    new history are bit-identical: the kernel keeps the eager chain's
+    order and its fma."""
+    pfb, hist, x = _pfb_rows_inputs(cuda_device, case)
+    hp2 = pfb.device_hp2(cuda_device)
+    before = pk.pfb_rows.launches
+    v, nh = pk.pfb_rows(hist, x, hp2)
+    assert pk.pfb_rows.launches == before + 1
+    pv, pnh = pk.pfb_rows_plain(hist, x, hp2)
+    assert v.shape == (x.shape[0], x.shape[1] // pfb.num_channels,
+                       pfb.num_channels)
+    assert torch.equal(torch.view_as_real(v).view(torch.int32),
+                       torch.view_as_real(pv).view(torch.int32))
+    assert torch.equal(torch.view_as_real(nh).view(torch.int32),
+                       torch.view_as_real(pnh).view(torch.int32))
 
 
 # ---- the scan slice: scan/, tools/file_to_wav.py on the card
