@@ -45,14 +45,19 @@ paths, the scan slice, live SDR ingest and the mesh steps.
    bit-identical, with eager / kernel / kernel / eager ms, its bytes
    bound and a grouped ``conv1d`` yardstick (``pfb rows kernel:``); the
    pfb fine stage (``PfbXlatBank``: one K2 = 467-tap filter per slot on
-   the complex bank kernel's general path, its narrow plan) against its
-   plain version and timed at 8192 rows beside its bound and a grouped
-   ``conv1d`` (``pfb fine bank:``) and in turns with the general path it
-   replaced (``complex general turns: pfb fine``; every output must be
-   bit-identical to ``tools/xlat_complex_54b2cf5.cu``'s), both modes'
-   step at 128 sources (``bench pfb:``, ``bench fft:``; fft's block is
-   390336 samples, 162.6 ms; the pfb profile may run no ``cat``, no
-   ``addcmul_`` and no kernel P-1 times a step), and
+   the complex bank kernel's general path, its narrow plan, each row
+   reading its slot's bin in place from the bin-major bins through a row
+   index) against its plain version on the gathered rows, with the bins
+   bit-identical to the time-major rows transposed (``pfb bins:``), timed
+   at 8192 rows beside its bound and a grouped ``conv1d`` (``pfb fine
+   bank:``), in turns with the gathered form the step ran before
+   (``pfb fine turns:``; every output and the new fine history must be
+   bit-identical) and with the general path it replaced (``complex
+   general turns: pfb fine``; every output must be bit-identical to
+   ``tools/xlat_complex_54b2cf5.cu``'s), both modes' step at 128 sources
+   (``bench pfb:``, ``bench fft:``; fft's block is 390336 samples,
+   162.6 ms; the pfb profile may run no ``cat``, no ``addcmul_``, no
+   gather and no kernel P-1 times a step), and
    the step with ``fsk4_block = 10`` against the tracker kernel's
    (``fsk4 block:``) and a P25 grant through it (``decode fsk4
    block:``, no tracker kernel launched).
@@ -166,9 +171,10 @@ TILE_SLOTS = SLOTS // 2            # the dp x tp tile at world 2
 # device kernels the glue kernels replaced; no profiled step may run one
 GLUE_KERNELS = ("CatArrayBatchedCopy", "cos_kernel_cuda", "sin_kernel_cuda",
                 "MulFunctor<c10::complex", "hypot", "pow_tensor", "MeanOps")
-# the pfb combiner's eager chain (history ++ block, P-1 addcmul_ passes);
-# the pfb step's profile may run none of it, nor any kernel P-1 times
-PFB_GLUE = ("CatArrayBatchedCopy", "addcmul")
+# the pfb combiner's eager chain (history ++ block, P-1 addcmul_ passes)
+# and the fine stage's bin gather (advanced indexing); the pfb step's
+# profile may run none of them, nor any kernel P-1 times
+PFB_GLUE = ("CatArrayBatchedCopy", "addcmul", "gpu_index_kernel")
 # grouped conv1d yardstick of the pfb rows against the kernel's (cuDNN's
 # float32 sum order), × max|v|
 PFB_CONV_REL = 1e-4
@@ -1033,14 +1039,16 @@ def check_complex_bank(got, want, what: str) -> float:
     return err
 
 
-def general_turns(what: str, x, hist, grev, phase0, step, d) -> dict:
+def general_turns(what: str, x, hist, grev, phase0, step, d,
+                  rows=None) -> dict:
     """``complex general turns:``: the general path in turns with the one
     it replaced (``tools/xlat_complex_54b2cf5.cu``, the same loop) on the
-    same complex64 values, old, new, new, old; fails unless every output
-    is bit-identical."""
+    same complex64 values (with ``rows``, the package's through the row
+    index, the other's on the gathered rows), old, new, new, old; fails
+    unless every output is bit-identical."""
     from radiocapture_tpu_torch.tools import track_turns
     t = track_turns.complex_turns(track_turns.EARLIER_COMPLEX, x, hist,
-                                  grev, phase0, step, d, iters=3,
+                                  grev, phase0, step, d, rows, iters=3,
                                   pairings=("kernel",))
     old = Path(t["other"]).name
     res = {"shape": t["shape"], "other_ms": t["kernel_other_ms"],
@@ -1828,29 +1836,111 @@ def phase_runtime_bench(dev, frontend: str = "xlat") -> dict:
     return res
 
 
+def pfb_bins_check(pfb, state, x) -> dict:
+    """``pfb bins:`` ``PfbChannelizer.bins`` (the rotation multiply writing
+    bin-major) against ``rows``' time-major channels transposed, every
+    value bit-identical (fails otherwise), and the two in turns (rows,
+    bins, bins, rows): the same combiner and IDFT, so the difference is
+    the multiply's layout."""
+    from radiocapture_tpu_torch.tools.track_turns import identical_outputs
+    _, yr = pfb.rows(state, x)
+    _, yb = pfb.bins(state, x)
+    same = identical_outputs(yb, yr.transpose(1, 2))
+    res = {"identical": same, "values": yb.numel(),
+           "contiguous": yb.is_contiguous(),
+           **turns(lambda: pfb.rows(state, x), lambda: pfb.bins(state, x),
+                   10)}
+    ok = same == yb.numel() and res["contiguous"]
+    log(f"pfb bins: {tuple(yb.shape)} bin-major, {same} of {yb.numel()} "
+        f"values bit-identical to rows' (ifft * rot) transposed; rows "
+        f"{res['plain_turns_ms'][0]:.4f}, bins {res['kernel_turns_ms'][0]:.4f}"
+        f", {res['kernel_turns_ms'][1]:.4f}, rows "
+        f"{res['plain_turns_ms'][1]:.4f} ms {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("pfb bins: the bin-major bins differ")
+    return res
+
+
+def pfb_fine_turns(xb, rows, hist, grev, phase0, step, d) -> dict:
+    """``pfb fine turns:`` the fine stage as the step ran it before the row
+    index (the bins gathered into an [S·C, T/M, 2] block, the kernel on
+    it, the new history from it) in turns with the step's in-place form
+    (the kernel through the row index, ``row_history``): gathered, in
+    place, in place, gathered; fails unless every output and every new
+    fine history sample are bit-identical."""
+    from radiocapture_tpu_torch.ops import channelizer as chz
+    from radiocapture_tpu_torch.ops import channelizer_kernel as ck
+    from radiocapture_tpu_torch.tools.track_turns import identical_outputs
+
+    def gathered():
+        xg = xb[rows]
+        return (ck.bank_complex(xg, hist, grev, phase0, step, d),
+                chz.complex_history(hist, xg))
+
+    def in_place():
+        return (ck.bank_complex(xb, hist, grev, phase0, step, d, rows),
+                chz.row_history(hist, xb, rows))
+
+    res = turns(gathered, in_place, 5)
+    # the kernel alone on the gathered rows: what the row index's reads
+    # cost against contiguous rows, apart from the gather
+    xg = xb[rows]
+    res["gathered_kernel_ms"] = cuda_ms(
+        lambda: ck.bank_complex(xg, hist, grev, phase0, step, d), 5)
+    del xg
+    (yg, hg), (yi, hi) = gathered(), in_place()
+    res.update({"identical_outputs": identical_outputs(yi, yg),
+                "outputs": yi.numel(),
+                "identical_history": identical_outputs(hi, hg),
+                "history": hi.numel()})
+    ok = (res["identical_outputs"] == res["outputs"]
+          and res["identical_history"] == res["history"])
+    log(f"pfb fine turns: {rows.numel()} rows over {xb.shape[0]} bin rows: "
+        f"gathered {res['plain_turns_ms'][0]:.4f}, in place "
+        f"{res['kernel_turns_ms'][0]:.4f}, {res['kernel_turns_ms'][1]:.4f}, "
+        f"gathered {res['plain_turns_ms'][1]:.4f} ms ({res['speedup']:.2f}x), "
+        f"the kernel alone on the gathered rows "
+        f"{res['gathered_kernel_ms']:.4f} ms; "
+        f"bit-identical outputs {res['identical_outputs']} of "
+        f"{res['outputs']}, new fine history {res['identical_history']} of "
+        f"{res['history']} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("pfb fine turns: the in-place fine stage "
+                             "differs from the gathered one")
+    return res
+
+
 def phase_pfb_fine(dev) -> tuple[dict, float]:
     """The pfb frontend's fine stage on the complex bank kernel's general
-    path (one slot per row, K2 = 467 taps, D = 16): small and ragged
-    cases against the plain version; then the operands a bench-shape
-    step gives (128 sources × 64 slots = 8192 rows × 40000 bin samples
-    of a 100 ms block, ``PfbXlatBank.fine_operands`` from a mid-stream
-    state): the kernel on all of them, held to the plain version on the
-    first PFB_ROWS rows (all 8192 would need a 77 GB window matrix), its
-    ms, bound and the library yardstick, one grouped ``conv1d`` (groups =
-    8192, no rotation) over the same rows and taps. Returns (numbers,
-    max |err|)."""
+    path (one slot per row, K2 = 467 taps, D = 16), each row reading its
+    slot's bin in place through the row index: small and ragged cases
+    (the index permuted and repeated) against the plain version on the
+    gathered rows and bit for bit against the kernel on them; then at a
+    bench-shape step (128 sources × 64 slots = 8192 rows over 768 bin
+    rows of 40000 samples, a 100 ms block, ``PfbXlatBank.fine_operands``
+    from a mid-stream state): the bins (``pfb_bins_check``), the kernel
+    on all rows held to the plain version on the first PFB_ROWS (all 8192
+    would need a 77 GB window matrix), its ms, bound and the library
+    yardstick, one grouped ``conv1d`` (groups = 8192, no rotation) over
+    the gathered rows and taps; the gathered form in turns
+    (``pfb_fine_turns``) and the kernel the general path replaced in turns
+    (``general_turns``).
+    Returns (numbers, max |err|)."""
     from radiocapture_tpu_torch.frontend.pipeline import ControlPipeline
     from radiocapture_tpu_torch.ops import channelizer as chz
     from radiocapture_tpu_torch.ops import channelizer_kernel as ck
     from radiocapture_tpu_torch.ops.fir import phase_step_u32
+    from radiocapture_tpu_torch.tools.track_turns import identical_outputs
     bank = ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE, frontend="pfb").bank
     k, d = bank.ntaps2, bank.decim2
     taps = torch.as_tensor(bank.fine_taps, device=dev)
     rng = np.random.default_rng(12)
     worst = 0.0
-    for s, n in ((3, 37), (5, 1001), (PFB_ROWS, BLOCK // bank.decim)):
-        x = torch.as_tensor(rng.standard_normal((s, n * d, 2)).astype(
+    for s, r, n in ((3, 2, 37), (5, 4, 1001),
+                    (PFB_ROWS, 24, BLOCK // bank.decim)):
+        x = torch.as_tensor(rng.standard_normal((r, n * d, 2)).astype(
             np.float32), device=dev)
+        rows = torch.as_tensor(rng.integers(0, r, s), device=dev)
         hist = torch.as_tensor((rng.standard_normal((s, k - 1))
                                 + 1j * rng.standard_normal((s, k - 1))
                                 ).astype(np.complex64), device=dev)
@@ -1860,11 +1950,16 @@ def phase_pfb_fine(dev) -> tuple[dict, float]:
         phase0 = torch.as_tensor(rng.integers(0, 2 ** 32, (s, 1)),
                                  dtype=torch.int64, device=dev)
         step = phase_step_u32(fine, d)
+        got = ck.bank_complex(x, hist, grev, phase0, step, d, rows)
+        gathered = ck.bank_complex(x[rows], hist, grev, phase0, step, d)
+        what = (f"pfb fine stage S'={s} over {r} rows N={n} K={k} D={d} C=1 "
+                f"float32, in place")
         worst = max(worst, check_complex_bank(
-            ck.bank_complex(x, hist, grev, phase0, step, d),
-            ck.bank_complex_plain(ck.complex_z(x, hist), grev, phase0, step,
-                                  n, d),
-            f"pfb fine stage S'={s} N={n} K={k} D={d} C=1 float32 rows"))
+            got, ck.bank_complex_plain(ck.complex_z(x[rows], hist), grev,
+                                       phase0, step, n, d), what))
+        if identical_outputs(got, gathered) != got.numel():
+            raise AssertionError(f"{what}: differs from the kernel on the "
+                                 f"gathered rows")
 
     s = BENCH_SOURCES
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -1874,41 +1969,46 @@ def phase_pfb_fine(dev) -> tuple[dict, float]:
     state = bank.init(s, dev)
     for _ in range(2):
         state, _ = bank(state, x, offs)
-    _, xf, hist, grev, phase0, step = bank.fine_operands(state, x, offs)
-    rows, n = xf.shape[0], xf.shape[1] // d
-    res = {"pfb_fine_ms": cuda_ms(
-        lambda: ck.bank_complex(xf, hist, grev, phase0, step, d), 5)}
-    y = ck.bank_complex(xf, hist, grev, phase0, step, d)
+    res = {"pfb_bins": pfb_bins_check(bank.pfb, state.pfb, x)}
+    _, xb, rows, hist, grev, phase0, step = bank.fine_operands(
+        state, x, offs)
+    nrows, n = rows.numel(), xb.shape[1] // d
+    res["pfb_fine_ms"] = cuda_ms(
+        lambda: ck.bank_complex(xb, hist, grev, phase0, step, d, rows), 5)
+    y = ck.bank_complex(xb, hist, grev, phase0, step, d, rows)
     sub = slice(0, PFB_ROWS)
+    xs = xb[rows[sub]]
     res["pfb_fine_plain_ms_rows"] = cuda_ms(lambda: ck.bank_complex_plain(
-        ck.complex_z(xf[sub], hist[sub]), grev[sub], phase0[sub], step[sub],
+        ck.complex_z(xs, hist[sub]), grev[sub], phase0[sub], step[sub],
         n, d), 3)
     worst = max(worst, check_complex_bank(
-        y[sub], ck.bank_complex_plain(ck.complex_z(xf[sub], hist[sub]),
+        y[sub], ck.bank_complex_plain(ck.complex_z(xs, hist[sub]),
                                       grev[sub], phase0[sub], step[sub], n,
                                       d),
-        f"pfb fine stage, bench operands, rows 0-{PFB_ROWS - 1} of {rows} "
-        f"N={n}"))
+        f"pfb fine stage, bench operands, rows 0-{PFB_ROWS - 1} of {nrows} "
+        f"N={n}, in place"))
     if not bool(torch.isfinite(torch.view_as_real(y)).all()):
         raise AssertionError("non-finite pfb fine-stage outputs")
-    flops = 8.0 * rows * n * k
+    flops = 8.0 * nrows * n * k
+    # the bins read once: 768 bin rows, each read by its slots
+    res["pfb_fine_bytes"] = tensor_bytes(xb, rows, hist, grev, phase0, step,
+                                         y)
     res["pfb_fine_bound_ms"], res["pfb_fine_bound_by"] = bound(
-        flops, F32_PEAK, tensor_bytes(xf, hist, grev, phase0, step, y))
-    res["pfb_fine_bytes"] = tensor_bytes(xf, hist, grev, phase0, step, y)
+        flops, F32_PEAK, res["pfb_fine_bytes"])
     # the yardstick: re/im as the two channels of each row's group,
     # weights [[g_re, -g_im], [g_im, g_re]] per row: the correlation
     # without the rotation, so |y| must match
-    z = torch.view_as_real(ck.complex_z(xf, hist))          # [S', L, 2]
-    inp = z.permute(0, 2, 1).reshape(1, 2 * rows, -1).contiguous()
+    z = torch.view_as_real(ck.complex_z(xb[rows], hist))    # [S', L, 2]
+    inp = z.permute(0, 2, 1).reshape(1, 2 * nrows, -1).contiguous()
     del z
     g = grev[:, 0]
     w = torch.stack([torch.stack([g.real, -g.imag], 1),
                      torch.stack([g.imag, g.real], 1)], 1).reshape(
-        2 * rows, 2, k)
+        2 * nrows, 2, k)
     conv = torch.nn.functional.conv1d
     res["pfb_fine_library_ms"] = cuda_ms(
-        lambda: conv(inp, w, stride=d, groups=rows), 3)
-    out = conv(inp, w, stride=d, groups=rows)[0].view(rows, 2, -1)[..., :n]
+        lambda: conv(inp, w, stride=d, groups=nrows), 3)
+    out = conv(inp, w, stride=d, groups=nrows)[0].view(nrows, 2, -1)[..., :n]
     del inp
     mag_err = float((torch.hypot(out[:, 0], out[:, 1])
                      - y[:, 0].abs()).abs().max())
@@ -1916,17 +2016,20 @@ def phase_pfb_fine(dev) -> tuple[dict, float]:
     if mag_err > 10 * COMPLEX_REL_TOL * scale:     # cuDNN picks its algorithm
         raise AssertionError(f"conv1d yardstick computes another function: "
                              f"|y| differs by {mag_err}")
-    log(f"pfb fine bank: {rows} rows (S={s} x C={SLOTS}) x N={n}, K={k}, "
-        f"D={d}: kernel {res['pfb_fine_ms']:.4f} ms, bound "
+    log(f"pfb fine bank: {nrows} rows (S={s} x C={SLOTS}) x N={n}, K={k}, "
+        f"D={d}, bins read in place ({xb.shape[0]} bin rows): kernel "
+        f"{res['pfb_fine_ms']:.4f} ms, bound "
         f"{res['pfb_fine_bound_ms']:.4f} ms ({res['pfb_fine_bound_by']}, "
         f"{flops:.4g} FLOP, {res['pfb_fine_bytes'] / 1e9:.3f} GB), share of "
         f"bound {res['pfb_fine_bound_ms'] / res['pfb_fine_ms']:.3f}; "
-        f"library (grouped conv1d, groups={rows}, no rotation) "
+        f"library (grouped conv1d, groups={nrows}, no rotation) "
         f"{res['pfb_fine_library_ms']:.4f} ms, |y| within {mag_err:.3e}; "
         f"plain on {PFB_ROWS} rows {res['pfb_fine_plain_ms_rows']:.3f} ms")
     del out, y
-    res["pfb_fine_turns"] = general_turns("pfb fine", xf, hist, grev, phase0,
-                                          step, d)
+    res["pfb_fine_in_place_turns"] = pfb_fine_turns(xb, rows, hist, grev,
+                                                    phase0, step, d)
+    res["pfb_fine_turns"] = general_turns("pfb fine", xb, hist, grev, phase0,
+                                          step, d, rows)
     return res, worst
 
 
@@ -3607,6 +3710,8 @@ def main() -> None:
          "pfb_fine_bound_by": res_fine["pfb_fine_bound_by"],
          "pfb_fine_library_ms": res_fine["pfb_fine_library_ms"],
          "pfb_fine_turns": res_fine["pfb_fine_turns"],
+         "pfb_fine_in_place_turns": res_fine["pfb_fine_in_place_turns"],
+         "pfb_bins": res_fine["pfb_bins"],
          "mesh_c4fm_launches": mesh["launches"]["xlat_complex"],
          "mesh_c4fm_max_abs_err": bench_mesh["complex_bank_err"],
          "mesh_c4fm_ms": mbank["ms"], "mesh_c4fm_plain_ms": mbank["plain_ms"],

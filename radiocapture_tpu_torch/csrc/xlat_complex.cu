@@ -65,6 +65,14 @@
 // row. Both are bound by float32 CUDA-core FMAs (8 FLOP per tap, output
 // and slot; no tensor cores, which would lose the bits). A span too
 // large for shared memory reads z straight from device memory.
+//
+// The general path can also take a row index xrow [S]: bank row s then
+// reads its samples from row xrow[s] of x = [R, T, 2], while its history,
+// taps, phase and outputs stay row s's. The pfb fine stage reads each
+// slot's bin in place this way (x the PFB's bin-major [S*M, T/M] bins,
+// xrow[s*C + c] = s*M + bin): one indirection in the staging address,
+// the same staged values, chains and rotation, so every output is the
+// output on the gathered block bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -362,6 +370,19 @@ __device__ __forceinline__ void fma4(float& ar, float& ai, float2 gv,
   ai = fmaf(gv.y, zv.x, ai);
 }
 
+// The samples of bank row s: row xrow[s] of x with a row index (kRows),
+// else row s. The offset is 64-bit: R*T passes 2^31 at wider shapes. The
+// choice is made at compile time: made at run time in one kernel, it
+// cost each plan 2-3% on an H100 (tools/complex_variants.py index_branch).
+template <bool kRows, typename In>
+__device__ __forceinline__ const In* x_row(const In* x, const long long* xrow,
+                                           int s, int T) {
+  if constexpr (kRows)
+    return x + __ldg(xrow + s) * T;
+  else
+    return x + (long long)s * T;
+}
+
 __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
@@ -406,9 +427,10 @@ __device__ __forceinline__ void stage_planes(float2* planes, int pitch,
   }
 }
 
-template <typename W>
+template <typename W, bool kRows>
 __global__ void __launch_bounds__(WIDE_WARPS * 32, 1)
 xlat_complex_wide(const typename W::T* __restrict__ x,
+                  const long long* __restrict__ xrow,
                   const float2* __restrict__ hist,
                   const float2* __restrict__ g,
                   const long long* __restrict__ phase0,
@@ -426,7 +448,7 @@ xlat_complex_wide(const typename W::T* __restrict__ x,
   float2* planes = reinterpret_cast<float2*>(smem);
   float2* tbuf = planes + plane_floats2(D, pitch);    // [2][cb][KC]
 
-  stage_planes<W>(planes, pitch, x + (long long)s * T,
+  stage_planes<W>(planes, pitch, x_row<kRows>(x, xrow, s, T),
                   hist + (long long)s * (K - 1), K, D, n0 * D,
                   (count - 1) * D + K);
   cp_async_commit();
@@ -520,9 +542,10 @@ xlat_complex_wide(const typename W::T* __restrict__ x,
   }
 }
 
-template <typename W>
+template <typename W, bool kRows>
 __global__ void __launch_bounds__(NARROW_WARPS * 32, NARROW_BLOCKS)
 xlat_complex_narrow(const typename W::T* __restrict__ x,
+                    const long long* __restrict__ xrow,
                     const float2* __restrict__ hist,
                     const float2* __restrict__ g,
                     const long long* __restrict__ phase0,
@@ -540,7 +563,7 @@ xlat_complex_narrow(const typename W::T* __restrict__ x,
   float2* planes = reinterpret_cast<float2*>(smem);
   float2* taps = planes + plane_floats2(D, pitch);   // [Q*D]: one slot's K
 
-  stage_planes<W>(planes, pitch, x + (long long)s * T,
+  stage_planes<W>(planes, pitch, x_row<kRows>(x, xrow, s, T),
                   hist + (long long)s * (K - 1), K, D, n0 * D,
                   (count - 1) * D + K);
   const int base = warp * 32 * R + lane * R;    // the lane's first output
@@ -635,9 +658,10 @@ __device__ __forceinline__ float2 z_at(const typename W::T* xs,
   return zi < K - 1 ? hs[zi] : W::cvt(xs[zi - (K - 1)]);
 }
 
-template <typename W>
+template <typename W, bool kRows>
 __global__ void __launch_bounds__(DIRECT_THREADS)
 xlat_complex_direct(const typename W::T* __restrict__ x,
+                    const long long* __restrict__ xrow,
                     const float2* __restrict__ hist,
                     const float2* __restrict__ g,
                     const long long* __restrict__ phase0,
@@ -647,7 +671,7 @@ xlat_complex_direct(const typename W::T* __restrict__ x,
   const int s = blockIdx.y;
   const int n0 = blockIdx.x * DIRECT_BM;
   const int rows = min(DIRECT_BM, N - n0);
-  const typename W::T* xs = x + (long long)s * T;
+  const typename W::T* xs = x_row<kRows>(x, xrow, s, T);
   const float2* hs = hist + (long long)s * (K - 1);
   const float2* gs = g + (long long)s * C * K;
   for (int idx = threadIdx.x; idx < rows * C; idx += DIRECT_THREADS) {
@@ -698,10 +722,11 @@ int launch_split2(const void* x, const void* hist, const void* g,
   return (int)cudaGetLastError();
 }
 
-template <typename W>
-int launch_general(const void* x, const void* hist, const void* g,
-                   const void* phase0, const void* step, void* y, int S,
-                   int T, int N, int K, int D, int C, cudaStream_t st) {
+template <typename W, bool kRows>
+int launch_general(const void* x, const void* xrow, const void* hist,
+                   const void* g, const void* phase0, const void* step,
+                   void* y, int S, int T, int N, int K, int D, int C,
+                   cudaStream_t st) {
   static int smem_max = 0;   // per process: one card
   if (smem_max == 0) {
     int dev, opt;
@@ -709,8 +734,8 @@ int launch_general(const void* x, const void* hist, const void* g,
     if (cudaError_t e = cudaDeviceGetAttribute(
             &opt, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev))
       return (int)e;
-    const void* kernels[] = {(const void*)xlat_complex_wide<W>,
-                             (const void*)xlat_complex_narrow<W>};
+    const void* kernels[] = {(const void*)xlat_complex_wide<W, kRows>,
+                             (const void*)xlat_complex_narrow<W, kRows>};
     for (const void* k : kernels)
       if (cudaError_t e = cudaFuncSetAttribute(
               k, cudaFuncAttributeMaxDynamicSharedMemorySize, opt))
@@ -718,6 +743,7 @@ int launch_general(const void* x, const void* hist, const void* g,
     smem_max = opt;
   }
   const auto* xt = (const typename W::T*)x;
+  const auto* xr = (const long long*)xrow;
   const auto* ht = (const float2*)hist;
   const auto* gt = (const float2*)g;
   const auto* p0 = (const long long*)phase0;
@@ -733,8 +759,8 @@ int launch_general(const void* x, const void* hist, const void* g,
           sizeof(float2) * (size_t)narrow_floats2(D, pitch, Q);
       if (smem > (size_t)smem_max) continue;
       const dim3 grid((N + nb - 1) / nb, S);
-      xlat_complex_narrow<W><<<grid, nw * 32, smem, st>>>(
-          xt, ht, gt, p0, sp, yt, T, N, K, C, pitch);
+      xlat_complex_narrow<W, kRows><<<grid, nw * 32, smem, st>>>(
+          xt, xr, ht, gt, p0, sp, yt, T, N, K, C, pitch);
       return (int)cudaGetLastError();
     }
   }
@@ -746,42 +772,49 @@ int launch_general(const void* x, const void* hist, const void* g,
     if (smem > (size_t)smem_max) continue;
     const dim3 grid((N + nb - 1) / nb,
                     (C + wc * WIDE_RC - 1) / (wc * WIDE_RC), S);
-    xlat_complex_wide<W><<<grid, wn * wc * 32, smem, st>>>(
-        xt, ht, gt, p0, sp, yt, T, N, K, D, C, wn, pitch);
+    xlat_complex_wide<W, kRows><<<grid, wn * wc * 32, smem, st>>>(
+        xt, xr, ht, gt, p0, sp, yt, T, N, K, D, C, wn, pitch);
     return (int)cudaGetLastError();
   }
   const dim3 grid((N + DIRECT_BM - 1) / DIRECT_BM, S);
-  xlat_complex_direct<W><<<grid, DIRECT_THREADS, 0, st>>>(
-      xt, ht, gt, p0, sp, yt, T, N, K, D, C);
+  xlat_complex_direct<W, kRows><<<grid, DIRECT_THREADS, 0, st>>>(
+      xt, xr, ht, gt, p0, sp, yt, T, N, K, D, C);
   return (int)cudaGetLastError();
 }
 
 template <typename W>
-int launch(const void* x, const void* hist, const void* g,
+int launch(const void* x, const void* xrow, const void* hist, const void* g,
            const void* phase0, const void* step, void* y, int S, int T,
            int N, int K, int D, int C, cudaStream_t st) {
-  if (K == FAST_P * FAST_D && D == FAST_D && C == FAST_C)
+  if (K == FAST_P * FAST_D && D == FAST_D && C == FAST_C) {
+    if (xrow) return (int)cudaErrorInvalidValue;   // split2 takes no index
     return launch_split2<W>(x, hist, g, phase0, step, y, S, T, N, st);
-  return launch_general<W>(x, hist, g, phase0, step, y, S, T, N, K, D, C,
-                           st);
+  }
+  if (xrow)
+    return launch_general<W, true>(x, xrow, hist, g, phase0, step, y, S, T,
+                                   N, K, D, C, st);
+  return launch_general<W, false>(x, xrow, hist, g, phase0, step, y, S, T, N,
+                                  K, D, C, st);
 }
 
 }  // namespace
 
-// x [S, T, 2] bf16 (x_bf16 = 1) or float32 wire; hist [S, K-1] and g
-// [S, C, K] complex64; phase0, step [S, C] int64; y [S, C, N] complex64.
-// Needs (N-1)*D + K <= K-1 + T, i.e. every window inside history ++ x.
-extern "C" int xlat_complex_launch(const void* x, const void* hist,
-                                   const void* g, const void* phase0,
-                                   const void* step, void* y, int S, int T,
-                                   int N, int K, int D, int C, int x_bf16,
-                                   void* stream) {
+// x [S, T, 2] bf16 (x_bf16 = 1) or float32 wire, or with xrow (null for
+// none; the general path only) [R, T, 2] and xrow [S] int64 rows of x in
+// [0, R); hist [S, K-1] and g [S, C, K] complex64; phase0, step [S, C]
+// int64; y [S, C, N] complex64. Needs (N-1)*D + K <= K-1 + T, i.e. every
+// window inside history ++ x.
+extern "C" int xlat_complex_launch(const void* x, const void* xrow,
+                                   const void* hist, const void* g,
+                                   const void* phase0, const void* step,
+                                   void* y, int S, int T, int N, int K, int D,
+                                   int C, int x_bf16, void* stream) {
   if (K <= 0 || D <= 0 || T < 0 || (N > 0 && (long long)(N - 1) * D + 1 > T))
     return (int)cudaErrorInvalidValue;
   if (S <= 0 || N <= 0 || C <= 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  return x_bf16 ? launch<Bf16Pair>(x, hist, g, phase0, step, y, S, T, N, K,
-                                   D, C, st)
-                : launch<F32Pair>(x, hist, g, phase0, step, y, S, T, N, K,
-                                  D, C, st);
+  return x_bf16 ? launch<Bf16Pair>(x, xrow, hist, g, phase0, step, y, S, T,
+                                   N, K, D, C, st)
+                : launch<F32Pair>(x, xrow, hist, g, phase0, step, y, S, T, N,
+                                  K, D, C, st);
 }

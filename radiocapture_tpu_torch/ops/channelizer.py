@@ -74,6 +74,22 @@ def complex_history(history: torch.Tensor, x2: torch.Tensor
     return torch.cat([history[:, t:], tail], dim=1)
 
 
+def row_history(history: torch.Tensor, x: torch.Tensor, rows: torch.Tensor
+                ) -> torch.Tensor:
+    """``complex_history(history, x[rows])`` without gathering x: history
+    [S', K-1] complex64, x [R, T, 2], rows [S'] int64 (``bank_complex``'s
+    row index). Only the last K-1 samples of each indexed row are
+    selected (``index_select``: one [S', K-1] copy); a block shorter than
+    K-1 keeps the history's own samples in front. Bit for bit
+    ``complex_history(history, x[rows])`` on every device."""
+    k1, t = history.shape[1], x.shape[1]
+    tail = torch.view_as_complex(torch.index_select(
+        x[:, max(t - k1, 0):], 0, rows).to(torch.float32).contiguous())
+    if t >= k1:
+        return tail
+    return torch.cat([history[:, t:], tail], dim=1)
+
+
 def modulated_taps(h: torch.Tensor, offsets_norm: torch.Tensor
                    ) -> torch.Tensor:
     """Per-slot modulated taps ``g[..., k] = h[k]·e^{j2πf·k}`` of the real
@@ -307,6 +323,20 @@ class PfbChannelizer:
         copied there once (``device_const``)."""
         return device_const(self._consts, "hp2", self.hp2, device)
 
+    def _idft(self, state: PfbState, x: torch.Tensor
+              ) -> tuple[PfbState, torch.Tensor, torch.Tensor]:
+        """The combiner and the IDFT of ``rows``: (state, the IDFT's
+        time-major [S, T//M, M] complex64, the rotation [M])."""
+        m = self.num_channels
+        if x.shape[1] % m:
+            raise ValueError(f"block {x.shape[1]} is not a multiple of "
+                             f"M={m}")
+        v, hist = pfb_rows(state.history, x, self.device_hp2(x.device))
+        # the branch combiner is an IDFT: y[n, c] = Σ_m v[n, m] e^{+j2πcm/M}
+        return (PfbState(history=hist),
+                torch.fft.ifft(v, dim=-1, norm="forward"),
+                device_const(self._consts, "rot", self.rot, x.device))
+
     def rows(self, state: PfbState, x: torch.Tensor
              ) -> tuple[PfbState, torch.Tensor]:
         """x [S, T] complex64 or an [S, T, 2] bf16/float32 wire block,
@@ -317,22 +347,33 @@ class PfbChannelizer:
         they lie and writes the flipped branch rows and the new history; on
         CPU its plain version. Then one M-point inverse FFT per row (cuFFT
         on CUDA) and the per-channel rotation."""
-        m = self.num_channels
-        t = x.shape[1]
-        if t % m:
-            raise ValueError(f"block {t} is not a multiple of M={m}")
-        v, hist = pfb_rows(state.history, x, self.device_hp2(x.device))
-        # the branch combiner is an IDFT: y[n, c] = Σ_m v[n, m] e^{+j2πcm/M}
-        y = torch.fft.ifft(v, dim=-1, norm="forward") * device_const(
-            self._consts, "rot", self.rot, x.device)
-        return PfbState(history=hist), y
+        state, f, rot = self._idft(state, x)
+        return state, f * rot
+
+    def bins(self, state: PfbState, x: torch.Tensor
+             ) -> tuple[PfbState, torch.Tensor]:
+        """``rows`` with the channels bin-major: (state, [S, M, T//M]
+        complex64, contiguous), the values of ``rows``' channels
+        transposed bit for bit. On CUDA the rotation multiply reads the
+        IDFT time-major and writes the bins bin-major, in the pass it
+        makes anyway; each bin is then a contiguous row that the fine
+        stage reads in place. On the CPU, whose vectorized and strided
+        complex multiplies round apart, the multiply runs time-major as in
+        ``rows`` and the product is copied bin-major."""
+        state, f, rot = self._idft(state, x)
+        s, n, m = f.shape
+        y = torch.empty((s, m, n), dtype=torch.complex64, device=f.device)
+        if f.device.type == "cpu":
+            y.copy_((f * rot).transpose(1, 2))
+        else:
+            torch.mul(f.transpose(1, 2), rot[:, None], out=y)
+        return state, y
 
     def __call__(self, state: PfbState, x: torch.Tensor
                  ) -> tuple[PfbState, torch.Tensor]:
         """x [S, T] complex64 (or an [S, T, 2] wire block), T % M == 0 →
-        channels [S, M, T//M]."""
-        state, y = self.rows(state, x)
-        return state, y.transpose(1, 2)
+        channels [S, M, T//M] (``bins``)."""
+        return self.bins(state, x)
 
     def channel_offset_hz(self, c: int, samp_rate: float) -> float:
         m = self.num_channels
@@ -355,13 +396,14 @@ class PfbXlatBank:
 
     The fine stage is the complex bank kernel (``bank_complex``,
     ``csrc/xlat_complex.cu``) with each slot as a one-slot source: S·C
-    rows of its bin's samples, one K2-tap filter each, decimating by
-    ``decim2``; one slot a row takes the kernel's narrow plan (a row's
-    taps held in shared memory, 3 consecutive outputs a lane). That is
-    what the JAX ``vmap(freq_xlating_fir)`` computes (ops/fir.py:117-143:
-    the same tap modulation, correlation order and uint32 ramp). The
-    bins are gathered into an [S·C, T/M] complex64 block first: 2.6 GB
-    per step at 128 sources × 64 slots × 100 ms of 2.4 MS/s."""
+    rows, one K2-tap filter each, decimating by ``decim2``; one slot a
+    row takes the kernel's narrow plan (a row's taps held in shared
+    memory, 3 consecutive outputs a lane). That is what the JAX
+    ``vmap(freq_xlating_fir)`` computes (ops/fir.py:117-143: the same tap
+    modulation, correlation order and uint32 ramp). Each row reads its
+    slot's bin in place from the PFB's bin-major bins by a row index, as
+    the JAX step's ``bins[chan]`` gather (channelizer.py:362) selects it;
+    no gathered [S·C, T/M] block is built."""
 
     def __init__(self, num_slots: int, samp_rate: float,
                  channel_rate: float, bin_rate: float = 400e3,
@@ -407,16 +449,18 @@ class PfbXlatBank:
     def fine_operands(self, state: PfbXlatBankState, x: torch.Tensor,
                       offsets_norm: torch.Tensor) -> tuple:
         """The coarse PFB step, then the fine stage's ``bank_complex``
-        operands, each slot a one-slot source: (PFB state, x [S·C, T/M, 2]
-        float32 its bin's samples, history [S·C, K2-1], grev [S·C, 1, K2],
-        phase0 and step [S·C, 1])."""
-        ps, rows = self.pfb.rows(state.pfb, x)        # [S, T/M, M]
-        bins, fine = self.route(offsets_norm)
-        s, c = bins.shape
-        src = torch.arange(s, device=rows.device)[:, None]
-        sel = rows.transpose(1, 2)[src, bins]                # [S, C, T/M]
-        h = device_const(self._consts, "taps", self.fine_taps, rows.device)
-        return (ps, torch.view_as_real(sel.reshape(s * c, -1)),
+        operands, each slot a one-slot source: (PFB state, the bins
+        [S·M, T/M, 2] float32, a view of ``PfbChannelizer.bins``, the row
+        index [S·C] int64 ``s·M + bin[s, c]``, history [S·C, K2-1], grev
+        [S·C, 1, K2], phase0 and step [S·C, 1])."""
+        ps, bins = self.pfb.bins(state.pfb, x)               # [S, M, T/M]
+        chan, fine = self.route(offsets_norm)
+        s, m, n = bins.shape
+        rows = (torch.arange(s, device=chan.device)[:, None] * m
+                + chan).reshape(-1)
+        h = device_const(self._consts, "taps", self.fine_taps, bins.device)
+        c = chan.shape[1]
+        return (ps, torch.view_as_real(bins).view(s * m, n, 2), rows,
                 state.fine.history.reshape(s * c, -1),
                 modulated_taps(h, fine.reshape(s * c, 1)),
                 state.fine.phase.reshape(s * c, 1),
@@ -428,12 +472,12 @@ class PfbXlatBank:
         """x [S, T] complex64 (or an [S, T, 2] wire block), T % decim ==
         0; offsets_norm [S, C] cycles/input sample → channels [S, C,
         T//decim] complex64."""
-        ps, xf, hist, grev, phase0, step = self.fine_operands(
+        ps, xb, rows, hist, grev, phase0, step = self.fine_operands(
             state, x, offsets_norm)
-        y = bank_complex(xf, hist, grev, phase0, step, self.decim2)
+        y = bank_complex(xb, hist, grev, phase0, step, self.decim2, rows)
         s, c = state.fine.phase.shape
         n = y.shape[-1]
-        fs = XlatState(history=complex_history(hist, xf).view(s, c, -1),
+        fs = XlatState(history=row_history(hist, xb, rows).view(s, c, -1),
                        phase=((phase0 + step * n) & U32_MASK).view(s, c))
         return PfbXlatBankState(pfb=ps, fine=fs), y.view(s, c, n)
 

@@ -18,6 +18,11 @@ Each variant rewrites a copy of the source (``a+b`` applies both):
 - ``sincos``: one ``sincosf`` per output and slot, not split2's two
   phasors per slot;
 - ``wide_unroll2``: the wide plan's loop over tap pairs unrolled by two;
+- ``index_branch``: the general plans' row address chosen at run time
+  (``xrow ? xrow[s] : s``) in every kernel, in place of the compile-time
+  choice between a kernel with the row index and one without: the same
+  outputs at ``--shape mesh`` (no index) and ``--shape pfb`` (the
+  index);
 - the general path's plans: ``wide_r=N`` outputs and ``wide_rc=N``
   slots per thread, ``wide_warps=N`` warps per block at most,
   ``wide_kc=N`` taps per staged chunk (the package's 4, 8, 8, 96);
@@ -38,11 +43,12 @@ and, wrong on purpose, to show what one part of the work costs:
 
 Every variant is built with the package's flags (all at once, one nvcc
 process each) into ``_build/variants/``; for each its ptxas line (the
-bf16 instance of the split2 kernel; at ``mesh`` the float32 wide kernel,
-at ``pfb`` the float32 narrow one), the count of outputs bit-identical
-to the package's, and its ms in ROUNDS rounds (the order reversed every
-other round, ITERS launches each timed by CUDA events). Prints the
-card's ``nvidia-smi`` name and power limit, then one JSON line.
+bf16 instance of the split2 kernel; at ``mesh`` the float32 wide kernel
+without a row index, at ``pfb`` the float32 narrow one with it), the
+count of outputs bit-identical to the package's, and its ms in ROUNDS
+rounds (the order reversed every other round, ITERS launches each timed
+by CUDA events). Prints the card's ``nvidia-smi`` name and power limit,
+then one JSON line.
 """
 
 from __future__ import annotations
@@ -91,6 +97,12 @@ EDITS = {
                   (TAPS_PER_TILE, TAPS_HELD)],
     "sincos": [("\n    if (two) {\n", "\n    if (false) {\n")],
     "fma1": [(FMA4, FMA1)],
+    "index_branch": [("  if constexpr (kRows)\n"
+                      "    return x + __ldg(xrow + s) * T;\n"
+                      "  else\n"
+                      "    return x + (long long)s * T;\n",
+                      "  return x + (xrow ? __ldg(xrow + s) : (long long)s)"
+                      " * T;\n")],
     "wide_unroll2": [("      for (; kk + 1 < kc; kk += 2) {\n",
                       "#pragma unroll 2\n"
                       "      for (; kk + 1 < kc; kk += 2) {\n")],
@@ -106,10 +118,12 @@ SIZED = {"r": "constexpr int R = {};",
          "narrow_r": "constexpr int NARROW_R = {};",
          "narrow_warps": "constexpr int NARROW_WARPS = {};",
          "narrow_blocks": "constexpr int NARROW_BLOCKS = {};"}
-# the kernel whose ptxas line a shape's run prints
+# the kernel whose ptxas line a shape's run prints: its name and the
+# mangled template arguments (the wire; the general plans' row index,
+# Lb1E with one, as at pfb, Lb0E without)
 PTXAS_OF = {"split2": ("xlat_complex_split2", "Bf16Pair"),
-            "mesh": ("xlat_complex_wide", "F32Pair"),
-            "pfb": ("xlat_complex_narrow", "F32Pair")}
+            "mesh": ("xlat_complex_wide", "F32PairELb0E"),
+            "pfb": ("xlat_complex_narrow", "F32PairELb1E")}
 
 
 def variant_source(src: str, name: str) -> str:
@@ -180,20 +194,21 @@ def main(argv: list[str]) -> None:
     if not argv or shape not in PTXAS_OF:
         raise SystemExit(__doc__)
     dev = require_cuda()
-    x, hist, grev, phase0, step, d = (
-        complex_bench_operands(dev) if shape == "split2"
+    x, hist, grev, phase0, step, d, rows = (
+        complex_bench_operands(dev) + (None,) if shape == "split2"
         else complex_general_operands(dev, shape))
     fns, ptxas = build(argv, shape)
     fns["package"] = kernels.load().xlat_complex_launch
-    s, t = x.shape[:2]
-    c, k = grev.shape[1:]
+    t = x.shape[1]
+    s, c, k = grev.shape
     n = t // d
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def run(name):
         y = torch.empty((s, c, n), dtype=torch.complex64, device=dev)
         kernels.check(fns[name](
-            x.data_ptr(), hist.data_ptr(), grev.data_ptr(), phase0.data_ptr(),
+            x.data_ptr(), None if rows is None else rows.data_ptr(),
+            hist.data_ptr(), grev.data_ptr(), phase0.data_ptr(),
             step.data_ptr(), y.data_ptr(), s, t, n, k, d, c,
             int(x.dtype == torch.bfloat16), stream),
             f"xlat_complex {name}")

@@ -52,8 +52,10 @@ takes the complex bank's general path instead, the kernels alone on the
 same complex64 values: the time-sharded mesh step's bank (128 sources ×
 64 slots × 2503 outputs, K = 1440, D = 96, a float32 block) or the pfb
 fine stage (8192 one-slot rows × 2500 outputs, K = 467, D = 16, from a
-mid-stream ``PfbXlatBank`` state); 54b2cf5's kernel is the general path
-the package's replaced, the same loop::
+mid-stream ``PfbXlatBank`` state; the package reads each row's bin in
+place through its row index, 54b2cf5's kernel the gathered rows);
+54b2cf5's kernel is the general path the package's replaced, the same
+loop::
 
     python3 -m radiocapture_tpu_torch.tools.track_turns --kernel \
         xlat_complex --shape pfb \
@@ -254,21 +256,24 @@ def identical_outputs(a: torch.Tensor, b: torch.Tensor) -> int:
 
 def complex_turns(src: Path, x: torch.Tensor, history: torch.Tensor,
                   grev: torch.Tensor, phase0: torch.Tensor,
-                  step: torch.Tensor, d: int, iters: int = ITERS,
+                  step: torch.Tensor, d: int,
+                  rows: torch.Tensor | None = None, iters: int = ITERS,
                   pairings: tuple = ("chain", "kernel")) -> dict:
     """The complex bank built from ``src`` (commit 54b2cf5's signature, one
     complex64 z) against the package's on the CUDA operands of one step:
-    the wire block x [S, T, 2] and the history [S, K-1]. In turns (other,
-    package, package, other), for each of ``pairings``: ``chain``, that
-    kernel's chain (x to float32, history ++ block, the other kernel)
-    against ``bank_complex`` on x in place; ``kernel``, the two kernels
-    alone on the same complex64 values (the other on z, the package on
-    the block's float32 view and the history). Counts the outputs that
-    are bit-identical in each pairing."""
+    the wire block x [S, T, 2] and the history [S, K-1], or with ``rows``
+    the block x [R, T, 2] that bank row s reads at row ``rows[s]``. In
+    turns (other, package, package, other), for each of ``pairings``:
+    ``chain``, that kernel's chain (x gathered by ``rows``, to float32,
+    history ++ block, the other kernel) against ``bank_complex`` on x in
+    place; ``kernel``, the two kernels alone on the same complex64 values
+    (the other on z, the package on the block's float32 view, or on x
+    through ``rows``, and the history). Counts the outputs that are
+    bit-identical in each pairing."""
     other = build_other(Path(src), "xlat_complex_launch",
                         COMPLEX_Z_SIGNATURE)
-    s, t = x.shape[:2]
-    c, k = grev.shape[1:]
+    t = x.shape[1]
+    s, c, k = grev.shape
     n = t // d
     stream = torch.cuda.current_stream(x.device).cuda_stream
 
@@ -279,16 +284,21 @@ def complex_turns(src: Path, x: torch.Tensor, history: torch.Tensor,
                             z.shape[1], stream), "xlat_complex")
         return y
 
-    z = ck.complex_z(x, history)
-    xz = torch.view_as_real(z[:, k - 1:].contiguous())   # z's block, f32
-    pairs = {"chain": (lambda: old_kernel(ck.complex_z(x, history)),
+    def gathered():
+        return x if rows is None else x[rows]
+
+    z = ck.complex_z(gathered(), history)
+    xz = (torch.view_as_real(z[:, k - 1:].contiguous()) if rows is None
+          else x)                                       # z's block, f32
+    pairs = {"chain": (lambda: old_kernel(ck.complex_z(gathered(), history)),
                        lambda: ck.bank_complex(x, history, grev, phase0,
-                                               step, d)),
+                                               step, d, rows)),
              "kernel": (lambda: old_kernel(z),
                         lambda: ck.bank_complex(xz, history, grev, phase0,
-                                                step, d))}
+                                                step, d, rows))}
     res = {"shape": [s, t, c, k, d], "wire": str(x.dtype).split(".")[-1],
-           "other": str(src), "outputs": s * c * n}
+           "other": str(src), "outputs": s * c * n,
+           "row_index": rows is not None}
     for name in pairings:
         old, new = pairs[name]
         ms = {"other": [], "package": []}
@@ -326,7 +336,8 @@ def complex_general_operands(dev, shape: str):
     sym-filter halo before it, a random-normal float32 block and history,
     random phases) or ``pfb``, the pfb fine stage's 8192 one-slot rows
     from ``PfbXlatBank.fine_operands`` after two steps of a random-normal
-    bf16 block. Returns (x, history, grev, phase0, step, D)."""
+    bf16 block: the 768 bin rows and the row index. Returns (x, history,
+    grev, phase0, step, D, rows), rows None at ``mesh``."""
     if shape == "pfb":
         bank = ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE, frontend="pfb").bank
         gen = torch.Generator(device=dev).manual_seed(3)
@@ -336,8 +347,9 @@ def complex_general_operands(dev, shape: str):
         state = bank.init(SOURCES, dev)
         for _ in range(2):
             state, _ = bank(state, x, offs)
-        _, xf, hist, grev, phase0, step = bank.fine_operands(state, x, offs)
-        return xf, hist, grev, phase0, step, bank.decim2
+        _, xb, rows, hist, grev, phase0, step = bank.fine_operands(
+            state, x, offs)
+        return xb, hist, grev, phase0, step, bank.decim2, rows
     if shape != "mesh":
         raise ValueError(f"unknown shape {shape!r}: mesh or pfb")
     pipe = ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE)
@@ -352,7 +364,7 @@ def complex_general_operands(dev, shape: str):
     phase0 = torch.randint(0, 2 ** 32, (SOURCES, SLOTS), generator=gen,
                            device=dev, dtype=torch.int64)
     return (x, hist, bank.modulated_taps(offs).contiguous(), phase0,
-            phase_step_u32(offs, d), d)
+            phase_step_u32(offs, d), d, None)
 
 
 def grid_offsets(n_sources: int, dev) -> torch.Tensor:

@@ -866,6 +866,158 @@ def test_pfb_fine_stage_kernel_matches_plain(cuda_device, s, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("s,r,n,k,d,c", [
+    (3, 2, 37, 467, 16, 1), (5, 4, 1001, 467, 16, 1), (2, 3, 5, 467, 16, 1),
+    (64, 24, 2500, 467, 16, 1), (4, 3, 613, 1440, 96, 40),
+    (2, 3, 64, 30000, 1, 1)])
+def test_complex_bank_row_index_matches_gathered(cuda_device, s, r, n, k, d,
+                                                 c):
+    """``bank_complex`` with a row index (bank row s reading row rows[s] of
+    an R-row float32 block, permuted and repeated) on the narrow plan (the
+    pfb fine stage's shape, ragged N, N = 5 < K-1 and 64 rows of a 100 ms
+    block), the wide plan and the direct kernel: every output bit for bit
+    the kernel's on the gathered rows, within 1e-4·max|y| of the plain
+    version, one launch."""
+    rng = np.random.default_rng(s + r + n)
+    x = torch.as_tensor(rng.standard_normal((r, n * d, 2)).astype(
+        np.float32), device=cuda_device)
+    rows = torch.as_tensor(rng.integers(0, r, s), device=cuda_device)
+    rows[1] = rows[0]
+    _, hist, grev, phase0, step = _complex_operands(
+        rng, s, n, k, d, c, "float32", cuda_device)
+    before = ck.bank_complex.launches
+    got = ck.bank_complex(x, hist, grev, phase0, step, d, rows)
+    assert ck.bank_complex.launches == before + 1
+    gathered = ck.bank_complex(x[rows], hist, grev, phase0, step, d)
+    from radiocapture_tpu_torch.tools import track_turns
+    assert track_turns.identical_outputs(got, gathered) == s * c * n
+    want = ck.bank_complex_plain(ck.complex_z(x[rows], hist), grev, phase0,
+                                 step, n, d)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= COMPLEX_REL * scale
+
+
+@pytest.mark.cuda
+def test_complex_bank_refuses_bad_row_index(cuda_device):
+    """On the card the row index is validated, never gathered around: one
+    on the CPU, of int32 or of the wrong length is refused, and so is any
+    index at split2's shape."""
+    x = torch.zeros((3, 160, 2), device=cuda_device)
+    h = torch.zeros((4, 46), dtype=torch.complex64, device=cuda_device)
+    g = torch.zeros((4, 1, 47), dtype=torch.complex64, device=cuda_device)
+    ph = torch.zeros((4, 1), dtype=torch.int64, device=cuda_device)
+    rows = torch.zeros(4, dtype=torch.int64, device=cuda_device)
+    for bad in (rows.cpu(), rows.int(), rows[:3]):
+        with pytest.raises(ValueError, match="rows must be"):
+            ck.bank_complex(x, h, g, ph, ph, 16, bad)
+    k2, d2, c2 = ck.SPLIT2_KDC
+    with pytest.raises(ValueError, match="split2's fast path"):
+        ck.bank_complex(
+            x, torch.zeros((4, k2 - 1), dtype=torch.complex64,
+                           device=cuda_device),
+            torch.zeros((4, c2, k2), dtype=torch.complex64,
+                        device=cuda_device),
+            ph.expand(4, c2).contiguous(), ph.expand(4, c2).contiguous(), d2,
+            rows)
+
+
+def _bench_pfb_operands(dev, steps: int = 2):
+    """``PfbXlatBank.fine_operands`` at the bench shape (128 sources × 64
+    slots on the 25 kHz grid, one random-normal bf16 100 ms block) after
+    ``steps`` steps, and the bank."""
+    bank = ControlPipeline.p25_c4fm(64, 2.4e6, frontend="pfb").bank
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((128, 240000, 2), generator=gen, device=dev).to(
+        torch.bfloat16)
+    offs = ((torch.arange(64, device=dev) - 32) * 25e3 / 2.4e6).expand(
+        128, 64).contiguous()
+    state = bank.init(128, dev)
+    for _ in range(steps):
+        state, _ = bank(state, x, offs)
+    return bank, state, x, bank.fine_operands(state, x, offs)
+
+
+@pytest.mark.cuda
+def test_pfb_fine_stage_in_place_at_bench_shape(cuda_device):
+    """The fine stage at 128 × 64 rows of one 100 ms block, read in place
+    from the 768 bin rows through the row index: all 20480000 outputs and
+    the new fine history bit for bit the gathered form's (the bins
+    gathered, the kernel and ``complex_history`` on them)."""
+    from radiocapture_tpu_torch.tools import track_turns
+    bank, _, _, (_, xb, rows, hist, grev, phase0, step) = \
+        _bench_pfb_operands(cuda_device)
+    assert xb.shape == (768, 40000, 2) and rows.shape == (8192,)
+    d = bank.decim2
+    got = ck.bank_complex(xb, hist, grev, phase0, step, d, rows)
+    xg = xb[rows]
+    want = ck.bank_complex(xg, hist, grev, phase0, step, d)
+    assert track_turns.identical_outputs(got, want) == 20480000
+    assert torch.equal(
+        torch.view_as_real(TCH.row_history(hist, xb, rows)),
+        torch.view_as_real(TCH.complex_history(hist, xg)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fs,m,atten,wire,t", [
+    (2.4e6, 6, 80.0, "bf16", 240000), (2.4e6, 6, 80.0, "float32", 6000),
+    (800e3, 8, 60.0, "complex64", 8000), (1.6e6, 16, 60.0, "float32", 1600)])
+def test_pfb_bins_are_ifft_rot_transposed(cuda_device, fs, m, atten, wire,
+                                          t):
+    """``PfbChannelizer.bins`` on the card (the rotation multiply writing
+    bin-major) is ``(ifft(v) · rot)`` transposed and ``rows``' channels
+    transposed, every value bit for bit: the bench shape (128 sources, bf16)
+    and small float32 and complex64 blocks at M = 6, 8 and 16."""
+    pfb = TCH.PfbChannelizer.for_rates(fs, m, atten_db=atten)
+    rng = np.random.default_rng(m + t)
+    s = 128 if t == 240000 else 3
+    x = torch.as_tensor(rng.standard_normal((s, t, 2)).astype(np.float32),
+                        device=cuda_device)
+    x = (x.to(torch.bfloat16) if wire == "bf16" else
+         torch.view_as_complex(x) if wire == "complex64" else x)
+    st = pfb.init(s, cuda_device)._replace(history=torch.as_tensor(
+        _complex_normal(rng, (s, (pfb.p - 1) * m)), device=cuda_device))
+    _, yb = pfb.bins(st, x)
+    _, yr = pfb.rows(st, x)
+    v, _ = pk.pfb_rows(st.history, x, pfb.device_hp2(cuda_device))
+    rot = torch.as_tensor(pfb.rot, device=cuda_device)
+    want = torch.fft.ifft(v, dim=-1, norm="forward") * rot
+    assert yb.shape == (s, m, t // m) and yb.is_contiguous()
+    bits = torch.view_as_real(yb).view(torch.int32)
+    for ref in (want, yr):
+        assert torch.equal(bits, torch.view_as_real(ref.transpose(1, 2))
+                           .view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_pfb_bank_routing_on_card_matches_cpu(cuda_device):
+    """``PfbXlatBank`` on the card and on the CPU over three blocks (1024,
+    256 < K2-1 and 1024 bin samples) through the routing cases of
+    ``tests/test_torch_pfb_bins.py``: bins 5, 5, 0, 2 and all on bin 1,
+    two slots retuned to other bins before the last block. The channels
+    within 1e-4·max|y|, the phase equal, the fine history within 1e-5 of
+    the CPU's (cuFFT and the CPU's FFT round the bins apart)."""
+    bank = TCH.PfbXlatBank(4, 2.4e6, 12500.0)
+    offs = (np.array([[-410e3, -395e3, 12.5e3, 790e3],
+                      [400e3, 390e3, 410e3, 450e3]]) / 2.4e6).astype(
+        np.float32)
+    later = offs.copy()
+    later[0, 2], later[1, 0] = 805e3 / 2.4e6, -790e3 / 2.4e6
+    rng = np.random.default_rng(18)
+    st = {"cuda": bank.init(2, cuda_device), "cpu": bank.init(2, "cpu")}
+    for b, n_bin in enumerate((1024, 256, 1024)):
+        o = torch.from_numpy(later if b == 2 else offs)
+        xb = torch.from_numpy(_complex_normal(rng, (2, n_bin * bank.m)))
+        st["cuda"], got = bank(st["cuda"], xb.to(cuda_device),
+                               o.to(cuda_device))
+        st["cpu"], want = bank(st["cpu"], xb, o)
+        scale = float(want.abs().max())
+        assert float((got.cpu() - want).abs().max()) <= COMPLEX_REL * scale
+        assert torch.equal(st["cuda"].fine.phase.cpu(), st["cpu"].fine.phase)
+        assert float((st["cuda"].fine.history.cpu()
+                      - st["cpu"].fine.history).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("frontend,fs", [("pfb", 800e3), ("fft", 200e3)])
 def test_frontend_pipeline_on_card_matches_cpu(cuda_device, frontend, fs):
     """A P25 fixture through ``ControlPipeline.step`` with the pfb or fft

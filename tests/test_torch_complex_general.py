@@ -25,6 +25,9 @@ D and the shared memory the span needs:
 - direct (a span too large for shared memory): one thread per (output,
   slot) over a block of DIRECT_BM outputs, z read from device memory.
 
+Each plan reads bank row s's block samples from row ``xrow[s]`` of x:
+row s without a row index, the slot's bin with one (the pfb fine stage).
+
 The CUDA kernel cannot run here: this holds its index arithmetic, at the
 constants the kernel is built with (read from the ``.cu``), and its loop
 order to ``bank_complex_plain``: every output is written once, its
@@ -99,10 +102,11 @@ def plan(k: int, d: int, c: int, smem_max: int = H100_SMEM) -> dict:
     return {"path": "direct"}
 
 
-def _stage(xc, hist, s, n0, count, d, k, pitch, nthreads):
-    """``stage_planes`` for the block (s, n0): each thread steps its
-    (row, plane) by the block's thread count; returns planes [D, pitch]
-    with NaN where nothing was staged."""
+def _stage(xc, xrow, hist, s, n0, count, d, k, pitch, nthreads):
+    """``stage_planes`` for the block (s, n0), its block samples from row
+    ``xrow[s]`` of xc (``x_row``): each thread steps its (row, plane) by
+    the block's thread count; returns planes [D, pitch] with NaN where
+    nothing was staged."""
     span = (count - 1) * d + k
     planes = np.full((d, pitch), NAN, np.complex64)
     i = np.arange(nthreads)
@@ -115,7 +119,7 @@ def _stage(xc, hist, s, n0, count, d, k, pitch, nthreads):
         assert (xi < xc.shape[1]).all()
         planes[j[live], m[live]] = np.where(
             zi < k - 1, hist[s, np.minimum(zi, k - 2)],
-            xc[s, np.maximum(xi, 0)])
+            xc[xrow[s], np.maximum(xi, 0)])
         i = i + nthreads
         m, j = m + dm, j + dj
         m, j = m + (j >= d), np.where(j >= d, j - d, j)
@@ -151,7 +155,7 @@ class _Out:
         np.add.at(self.writes, (s, cc, n), 1)
 
 
-def _wide(xc, hist, grev, d, p, out):
+def _wide(xc, xrow, hist, grev, d, p, out):
     s_n, c_n, k = grev.shape
     n = xc.shape[1] // d
     nb, cb, wn_w, pitch, nt = p["nb"], p["cb"], p["wn"], p["pitch"], \
@@ -162,8 +166,9 @@ def _wide(xc, hist, grev, d, p, out):
     bn0 = np.array([b[1] for b in blocks])[:, None]
     bc0 = np.array([b[2] for b in blocks])[:, None]
     count, cn = np.minimum(nb, n - bn0), np.minimum(cb, c_n - bc0)
-    planes = np.stack([_stage(xc, hist, s, n0, min(nb, n - n0), d, k, pitch,
-                              nt) for s, n0, _ in blocks])   # [B, D, pitch]
+    planes = np.stack([_stage(xc, xrow, hist, s, n0, min(nb, n - n0), d, k,
+                              pitch, nt)
+                       for s, n0, _ in blocks])              # [B, D, pitch]
     tid = np.arange(nt)
     lane, warp = tid % 32, tid // 32
     wn, wc = warp % wn_w, warp // wn_w
@@ -201,7 +206,7 @@ def _wide(xc, hist, grev, d, p, out):
               + rows[None, :, :, None], ar, ai, ok)
 
 
-def _narrow(xc, hist, grev, d, p, out):
+def _narrow(xc, xrow, hist, grev, d, p, out):
     s_n, c_n, k = grev.shape
     n = xc.shape[1] // d
     nb, pitch, nt, rr = p["nb"], p["pitch"], p["threads"], NARROW_R
@@ -212,8 +217,8 @@ def _narrow(xc, hist, grev, d, p, out):
     bs = np.array([b[0] for b in blocks])[:, None]
     bn0 = np.array([b[1] for b in blocks])[:, None]
     count = np.minimum(nb, n - bn0)
-    planes = np.stack([_stage(xc, hist, s, n0, min(nb, n - n0), d, k, pitch,
-                              nt) for s, n0 in blocks])
+    planes = np.stack([_stage(xc, xrow, hist, s, n0, min(nb, n - n0), d, k,
+                              pitch, nt) for s, n0 in blocks])
     tid = np.arange(nt)
     base = (tid // 32) * 32 * rr + (tid % 32) * rr
     active = (tid // 32) * 32 * rr < count                      # [B, nt]
@@ -274,7 +279,7 @@ def _narrow(xc, hist, grev, d, p, out):
         out.store(bs[..., None], c, bn0[..., None] + rows, ar, ai, ok)
 
 
-def _direct(xc, hist, grev, d, out):
+def _direct(xc, xrow, hist, grev, d, out):
     s_n, c_n, k = grev.shape
     n = xc.shape[1] // d
     for s in range(s_n):
@@ -287,7 +292,7 @@ def _direct(xc, hist, grev, d, out):
             for kk in range(k):
                 zi = (n0 + r) * d + kk
                 zv = np.where(zi < k - 1, hist[s, np.minimum(zi, k - 2)],
-                              xc[s, np.maximum(zi - (k - 1), 0)])
+                              xc[xrow[s], np.maximum(zi - (k - 1), 0)])
                 ar, ai = _fma4(ar, ai, grev[s, c, kk], zv)
                 out.win[s, (n0 + r)[c == 0], kk] = zv[c == 0]
             out.store(s, c, n0 + r, ar, ai, np.ones(len(idx), bool))
@@ -305,8 +310,10 @@ def _chain(z, grev, n, d):
     return ar, ai
 
 
-def _operands(rng, s, n, k, d, c, wire):
-    x = rng.standard_normal((s, n * d, 2)).astype(np.float32)
+def _operands(rng, s, n, k, d, c, wire, r=None):
+    """The bank's operands for S bank rows: x [R, N·D, 2] (R = S without
+    a row index), history, taps, phase and step."""
+    x = rng.standard_normal((r or s, n * d, 2)).astype(np.float32)
     if wire == "bf16":
         x = wire_from_numpy(x.astype(ml_dtypes.bfloat16), "cpu").float() \
             .numpy()
@@ -342,21 +349,52 @@ def test_general_plan_matches_plain(path, s, n, k, d, c, wire, smem):
     version's samples, its accumulators the replaced kernel's chain bit for
     bit, its rotated value within COMPLEX_REL·max|y| of
     ``bank_complex_plain``."""
+    check_plan(path, s, n, k, d, c, wire, smem)
+
+
+@pytest.mark.parametrize("path,s,r,n,k,d,c,wire,smem,order", [
+    ("narrow", 6, 4, 300, 467, 16, 1, "float32", H100_SMEM, "permuted"),
+    ("narrow", 5, 2, 5, 467, 16, 1, "float32", H100_SMEM, "repeated"),
+    ("narrow", 4, 3, 333, 467, 16, 3, "bf16", H100_SMEM, "repeated"),
+    ("wide", 3, 3, 150, 1440, 96, 40, "float32", H100_SMEM, "permuted"),
+    ("wide", 4, 2, 333, 47, 3, 12, "bf16", H100_SMEM, "repeated"),
+    ("direct", 3, 2, 40, 31, 3, 2, "float32", 0, "repeated")])
+def test_general_plan_reads_through_row_index(path, s, r, n, k, d, c, wire,
+                                              smem, order):
+    """Each plan with a row index (``x_row``): bank row s stages its block
+    samples from row ``xrow[s]`` of an R-row block, the index a
+    permutation of the rows or repeating rows (every slot of the pfb fine
+    stage on one bin); history, taps and phase stay row s's. The same
+    checks as ``test_general_plan_matches_plain``, against the plain
+    version on the gathered rows."""
+    rng = np.random.default_rng(r + n + k)
+    xrow = (rng.permutation(s) % r if order == "permuted"
+            else rng.integers(0, r, s))
+    if order == "repeated":
+        xrow[: 2] = xrow[0]
+    check_plan(path, s, n, k, d, c, wire, smem, xrow, r)
+
+
+def check_plan(path, s, n, k, d, c, wire, smem, xrow=None, r=None):
+    """The emulated plan ``path`` against the plain version and the
+    replaced kernel's chain, bank row s reading x row ``xrow[s]``."""
     rng = np.random.default_rng(n + k + c)
-    x, hist, grev, phase0, step = _operands(rng, s, n, k, d, c, wire)
+    x, hist, grev, phase0, step = _operands(rng, s, n, k, d, c, wire, r)
+    xrow = np.arange(s) if xrow is None else np.asarray(xrow)
     p = plan(k, d, c, smem)
     assert p["path"] == path
     xc = (x[..., 0] + 1j * x[..., 1]).astype(np.complex64)
     out = _Out(s, c, n, k)
     with np.errstate(invalid="ignore"):
         if path == "wide":
-            _wide(xc, hist, grev, d, p, out)
+            _wide(xc, xrow, hist, grev, d, p, out)
         elif path == "narrow":
-            _narrow(xc, hist, grev, d, p, out)
+            _narrow(xc, xrow, hist, grev, d, p, out)
         else:
-            _direct(xc, hist, grev, d, out)
+            _direct(xc, xrow, hist, grev, d, out)
     assert (out.writes == 1).all()
-    z = ck.complex_z(torch.from_numpy(x), torch.from_numpy(hist)).numpy()
+    z = ck.complex_z(torch.from_numpy(x[xrow]), torch.from_numpy(hist)
+                     ).numpy()
     want_w = z[:, d * np.arange(n)[:, None] + np.arange(k)]       # [S, n, K]
     assert np.array_equal(out.win.view(np.uint32),
                           np.ascontiguousarray(want_w).view(np.uint32))
@@ -419,8 +457,9 @@ def test_launcher_sends_each_shape_to_its_path(shape, want):
 
 
 def test_plan_model_reads_the_launcher():
-    """``plan`` models these lines of the launcher; a change there must
-    change the model too."""
+    """``plan`` models these lines of the launcher, and ``_stage`` the
+    row index's address in each general plan; a change there must change
+    the model too."""
     for line in (
             "if (K == FAST_P * FAST_D && D == FAST_D && C == FAST_C)",
             "if (C < WIDE_RC && D == NARROW_D) {",
@@ -432,5 +471,10 @@ def test_plan_model_reads_the_launcher():
             "const int nb = nw * 32 * NARROW_R, pitch = (nb + Q - 1) | 1;",
             "sizeof(float2) * (size_t)narrow_floats2(D, pitch, Q);",
             "return plane_floats2(D, pitch) + Q * D;",
-            "return (D * pitch + 1) & ~1;"):
+            "return (D * pitch + 1) & ~1;",
+            "return x + __ldg(xrow + s) * T;",
+            "return x + (long long)s * T;"):
         assert line in _SRC, line
+    # every general plan stages through the row index, split2 refuses one
+    assert _SRC.count("x_row<kRows>(x, xrow, s, T)") == 3
+    assert "if (xrow) return (int)cudaErrorInvalidValue;" in _SRC

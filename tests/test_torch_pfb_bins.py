@@ -1,0 +1,188 @@
+"""The pfb fine stage reading its bins in place: ``PfbChannelizer.bins``
+(the channels bin-major), ``bank_complex``'s row index and
+``row_history``, on the CPU.
+
+- ``PfbXlatBank`` against the JAX ``PfbXlatBank`` (its fine stage the
+  CPU conv, as ``test_torch_frontends.py`` runs it) over three steps,
+  through the routing cases the gathered block used to hide: a slot
+  retuned to another bin between steps, negative offsets wrapping to bin
+  M-1, every slot of a source on one bin, two sources on different bins
+  and a block shorter than K2-1 bin samples;
+- the bin-major bins equal to ``rows``' time-major channels transposed,
+  exactly;
+- the plain bank with a row index equal to the gather and the plain
+  bank, and ``row_history`` equal to ``complex_history`` on the gathered
+  rows, exactly;
+- ``complex_args`` refusing a row index of the wrong dtype, shape,
+  device or layout, and one at split2's shape."""
+
+import re
+
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from radiocapture_tpu.ops import channelizer as JC
+from radiocapture_tpu_torch import kernels
+from radiocapture_tpu_torch.device import wire_from_numpy
+from radiocapture_tpu_torch.ops import channelizer as TC
+from radiocapture_tpu_torch.ops import channelizer_kernel as ck
+from radiocapture_tpu_torch.ops.fir import phase_step_u32
+from test_torch_frontends import PFB_BANK_ATOL
+
+torch.set_num_threads(1)   # six test workers share the machine
+
+FS = 2.4e6
+HIST_ATOL = 1e-6   # the carried fine history: PFB bins, float32 sum order
+
+
+def _cnormal(rng, shape, scale=1.0):
+    return ((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+            * scale).astype(np.complex64)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return torch.view_as_real(t).contiguous().view(torch.int32)
+
+
+def test_pfb_xlat_bank_routing_matches_jax():
+    """Two sources × four slots, blocks of 1024, 256 (< K2-1 = 466) and
+    1024 bin samples: source 0's slots on bins 5, 5 (−410 and −395 kHz,
+    wrapped from −1), 0 and 2, source 1's all on bin 1. Before the last
+    block source 0's slot 2 moves from bin 0 to bin 2 and source 1's
+    slot 0 from bin 1 to bin 4 (−790 kHz); each keeps its own fine
+    history, as JAX's vmapped state does. The port's channels within
+    PFB_BANK_ATOL of JAX's each step, the routing JAX's, the phase equal
+    and the fine history within HIST_ATOL."""
+    jb, tb = JC.PfbXlatBank(4, FS, 12500.0), TC.PfbXlatBank(4, FS, 12500.0)
+    offs = (np.array([[-410e3, -395e3, 12.5e3, 790e3],
+                      [400e3, 390e3, 410e3, 450e3]]) / FS).astype(np.float32)
+    later = offs.copy()
+    later[0, 2], later[1, 0] = 805e3 / FS, -790e3 / FS
+    bins = tb.route(torch.from_numpy(offs))[0]
+    assert bins.tolist() == [[5, 5, 0, 2], [1, 1, 1, 1]]
+    assert tb.route(torch.from_numpy(later))[0].tolist() == [[5, 5, 2, 2],
+                                                             [4, 1, 1, 1]]
+    rng = np.random.default_rng(18)
+    jstep = jax.jit(jax.vmap(jb.__call__))
+    jst = jax.tree.map(lambda a: jnp.broadcast_to(a, (2,) + a.shape),
+                       jb.init())
+    tst = tb.init(2, "cpu")
+    for b, n_bin in enumerate((1024, 256, 1024)):
+        o = later if b == 2 else offs
+        xb = _cnormal(rng, (2, n_bin * tb.m))
+        jst, jy = jstep(jst, jnp.asarray(xb), jnp.asarray(o))
+        tst, ty = tb(tst, torch.from_numpy(xb), torch.from_numpy(o))
+        assert ty.shape == (2, 4, n_bin // tb.decim2)
+        np.testing.assert_allclose(ty.numpy(), np.asarray(jy),
+                                   atol=PFB_BANK_ATOL)
+        np.testing.assert_array_equal(
+            tst.fine.phase.numpy().astype(np.uint32),
+            np.asarray(jst.fine.phase))
+        np.testing.assert_allclose(tst.fine.history.numpy(),
+                                   np.asarray(jst.fine.history),
+                                   atol=HIST_ATOL)
+    np.testing.assert_array_equal(tst.pfb.history.numpy(),
+                                  np.asarray(jst.pfb.history))
+
+
+@pytest.mark.parametrize("fs,m,atten,wire", [
+    (FS, 6, 80.0, "bf16"), (FS, 6, 80.0, "float32"),
+    (800e3, 8, 60.0, "complex64"), (1.6e6, 16, 60.0, "float32")])
+def test_bins_are_rows_transposed(fs, m, atten, wire):
+    """``PfbChannelizer.bins`` is ``rows``' time-major channels
+    transposed, every value bit for bit, contiguous [S, M, T/M] (M = 8
+    and 16 are where the CPU's vectorized and strided complex multiplies
+    round apart), with the same new history; ``__call__`` returns it."""
+    pfb = TC.PfbChannelizer.for_rates(fs, m, atten_db=atten)
+    rng = np.random.default_rng(m)
+    x = rng.standard_normal((3, m * 700, 2)).astype(np.float32)
+    if wire == "bf16":
+        x = wire_from_numpy(x.astype(ml_dtypes.bfloat16), "cpu")
+    elif wire == "complex64":
+        x = torch.view_as_complex(torch.from_numpy(x))
+    else:
+        x = torch.from_numpy(x)
+    st = pfb.init(3, "cpu")._replace(history=torch.from_numpy(
+        _cnormal(rng, (3, (pfb.p - 1) * m))))
+    st_r, yr = pfb.rows(st, x)
+    st_b, yb = pfb.bins(st, x)
+    assert yb.shape == (3, m, 700) and yb.is_contiguous()
+    assert torch.equal(_bits(yb), _bits(yr.transpose(1, 2)))
+    assert torch.equal(_bits(st_b.history), _bits(st_r.history))
+    assert torch.equal(_bits(pfb(st, x)[1]), _bits(yb))
+
+
+def _fine_rows(rng, r, t, k, wire, rows):
+    x = rng.standard_normal((r, t, 2)).astype(np.float32)
+    x = (wire_from_numpy(x.astype(ml_dtypes.bfloat16), "cpu")
+         if wire == "bf16" else torch.from_numpy(x))
+    return (x, torch.from_numpy(_cnormal(rng, (len(rows), k - 1))),
+            torch.as_tensor(rows, dtype=torch.int64))
+
+
+@pytest.mark.parametrize("t,wire,rows", [
+    (4000, "float32", [3, 0, 0, 5, 2, 5, 1]),
+    (160, "float32", [1, 1, 1]),
+    (480, "bf16", [2, 0, 1, 2])])
+def test_row_index_is_the_gather(t, wire, rows):
+    """The plain bank with a row index equals the plain bank on the
+    gathered rows, and ``row_history`` equals ``complex_history`` on them,
+    bit for bit: permuted and repeated rows, a block longer than K2-1 =
+    466, one shorter (the old history's samples in front) and a bf16
+    one."""
+    bank = TC.PfbXlatBank(len(rows), FS, 12500.0)
+    k, d = bank.ntaps2, bank.decim2
+    rng = np.random.default_rng(t)
+    x, hist, idx = _fine_rows(rng, 6, t, k, wire, rows)
+    fine = torch.as_tensor(rng.uniform(-0.5, 0.5, (len(rows), 1)).astype(
+        np.float32))
+    grev = TC.modulated_taps(torch.from_numpy(bank.fine_taps), fine)
+    phase0 = torch.as_tensor(rng.integers(0, 2 ** 32, (len(rows), 1)))
+    step = phase_step_u32(fine, d)
+    got = ck.bank_complex(x, hist, grev, phase0, step, d, idx)
+    want = ck.bank_complex_plain(ck.complex_z(x[idx], hist), grev, phase0,
+                                 step, t // d, d)
+    assert torch.equal(_bits(got), _bits(want))
+    new = TC.row_history(hist, x, idx)
+    assert new.shape == (len(rows), k - 1)
+    assert torch.equal(_bits(new),
+                       _bits(TC.complex_history(hist, x[idx])))
+
+
+def test_row_index_refusals():
+    """``complex_args`` refuses a row index that is not a contiguous int64
+    [S'] tensor on x's device, and any row index at split2's (K, D, C),
+    which takes the fast path; valid operands on the CPU are refused as
+    off the card. ``SPLIT2_KDC`` is the kernel's fast-path shape."""
+    src = (kernels.CSRC / "xlat_complex.cu").read_text()
+    fast = {name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                src).group(1))
+            for name in ("FAST_P", "FAST_D", "FAST_C")}
+    assert ck.SPLIT2_KDC == (fast["FAST_P"] * fast["FAST_D"],
+                             fast["FAST_D"], fast["FAST_C"])
+    s, c, k, d = 4, 1, 47, 16
+    x = torch.zeros((3, 10 * d, 2))
+    hist = torch.zeros((s, k - 1), dtype=torch.complex64)
+    grev = torch.zeros((s, c, k), dtype=torch.complex64)
+    ph = torch.zeros((s, c), dtype=torch.int64)
+    good = torch.zeros(s, dtype=torch.int64)
+    for bad in (good.int(), good.float(), torch.zeros((s, 1), dtype=torch
+                                                      .int64),
+                torch.zeros(s + 1, dtype=torch.int64),
+                torch.zeros(2 * s, dtype=torch.int64)[::2],
+                torch.zeros(s, dtype=torch.int64, device="meta")):
+        with pytest.raises(ValueError, match="rows must be"):
+            ck.complex_args(x, hist, grev, ph, ph, d, bad)
+    with pytest.raises(ValueError, match="the kernel takes CUDA"):
+        ck.complex_args(x, hist, grev, ph, ph, d, good)
+    k2, d2, c2 = ck.SPLIT2_KDC
+    with pytest.raises(ValueError, match="split2's fast path takes no row"):
+        ck.complex_args(torch.zeros((3, 10 * d2, 2)),
+                        torch.zeros((s, k2 - 1), dtype=torch.complex64),
+                        torch.zeros((s, c2, k2), dtype=torch.complex64),
+                        torch.zeros((s, c2), dtype=torch.int64),
+                        torch.zeros((s, c2), dtype=torch.int64), d2, good)
