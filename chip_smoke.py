@@ -38,17 +38,25 @@ paths, the scan slice, live SDR ingest and the mesh steps.
    sin/cos/complex multiplies, the AGC's hypot/pow/mean).
    Then the ``pfb`` and ``fft`` frontend modes: a P25 grant through
    ``ControlPipeline.p25_c4fm(64, 2.4e6, frontend=...)`` for each (pfb
-   launching ``pfb_rows`` once a step, as often as ``xlat_complex``), the
-   pfb combiner (``csrc/pfb_rows.cu``) against its eager plain version at
+   launching ``pfb_bins`` once a step, as often as ``xlat_complex``, and
+   ``pfb_rows`` no time), the pfb combiner's time-major entry
+   (``csrc/pfb_rows.cu``'s ``pfb_rows``) against its eager plain version at
    the bench shape on bf16 and float32 wires, complex64 at M = 8 and 16,
    and a block shorter than (P-1)·M, every output and the new history
    bit-identical, with eager / kernel / kernel / eager ms, its bytes
    bound and a grouped ``conv1d`` yardstick (``pfb rows kernel:``); the
-   pfb fine stage (``PfbXlatBank``: one K2 = 467-tap filter per slot on
+   step's coarse PFB in one kernel (``pfb_bins``, the same file: the
+   combiner, the IDFT and the rotation) against ``pfb_bins_plain`` within
+   ``BINS_REL``·max|bins|, the new history bit-identical, at the bench
+   shape on bf16 and float32 wires, the pfb mode's banks at M = 8, 16,
+   20, 25, 50 and 100 and a 60-sample block, each in turns with the chain
+   it replaced (``pfb_rows``, cuFFT, the bin-major multiply), beside its
+   bytes bound and one ``torch.fft.ifft`` of the rows (``pfb bins
+   kernel:``); the pfb fine stage (``PfbXlatBank``: one K2 = 467-tap filter per slot on
    the complex bank kernel's general path, its narrow plan, each row
    reading its slot's bin in place from the bin-major bins through a row
    index) against its plain version on the gathered rows, with the bins
-   bit-identical to the time-major rows transposed (``pfb bins:``), timed
+   within ``BINS_REL`` of the time-major rows transposed (``pfb bins:``), timed
    at 8192 rows beside its bound and a grouped ``conv1d`` (``pfb fine
    bank:``), in turns with the gathered form the step ran before
    (``pfb fine turns:``; every output and the new fine history must be
@@ -57,7 +65,8 @@ paths, the scan slice, live SDR ingest and the mesh steps.
    ``tools/xlat_complex_54b2cf5.cu``'s), both modes' step at 128 sources
    (``bench pfb:``, ``bench fft:``; fft's block is 390336 samples,
    162.6 ms; the pfb profile may run no ``cat``, no ``addcmul_``, no
-   gather and no kernel P-1 times a step), and
+   gather, no cuFFT, no complex multiply, no ``pfb_rows`` and no kernel
+   P-1 times a step), and
    the step with ``fsk4_block = 10`` against the tracker kernel's
    (``fsk4 block:``) and a P25 grant through it (``decode fsk4
    block:``, no tracker kernel launched).
@@ -125,13 +134,17 @@ matrix).
 
 Phases print one line each; any failure raises (non-zero exit). The
 lines before the last are the kernels' JSON summary (each kernel's ms,
-plain ms, bound and library ms) and the card's ``nvidia-smi`` name and
-power limit; the last line is the JSON result.
+plain ms, bound, library ms and its launches in the main path's runs;
+``pfb_rows``, which no path runs since ``pfb_bins`` took the step, is
+marked ``"on_main_path": false`` with 0 launches and keeps the count of
+its standalone call apart) and the card's ``nvidia-smi`` name and power
+limit; the last line is the JSON result.
 Without a CUDA device it fails before printing any result. Imports no
 JAX and nothing of the JAX package ``radiocapture_tpu``.
 """
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -171,10 +184,13 @@ TILE_SLOTS = SLOTS // 2            # the dp x tp tile at world 2
 # device kernels the glue kernels replaced; no profiled step may run one
 GLUE_KERNELS = ("CatArrayBatchedCopy", "cos_kernel_cuda", "sin_kernel_cuda",
                 "MulFunctor<c10::complex", "hypot", "pow_tensor", "MeanOps")
-# the pfb combiner's eager chain (history ++ block, P-1 addcmul_ passes)
-# and the fine stage's bin gather (advanced indexing); the pfb step's
-# profile may run none of them, nor any kernel P-1 times
-PFB_GLUE = ("CatArrayBatchedCopy", "addcmul", "gpu_index_kernel")
+# the pfb combiner's eager chain (history ++ block, P-1 addcmul_ passes),
+# the fine stage's bin gather (advanced indexing), and what pfb_bins
+# folds in: cuFFT's inverse FFT, the rotation's complex multiply and the
+# time-major combiner pfb_rows; the pfb step's profile may run none of
+# them, nor any kernel P-1 times
+PFB_GLUE = ("CatArrayBatchedCopy", "addcmul", "gpu_index_kernel", "fft",
+            "MulFunctor<c10::complex", "pfb_rows_kernel")
 # grouped conv1d yardstick of the pfb rows against the kernel's (cuDNN's
 # float32 sum order), × max|v|
 PFB_CONV_REL = 1e-4
@@ -213,6 +229,12 @@ CQPSK_OPS = 40
 VOICE_OPS = 10
 RAGGED_SLOTS = 40          # a lane count off the fsk tracker's 32-slot tile
 PFB_ROWS = 64              # pfb fine-stage rows held to the plain version
+# pfb_bins beside the bench shape: (M, wire) of the pfb mode's 80 dB banks
+# at M · BIN_RATE, PFB_BINS_SOURCES sources × 100 ms
+BIN_RATE = 400e3
+PFB_BINS_CASES = ((8, "complex64"), (16, "float32"), (20, "bfloat16"),
+                  (25, "bfloat16"), (50, "bfloat16"), (100, "float32"))
+PFB_BINS_SOURCES = 16
 CLOCK_RUN_S = 1.0          # tracker run while nvidia-smi samples clocks
 # the scan slice (scan/, tools/file_to_wav.py)
 SCAN_CENTER = 857.0e6
@@ -325,7 +347,8 @@ def kernel_wrappers() -> dict:
             "fsk_track": tk.track, "xlat_complex": ck.bank_complex,
             "agc": cqk.agc_scale_kernel,
             "cqpsk_track": cqk.track_cqpsk, "fm_voice": fk.voice_track,
-            "fsk_track_stream": tk.track_stream, "pfb_rows": pk.pfb_rows}
+            "fsk_track_stream": tk.track_stream, "pfb_rows": pk.pfb_rows,
+            "pfb_bins": pk.pfb_bins}
 
 
 def kernel_counts() -> dict:
@@ -546,14 +569,15 @@ def phase_decode(dev, pipe, what: str = "decode",
     return launches
 
 
-def profile_steps(step, what: str, forbid: tuple = (), most: int = 0
-                  ) -> float:
+def profile_steps(step, what: str, forbid: tuple = (), most: int = 0,
+                  kernels: list | None = None) -> float:
     """``torch.profiler`` over PROFILE_STEPS steady-state calls of
     ``step()``: logs the device kernels and copies by time per step (share
     of all device time). Fails if a device kernel's name holds one of
     ``forbid``, or, with ``most``, if one runs ``most`` times a step or
-    more. Returns the device busy share: kernel time (copies excluded)
-    over wall time, profiler on."""
+    more. With ``kernels``, appends each device kernel's (full name,
+    launches a step, ms a step) to it. Returns the device busy share:
+    kernel time (copies excluded) over wall time, profiler on."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -574,6 +598,10 @@ def profile_steps(step, what: str, forbid: tuple = (), most: int = 0
                / 1e3 / PROFILE_STEPS)
     if dev_ms <= 0.0:
         raise AssertionError("the profiler saw no device kernel")
+    if kernels is not None:
+        kernels.extend((e.key, e.count / PROFILE_STEPS,
+                        e.self_device_time_total / 1e3 / PROFILE_STEPS)
+                       for e in kern)
     syncs = sum(e.count for e in prof.key_averages()
                 if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"))
     log(f"profile: {what}: {PROFILE_STEPS} steps, wall {wall_ms:.3f} ms/step "
@@ -1738,7 +1766,7 @@ def phase_runtime_decode(dev, frontend: str = "xlat") -> dict:
         f"groups {sorted(str(k) for k in rt.groups)} in {dt:.3f} s; "
         f"launches {launches}")
     need = {"xlat": ("bank_operands", "xlat_bank"),
-            "pfb": ("pfb_rows", "xlat_complex")}[frontend] + ("fsk_track",
+            "pfb": ("pfb_bins", "xlat_complex")}[frontend] + ("fsk_track",
                                                             "fm_voice")
     if min(launches[k] for k in need) < 1:
         raise AssertionError(f"a kernel of the path never ran: {launches}")
@@ -1837,27 +1865,42 @@ def phase_runtime_bench(dev, frontend: str = "xlat") -> dict:
 
 
 def pfb_bins_check(pfb, state, x) -> dict:
-    """``pfb bins:`` ``PfbChannelizer.bins`` (the rotation multiply writing
-    bin-major) against ``rows``' time-major channels transposed, every
-    value bit-identical (fails otherwise), and the two in turns (rows,
-    bins, bins, rows): the same combiner and IDFT, so the difference is
-    the multiply's layout."""
-    from radiocapture_tpu_torch.tools.track_turns import identical_outputs
-    _, yr = pfb.rows(state, x)
-    _, yb = pfb.bins(state, x)
-    same = identical_outputs(yb, yr.transpose(1, 2))
-    res = {"identical": same, "values": yb.numel(),
+    """``pfb bins:`` ``PfbChannelizer.bins`` (one ``pfb_bins`` launch)
+    against ``rows``' time-major channels transposed (the ``pfb_rows``
+    kernel, cuFFT, the rotation) within BINS_REL·max|bins| and the new
+    histories bit-identical (fails otherwise), and the two in turns (rows,
+    bins, bins, rows). ``rows``, the time-major entry point, runs once
+    with the counts set to 0 before and read after: its ``pfb_rows``
+    launches (the pfb step's bins run ``pfb_bins``)."""
+    from radiocapture_tpu_torch.ops import pfb_kernel as pk
+    reset_kernel_counts()
+    sr, yr = pfb.rows(state, x)
+    torch.cuda.synchronize()
+    rows_launches = kernel_counts()
+    sb, yb = pfb.bins(state, x)
+    ref = yr.transpose(1, 2)
+    scale = float(ref.abs().max())
+    err = float((yb - ref).abs().max())
+    same = torch.equal(torch.view_as_real(sb.history).view(torch.int32),
+                       torch.view_as_real(sr.history).view(torch.int32))
+    res = {"max_abs_err": err, "max_rel_err": err / scale,
+           "history_identical": same, "values": yb.numel(),
            "contiguous": yb.is_contiguous(),
+           "rows_launches": rows_launches,
            **turns(lambda: pfb.rows(state, x), lambda: pfb.bins(state, x),
                    10)}
-    ok = same == yb.numel() and res["contiguous"]
-    log(f"pfb bins: {tuple(yb.shape)} bin-major, {same} of {yb.numel()} "
-        f"values bit-identical to rows' (ifft * rot) transposed; rows "
+    del yr, ref
+    ok = (err <= pk.BINS_REL * scale and same and res["contiguous"]
+          and rows_launches["pfb_rows"] == 1 and rows_launches["pfb_bins"] == 0)
+    log(f"pfb bins: {tuple(yb.shape)} bin-major, within {err:.3e} = "
+        f"{err / scale:.3e} of max|bins| (bound {pk.BINS_REL:g}) of rows' "
+        f"(pfb_rows, ifft, rot) transposed, new history identical {same}; "
+        f"rows ran pfb_rows {rows_launches['pfb_rows']} time(s); rows "
         f"{res['plain_turns_ms'][0]:.4f}, bins {res['kernel_turns_ms'][0]:.4f}"
         f", {res['kernel_turns_ms'][1]:.4f}, rows "
         f"{res['plain_turns_ms'][1]:.4f} ms {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("pfb bins: the bin-major bins differ")
+        raise AssertionError("pfb bins: the bin-major bins disagree")
     return res
 
 
@@ -2133,14 +2176,129 @@ def phase_pfb_rows(dev) -> dict:
     return res
 
 
-def pfb_launches_match(what: str, launches: dict) -> None:
-    """The pfb path's combiner ran once a pipeline step: as many
-    ``pfb_rows`` launches as fine-stage ``xlat_complex`` ones."""
-    ok = launches["pfb_rows"] == launches["xlat_complex"] > 0
-    log(f"{what}: pfb_rows {launches['pfb_rows']} launches, xlat_complex "
-        f"{launches['xlat_complex']}: {'ok' if ok else 'FAIL'}")
+def bins_chain(pfb, state, x):
+    """What ``PfbChannelizer.bins`` ran on the card before ``pfb_bins``
+    (commit 2cf31c4): the ``pfb_rows`` kernel, cuFFT's inverse FFT, the
+    rotation multiply writing the bins bin-major."""
+    st, f, rot = pfb._idft(state, x)
+    s, n, m = f.shape
+    y = torch.empty((s, m, n), dtype=torch.complex64, device=f.device)
+    torch.mul(f.transpose(1, 2), rot[:, None], out=y)
+    return st, y
+
+
+def pfb_bins_case(pfb, hist, x, what: str) -> dict:
+    """``pfb bins kernel:`` one case: ``pfb_bins`` against
+    ``pfb_bins_plain`` on the card, max |err| within BINS_REL·max|bins|
+    and the new history bit-identical (fails otherwise); the chain it
+    replaced (``bins_chain``) and the kernel in turns (chain, kernel,
+    kernel, chain), the plain version's ms, the bound (the block, history,
+    taps and table read once, the bins and history written once; the
+    taps' float32 FLOP and an FFT's for the IDFT), and the library
+    yardstick: one
+    ``torch.fft.ifft`` of the same [S, T/M, M] rows, made outside the
+    timed region."""
+    from radiocapture_tpu_torch.ops import pfb_kernel as pk
+    from radiocapture_tpu_torch.ops.channelizer import PfbState
+    hp2 = pfb.device_hp2(x.device)
+    m, p = hp2.shape
+    s, t = x.shape[:2]
+    n = t // m
+    y, nh = pk.pfb_bins(hist, x, hp2)
+    py, pnh = pk.pfb_bins_plain(hist, x, hp2)
+    scale = float(py.abs().max())
+    err = float((y - py).abs().max())
+    same = torch.equal(torch.view_as_real(nh).view(torch.int32),
+                       torch.view_as_real(pnh).view(torch.int32))
+    del py, pnh
+    state = PfbState(history=hist)
+    res = {"M": m, "P": p, "S": s, "T": t,
+           "wire": str(x.dtype).split(".")[-1], "max_abs_err": err,
+           "max_rel_err": err / scale, "bound_rel": pk.BINS_REL,
+           "history_identical": same,
+           **turns(lambda: bins_chain(pfb, state, x),
+                   lambda: pk.pfb_bins(hist, x, hp2), 10)}
+    res["ms"] = float(np.mean(res["kernel_turns_ms"]))
+    res["chain_ms"] = float(np.mean(res["plain_turns_ms"]))
+    res["plain_ms"] = cuda_ms(lambda: pk.pfb_bins_plain(hist, x, hp2), 3)
+    nbytes = tensor_bytes(hist, x, hp2, pk.device_table(m, x.device), y, nh)
+    # the IDFT at an FFT's 5·M·log2 M FLOP a row, the least the function
+    # needs; the kernel's direct DFT does 8·M² (D.6g)
+    flops = 4.0 * s * n * m * p + 5.0 * s * n * m * math.log2(m)
+    res["bound_ms"], res["bound_by"] = bound(flops, F32_PEAK, nbytes)
+    res["share_of_bound"] = res["bound_ms"] / res["ms"]
+    v = pk.pfb_rows(hist, x, hp2)[0]
+    res["library_ms"] = cuda_ms(
+        lambda: torch.fft.ifft(v, dim=-1, norm="forward"), 10)
+    del v, y, nh
+    ok = err <= pk.BINS_REL * scale and same
+    log(f"pfb bins kernel: {what} S={s} T={t} {res['wire']} M={m} P={p}: "
+        f"max |err| {err:.3e} = {err / scale:.3e} of max|bins| (bound "
+        f"{pk.BINS_REL:g}), new history identical {same}; chain "
+        f"{res['plain_turns_ms'][0]:.4f}, kernel "
+        f"{res['kernel_turns_ms'][0]:.4f}, {res['kernel_turns_ms'][1]:.4f}, "
+        f"chain {res['plain_turns_ms'][1]:.4f} ms: {res['speedup']:.2f}x; "
+        f"plain {res['plain_ms']:.4f} ms; bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']}, {nbytes} B, {flops:.4g} FLOP), share "
+        f"{res['share_of_bound']:.3f}; library (torch.fft.ifft of the rows) "
+        f"{res['library_ms']:.4f} ms {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"{what}: pfb_rows not once a step")
+        raise AssertionError(f"pfb bins kernel: {what} disagrees")
+    return res
+
+
+def phase_pfb_bins(dev) -> dict:
+    """``pfb bins kernel:`` the pfb step's coarse PFB in one kernel at the
+    bench shape (128 sources × 240000 bf16 samples, M = 6, P = 24, a
+    random mid-stream history) and on the runtime's float32 wire, then
+    the pfb mode's 80 dB banks at M = 8, 16, 20, 25, 50 and 100
+    (``PFB_BINS_CASES``: 3.2 to 40 MS/s, 16 sources × 100 ms), and a
+    60-sample block after the bench block, from the kernel's own new
+    history."""
+    from radiocapture_tpu_torch.ops.channelizer import PfbChannelizer
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def cnormal(*shape):
+        return torch.view_as_complex(torch.randn(shape + (2,),
+                                                 generator=gen, device=dev))
+
+    pfb = PfbChannelizer.for_rates(SAMP_RATE, 6, atten_db=80.0)
+    s = BENCH_SOURCES
+    hist = cnormal(s, (pfb.p - 1) * pfb.num_channels)
+    x = torch.randn((s, BLOCK, 2), generator=gen, device=dev).to(
+        torch.bfloat16)
+    res = {"bf16": pfb_bins_case(pfb, hist, x, "bench"),
+           "f32": pfb_bins_case(pfb, hist, x.float(), "runtime float32")}
+    for m, wire in PFB_BINS_CASES:
+        pm = PfbChannelizer.for_rates(m * BIN_RATE, m, atten_db=80.0)
+        xm = torch.randn((PFB_BINS_SOURCES, int(m * BIN_RATE * 0.1), 2),
+                         generator=gen, device=dev)
+        xm = (torch.view_as_complex(xm) if wire == "complex64" else
+              xm.to(getattr(torch, wire)))
+        res[f"m{m}"] = pfb_bins_case(
+            pm, cnormal(PFB_BINS_SOURCES, (pm.p - 1) * m), xm,
+            f"{m * BIN_RATE / 1e6:g} MS/s bank")
+        del xm
+    after, _ = pfb.bins(pfb.init(s, dev)._replace(history=hist), x)
+    res["short"] = pfb_bins_case(pfb, after.history, x[:, :60].contiguous(),
+                                 "short block after the bench block")
+    res["max_abs_err"] = max(r["max_abs_err"] for r in res.values())
+    res["max_rel_err"] = max(r["max_rel_err"] for r in res.values()
+                             if isinstance(r, dict))
+    return res
+
+
+def pfb_launches_match(what: str, launches: dict) -> None:
+    """The pfb path's coarse PFB ran once a pipeline step: as many
+    ``pfb_bins`` launches as fine-stage ``xlat_complex`` ones, and no
+    ``pfb_rows``."""
+    ok = (launches["pfb_bins"] == launches["xlat_complex"] > 0
+          and launches["pfb_rows"] == 0)
+    log(f"{what}: pfb_bins {launches['pfb_bins']} launches, xlat_complex "
+        f"{launches['xlat_complex']}, pfb_rows {launches['pfb_rows']}: "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: pfb_bins not once a step")
 
 
 def phase_frontend_bench(dev, frontend: str) -> dict:
@@ -2177,9 +2335,11 @@ def phase_frontend_bench(dev, frontend: str) -> dict:
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t0) * 1e3)
     lat.sort()
-    busy = (profile_steps(one_step, "c4fm pfb", PFB_GLUE,
-                          pipe.bank.pfb.p - 1) if frontend == "pfb" else
-            profile_steps(one_step, f"c4fm {frontend}"))
+    step_kernels = []
+    busy = profile_steps(one_step, f"c4fm {frontend}",
+                         *((PFB_GLUE, pipe.bank.pfb.p - 1)
+                           if frontend == "pfb" else ()),
+                         kernels=step_kernels)
     med = float(np.median(win_ms))
     res = {"frontend": frontend, "sources": s, "slots": SLOTS, "block": blk,
            "block_ms": block_ms, "window_step_ms": win_ms,
@@ -2187,6 +2347,9 @@ def phase_frontend_bench(dev, frontend: str) -> dict:
            "latency_p50_ms": lat[len(lat) // 2],
            "latency_p95_ms": lat[int(len(lat) * 0.95)],
            "peak_mem_bytes": peak, "profile_busy_share": busy}
+    if frontend == "pfb":
+        res["planes_copies"] = planes_copies(pipe.bank, box[0].bank, x, offs,
+                                             step_kernels)
     log(f"bench {frontend}: " + json.dumps(res))
     log(f"bench {frontend}: {type(pipe.bank).__name__} step median "
         f"{med:.3f} ms per {block_ms:.1f} ms block ({med / block_ms:.4f} of "
@@ -2194,6 +2357,39 @@ def phase_frontend_bench(dev, frontend: str) -> dict:
         f"{res['latency_p50_ms']:.3f} / p95 {res['latency_p95_ms']:.3f} ms; "
         f"peak {peak / 2 ** 30:.2f} GiB")
     return res
+
+
+def planes_copies(bank, state, x, offs, step_kernels) -> dict:
+    """Names the pfb step's two launches of one elementwise kernel:
+    ``ops/channelizer.py::planes`` (the time-major float32 planes the
+    tracker reads, two ``.contiguous()`` copies of the fine stage's
+    [S, C, N] channels transposed), which ``PfbXlatBank.call_planes``
+    calls once a step, profiled alone on the step's own channels: each
+    device kernel's full name, launches a call and ms, and what the step's
+    profile (``step_kernels``) ran of the same kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from radiocapture_tpu_torch.ops.channelizer import planes
+    _, y = bank(state, x, offs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_STEPS):
+            planes(y)
+        torch.cuda.synchronize()
+    in_step = {k: (n, ms) for k, n, ms in step_kernels}
+    res = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.key.startswith("Memcpy"):
+            continue
+        n, ms = in_step.get(e.key, (0.0, 0.0))
+        res.append({"kernel": e.key, "launches": e.count / PROFILE_STEPS,
+                    "ms": e.self_device_time_total / 1e3 / PROFILE_STEPS,
+                    "step_launches": n, "step_ms": ms})
+        log(f"profile: c4fm pfb: planes() of the step's [S, C, N] channels "
+            f"launches {res[-1]['launches']:.1f} x {e.key} "
+            f"({res[-1]['ms']:.3f} ms a call); the step runs it "
+            f"{n:.1f} times, {ms:.3f} ms")
+    return {"kernels": res}
 
 
 def phase_fsk4_block(dev, pipe) -> dict:
@@ -3558,13 +3754,14 @@ def main() -> None:
     # fine stage on the complex bank's general path, both at 128 sources
     launches_pfb = phase_decode(
         dev, ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE, frontend="pfb"),
-        "decode pfb", ("pfb_rows", "xlat_complex", "fsk_track"))
+        "decode pfb", ("pfb_bins", "xlat_complex", "fsk_track"))
     pfb_launches_match("decode pfb", launches_pfb)
     launches_fft = phase_decode(
         dev, ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE, frontend="fft"),
         "decode fft", ("fsk_track",))
     res_fine, fine_err = phase_pfb_fine(dev)
     pfb_rows = phase_pfb_rows(dev)
+    pfb_bins = phase_pfb_bins(dev)
     res_fe = {fe: phase_frontend_bench(dev, fe) for fe in ("pfb", "fft")}
 
     sp = SpectrumSplit2(SAMP_RATE)
@@ -3593,6 +3790,8 @@ def main() -> None:
         "fsk4_exact_step_ms": res_block["step_ms_block0"],
         "pfb_rows_ms": pfb_rows["bf16"]["ms"],
         "pfb_rows_f32_ms": pfb_rows["f32"]["ms"],
+        "pfb_bins_ms": pfb_bins["bf16"]["ms"],
+        "pfb_bins_f32_ms": pfb_bins["f32"]["ms"],
         "runtime_pfb_p50_ms": rt_pfb["step_p50_ms"],
         "runtime_pfb_p95_ms": rt_pfb["step_p95_ms"],
         "launches": {"decode_pfb": launches_pfb, "decode_fft": launches_fft,
@@ -3671,12 +3870,31 @@ def main() -> None:
          "replaces_what": "XLA fusion of PfbChannelizer.__call__'s "
                           "combiner (:276-290), not a Pallas kernel",
          "launches": launches_pfb["pfb_rows"],
+         "on_main_path": False,
+         "off_path_why": "the pfb step's bins run pfb_bins; pfb_rows is "
+                         "PfbChannelizer.rows, the time-major entry point",
+         "standalone_launches":
+             res_fine["pfb_bins"]["rows_launches"]["pfb_rows"],
          "max_abs_err": pfb_rows["max_abs_err"],
          **{k: pfb_rows["bf16"][k] for k in ("ms", "plain_ms", "bound_ms",
                                               "bound_by", "library_ms")},
          **{f"{shape}_{k}": v for shape, r in pfb_rows.items()
             if isinstance(r, dict) for k, v in r.items()},
          "runtime_launches": launches_rt_pfb["pfb_rows"]},
+        {"name": "pfb_bins", "route": "cuda",
+         "source": "radiocapture_tpu_torch/csrc/pfb_rows.cu",
+         "replaces": "radiocapture_tpu/ops/channelizer.py:276",
+         "replaces_what": "XLA fusion of PfbChannelizer.__call__ "
+                          "(:276-295: the combiner, the IDFT, the "
+                          "rotation), not a Pallas kernel",
+         "launches": launches_pfb["pfb_bins"],
+         "max_abs_err": pfb_bins["max_abs_err"],
+         "max_rel_err": pfb_bins["max_rel_err"],
+         **{k: pfb_bins["bf16"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")},
+         **{f"{shape}_{k}": v for shape, r in pfb_bins.items()
+            if isinstance(r, dict) for k, v in r.items()},
+         "runtime_launches": launches_rt_pfb["pfb_bins"]},
         {"name": "xlat_bank", "route": "cuda",
          "source": "radiocapture_tpu_torch/csrc/xlat_bank.cu",
          "replaces": "radiocapture_tpu/ops/pallas_channelizer.py:201",

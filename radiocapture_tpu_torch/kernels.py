@@ -71,6 +71,9 @@ _SIGNATURES = {
     "agc_launch": (_P,) * 3 + (_I,) * 3 + (_P,),
     # hist, x, hp2, v, new_hist, S, T, M, P, x_bf16, stream
     "pfb_rows_launch": (_P,) * 5 + (_I,) * 5 + (_P,),
+    # hist, x, hp2, table, bins, new_hist, S, T, M, P, x_bf16, k, wb,
+    # slabs, stream
+    "pfb_bins_launch": (_P,) * 6 + (_I,) * 8 + (_P,),
 }
 
 

@@ -12,7 +12,8 @@ blocks) goes through the float32 complex bank (kernel
 JAX ``__call__`` does.
 
 Also the ``pfb`` frontend mode: ``PfbChannelizer`` (the coarse polyphase
-FFT channelizer, its combiner the kernel ``csrc/pfb_rows.cu``) and
+FFT channelizer, its bins one launch of ``csrc/pfb_rows.cu``'s
+``pfb_bins`` kernel) and
 ``PfbXlatBank`` (its bins, then a fine xlat filter per slot on the
 complex bank kernel).
 """
@@ -29,7 +30,7 @@ from radiocapture_tpu_torch.ops.channelizer_kernel import (
     bank_complex, bank_fused, bank_operands, bank_operands_plain, tap_matrix,
     wire_z2)
 from radiocapture_tpu_torch.ops.fir import U32_MASK, XlatState, phase_step_u32
-from radiocapture_tpu_torch.ops.pfb_kernel import pfb_rows
+from radiocapture_tpu_torch.ops.pfb_kernel import pfb_bins, pfb_rows, rotation
 
 
 class XlatBankState(NamedTuple):
@@ -298,10 +299,7 @@ class PfbChannelizer:
         # branch m sees x[nM - m - pM]; rows of M samples arrive with the
         # branch index reversed, so keep the reversed-row polyphase matrix
         self.hp2 = np.ascontiguousarray(hp[::-1])  # [M, P], row M-1-m
-        # per-channel rotation from the K-1 group delay, e^{j2πc/M}, at the
-        # float32 angles the JAX package takes
-        ang = np.float32(2.0 * np.pi / m) * np.arange(m, dtype=np.float32)
-        self.rot = np.exp(1j * ang.astype(np.float64)).astype(np.complex64)
+        self.rot = rotation(m)   # e^{j2πc/M}, the K-1 group delay's
         self._consts: dict = {}
 
     @classmethod
@@ -353,21 +351,19 @@ class PfbChannelizer:
     def bins(self, state: PfbState, x: torch.Tensor
              ) -> tuple[PfbState, torch.Tensor]:
         """``rows`` with the channels bin-major: (state, [S, M, T//M]
-        complex64, contiguous), the values of ``rows``' channels
-        transposed bit for bit. On CUDA the rotation multiply reads the
-        IDFT time-major and writes the bins bin-major, in the pass it
-        makes anyway; each bin is then a contiguous row that the fine
-        stage reads in place. On the CPU, whose vectorized and strided
-        complex multiplies round apart, the multiply runs time-major as in
-        ``rows`` and the product is copied bin-major."""
-        state, f, rot = self._idft(state, x)
-        s, n, m = f.shape
-        y = torch.empty((s, m, n), dtype=torch.complex64, device=f.device)
-        if f.device.type == "cpu":
-            y.copy_((f * rot).transpose(1, 2))
-        else:
-            torch.mul(f.transpose(1, 2), rot[:, None], out=y)
-        return state, y
+        complex64, contiguous), each bin a contiguous row that the fine
+        stage reads in place. ``pfb_bins``: on CUDA one launch of
+        ``csrc/pfb_rows.cu``'s ``pfb_bins`` kernel (the combiner, the
+        IDFT and the rotation from the block and the history where they
+        lie, the new history bit for bit ``rows``', the channels within a
+        few float32 ulps of ``rows``' transposed); on the CPU its plain
+        version, ``rows``' channels transposed bit for bit."""
+        m = self.num_channels
+        if x.shape[1] % m:
+            raise ValueError(f"block {x.shape[1]} is not a multiple of "
+                             f"M={m}")
+        y, hist = pfb_bins(state.history, x, self.device_hp2(x.device))
+        return PfbState(history=hist), y
 
     def __call__(self, state: PfbState, x: torch.Tensor
                  ) -> tuple[PfbState, torch.Tensor]:

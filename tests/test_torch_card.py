@@ -963,10 +963,12 @@ def test_pfb_fine_stage_in_place_at_bench_shape(cuda_device):
     (800e3, 8, 60.0, "complex64", 8000), (1.6e6, 16, 60.0, "float32", 1600)])
 def test_pfb_bins_are_ifft_rot_transposed(cuda_device, fs, m, atten, wire,
                                           t):
-    """``PfbChannelizer.bins`` on the card (the rotation multiply writing
-    bin-major) is ``(ifft(v) · rot)`` transposed and ``rows``' channels
-    transposed, every value bit for bit: the bench shape (128 sources, bf16)
-    and small float32 and complex64 blocks at M = 6, 8 and 16."""
+    """``PfbChannelizer.bins`` on the card (one ``pfb_bins`` launch) is
+    ``(ifft(v) · rot)`` transposed and ``rows``' channels transposed within
+    ``BINS_REL``·max|bins| (the kernel's IDFT sums in another order than
+    cuFFT), with ``rows``' new history bit for bit: the bench shape (128
+    sources, bf16) and small float32 and complex64 blocks at M = 6, 8 and
+    16."""
     pfb = TCH.PfbChannelizer.for_rates(fs, m, atten_db=atten)
     rng = np.random.default_rng(m + t)
     s = 128 if t == 240000 else 3
@@ -976,16 +978,20 @@ def test_pfb_bins_are_ifft_rot_transposed(cuda_device, fs, m, atten, wire,
          torch.view_as_complex(x) if wire == "complex64" else x)
     st = pfb.init(s, cuda_device)._replace(history=torch.as_tensor(
         _complex_normal(rng, (s, (pfb.p - 1) * m)), device=cuda_device))
-    _, yb = pfb.bins(st, x)
-    _, yr = pfb.rows(st, x)
+    before = pk.pfb_bins.launches
+    sb, yb = pfb.bins(st, x)
+    assert pk.pfb_bins.launches == before + 1
+    sr, yr = pfb.rows(st, x)
     v, _ = pk.pfb_rows(st.history, x, pfb.device_hp2(cuda_device))
     rot = torch.as_tensor(pfb.rot, device=cuda_device)
     want = torch.fft.ifft(v, dim=-1, norm="forward") * rot
     assert yb.shape == (s, m, t // m) and yb.is_contiguous()
-    bits = torch.view_as_real(yb).view(torch.int32)
     for ref in (want, yr):
-        assert torch.equal(bits, torch.view_as_real(ref.transpose(1, 2))
-                           .view(torch.int32))
+        ref = ref.transpose(1, 2)
+        assert float((yb - ref).abs().max()) <= pk.BINS_REL * float(
+            ref.abs().max())
+    assert torch.equal(torch.view_as_real(sb.history),
+                       torch.view_as_real(sr.history))
 
 
 @pytest.mark.cuda
@@ -1054,11 +1060,11 @@ def check_card_against_cpu(dev0, frontend, fs, fsk4_block=0):
     outs, chans = [], []
     for dev in (dev0, torch.device("cpu")):
         st = pipe.bank.init(1, dev)
-        before = ck.bank_complex.launches, pk.pfb_rows.launches
+        before = ck.bank_complex.launches, pk.pfb_bins.launches
         _, y = pipe.bank(st, x[:, :bm].to(dev), offs.to(dev))
         if frontend == "pfb" and dev.type == "cuda":
             assert (ck.bank_complex.launches,
-                    pk.pfb_rows.launches) == (before[0] + 1, before[1] + 1)
+                    pk.pfb_bins.launches) == (before[0] + 1, before[1] + 1)
         chans.append(y.cpu())
         st = pipe.init(1, dev)
         got = []
@@ -1130,6 +1136,43 @@ def test_pfb_rows_kernel_matches_plain(cuda_device, case):
                        pfb.num_channels)
     assert torch.equal(torch.view_as_real(v).view(torch.int32),
                        torch.view_as_real(pv).view(torch.int32))
+    assert torch.equal(torch.view_as_real(nh).view(torch.int32),
+                       torch.view_as_real(pnh).view(torch.int32))
+
+
+# ---- the pfb step's coarse PFB in one kernel: pfb_bins (csrc/pfb_rows.cu)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["bench_bf16", "bench_f32", "m8", "m16",
+                                  "m20", "m25", "m50", "m100", "short"])
+def test_pfb_bins_kernel_matches_plain(cuda_device, case):
+    """``pfb_bins`` against ``pfb_bins_plain`` on the card, one launch:
+    the bench shape (128 × 240000 samples, M = 6) on bf16 and float32
+    wires, the pfb mode's 80 dB banks at M = 8 (complex64), 16 (float32),
+    20 and 25 (the live config's 8 and 10 MS/s, bf16), 50 (bf16, four
+    rounds of warps) and 100 (float32, K_SMALL rows a lane), and a
+    60-sample block after a bench block. The bins within
+    ``BINS_REL``·max|bins|, the new history bit-identical."""
+    if case in ("bench_bf16", "bench_f32", "short"):
+        pfb, hist, x = _pfb_rows_inputs(cuda_device, case)
+    else:
+        m = int(case[1:])
+        pfb = TCH.PfbChannelizer.for_rates(m * 400e3, m, atten_db=80.0)
+        rng = np.random.default_rng(m)
+        hist = torch.as_tensor(_complex_normal(rng, (4, (pfb.p - 1) * m)),
+                               device=cuda_device)
+        x = torch.as_tensor(rng.standard_normal((4, m * 4000, 2)).astype(
+            np.float32), device=cuda_device)
+        x = {8: torch.view_as_complex(x), 16: x, 100: x}.get(
+            m, x.to(torch.bfloat16))
+    hp2 = pfb.device_hp2(cuda_device)
+    before = pk.pfb_bins.launches
+    y, nh = pk.pfb_bins(hist, x, hp2)
+    assert pk.pfb_bins.launches == before + 1
+    py, pnh = pk.pfb_bins_plain(hist, x, hp2)
+    assert y.shape == py.shape and y.is_contiguous()
+    scale = float(py.abs().max())
+    assert float((y - py).abs().max()) <= pk.BINS_REL * scale
     assert torch.equal(torch.view_as_real(nh).view(torch.int32),
                        torch.view_as_real(pnh).view(torch.int32))
 

@@ -89,6 +89,37 @@ def stage(z, s, t, m, p, t0, span, mb, mb_n, pitch, vec, off):
     return planes
 
 
+def branch_sums(pl, hq, base, p, k):
+    """A warp's sums of one branch (the kernel's ``branch_sums``), lane l
+    at row base[l]: the first tap's products, then Q-tap register windows
+    carrying their K-1 lowest rows, the last window guarded. Returns (the
+    rows [32, K], their sums complex64)."""
+    rows = base[:, None] + np.arange(k)
+    first = pl[rows + p - 1]
+    re = first.real * hq[0]          # float32 products
+    im = first.imag * hq[0]
+    w = np.zeros((len(base), k + Q - 1), np.complex64)
+    w[:, Q:Q + k - 1] = first[:, :k - 1]
+    q0 = 1
+    while q0 < p:
+        guard = q0 + Q > p
+        idx = (base + p - 1 - (q0 + Q - 1))[:, None] + np.arange(Q)
+        if guard:
+            idx = np.maximum(idx, 0)
+        assert 0 <= idx.min() and idx.max() < len(pl)
+        w[:, :Q] = pl[idx]
+        for q in range(Q):
+            if guard and q0 + q >= p:
+                continue
+            win = w[:, Q - 1 - q:Q - 1 - q + k]
+            c = np.float32(hq[q0 + q])
+            re = fmaf(win.real, c, re)
+            im = fmaf(win.imag, c, im)
+        w[:, Q:Q + k - 1] = w[:, :k - 1].copy()
+        q0 += Q
+    return rows, (re + 1j * im).astype(np.complex64)
+
+
 def emulate(hist, x, hp2, wire, base_off):
     """``pfb_rows`` as the kernel's plan computes it: (v, new history,
     per-output write counts)."""
@@ -122,33 +153,9 @@ def emulate(hist, x, hp2, wire, base_off):
                     ml, slab = warp % mb_w, warp // mb_w
                     if ml >= mb_n or t0 + slab * 32 * k >= n:
                         continue
-                    pl, hq = planes[ml], taps[mb + ml]
-                    base = slab * 32 * k + lanes * k
-                    rows = base[:, None] + np.arange(k)
-                    first = pl[rows + p - 1]
-                    re = first.real * hq[0]          # float32 products
-                    im = first.imag * hq[0]
-                    w = np.zeros((32, k + Q - 1), np.complex64)
-                    w[:, Q:Q + k - 1] = first[:, :k - 1]
-                    q0 = 1
-                    while q0 < p:
-                        guard = q0 + Q > p
-                        idx = (base + p - 1 - (q0 + Q - 1))[:, None] \
-                            + np.arange(Q)
-                        if guard:
-                            idx = np.maximum(idx, 0)
-                        assert 0 <= idx.min() and idx.max() < pitch
-                        w[:, :Q] = pl[idx]
-                        for q in range(Q):
-                            if guard and q0 + q >= p:
-                                continue
-                            win = w[:, Q - 1 - q:Q - 1 - q + k]
-                            c = np.float32(hq[q0 + q])
-                            re = fmaf(win.real, c, re)
-                            im = fmaf(win.imag, c, im)
-                        w[:, Q:Q + k - 1] = w[:, :k - 1].copy()
-                        q0 += Q
-                    out[rows * mb_w + (mb_w - 1 - ml)] = re + 1j * im
+                    rows, val = branch_sums(planes[ml], taps[mb + ml],
+                                            slab * 32 * k + lanes * k, p, k)
+                    out[rows * mb_w + (mb_w - 1 - ml)] = val
                 rows_out = min(r_rows, n - t0)
                 if mb_w == m:
                     idx = np.arange(rows_out * m)
