@@ -46,13 +46,16 @@ paths, the scan slice, live SDR ingest and the mesh steps.
    bit-identical, with eager / kernel / kernel / eager ms, its bytes
    bound and a grouped ``conv1d`` yardstick (``pfb rows kernel:``); the
    step's coarse PFB in one kernel (``pfb_bins``, the same file: the
-   combiner, the IDFT and the rotation) against ``pfb_bins_plain`` within
+   combiner, the IDFT, factored as M1·M2 where the plan factors M, and
+   the rotation) against ``pfb_bins_plain`` within
    ``BINS_REL``·max|bins|, the new history bit-identical, at the bench
    shape on bf16 and float32 wires, the pfb mode's banks at M = 8, 16,
    20, 25, 50 and 100 and a 60-sample block, each in turns with the chain
    it replaced (``pfb_rows``, cuFFT, the bin-major multiply), beside its
    bytes bound and one ``torch.fft.ifft`` of the rows (``pfb bins
-   kernel:``); the pfb fine stage (``PfbXlatBank``: one K2 = 467-tap filter per slot on
+   kernel:``), and with its plan in turns with commit ef6af1a's kernel,
+   the direct [M, M] table (``tools/pfb_rows_ef6af1a.cu``; ``pfb bins
+   turns:``); the pfb fine stage (``PfbXlatBank``: one K2 = 467-tap filter per slot on
    the complex bank kernel's general path, its narrow plan, each row
    reading its slot's bin in place from the bin-major bins through a row
    index) against its plain version on the gathered rows, with the bins
@@ -66,7 +69,10 @@ paths, the scan slice, live SDR ingest and the mesh steps.
    (``bench pfb:``, ``bench fft:``; fft's block is 390336 samples,
    162.6 ms; the pfb profile may run no ``cat``, no ``addcmul_``, no
    gather, no cuFFT, no complex multiply, no ``pfb_rows`` and no kernel
-   P-1 times a step), and
+   P-1 times a step), the pfb step again at the live config's 10 MS/s
+   sources (M = 25, 128 sources × 100 ms, ``bench pfb 10 MS/s:``) with
+   ``pfb_bins``' share of it and in turns with the same step on commit
+   ef6af1a's ``pfb_bins``, and
    the step with ``fsk4_block = 10`` against the tracker kernel's
    (``fsk4 block:``) and a P25 grant through it (``decode fsk4
    block:``, no tracker kernel launched).
@@ -235,6 +241,7 @@ BIN_RATE = 400e3
 PFB_BINS_CASES = ((8, "complex64"), (16, "float32"), (20, "bfloat16"),
                   (25, "bfloat16"), (50, "bfloat16"), (100, "float32"))
 PFB_BINS_SOURCES = 16
+LIVE_PFB_RATE = 10e6       # configs/config_example_live.py's bladerf: M = 25
 CLOCK_RUN_S = 1.0          # tracker run while nvidia-smi samples clocks
 # the scan slice (scan/, tools/file_to_wav.py)
 SCAN_CENTER = 857.0e6
@@ -328,9 +335,10 @@ def bound(ops: float, peak: float, nbytes: int) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def grid_offsets(n_sources: int, dev) -> torch.Tensor:
+def grid_offsets(n_sources: int, dev,
+                 samp_rate: float = SAMP_RATE) -> torch.Tensor:
     """bench.py's slot grid: 25 kHz spacing around the centre."""
-    offs = ((np.arange(SLOTS) - SLOTS // 2) * 25e3 / SAMP_RATE).astype(
+    offs = ((np.arange(SLOTS) - SLOTS // 2) * 25e3 / samp_rate).astype(
         np.float32)
     return torch.as_tensor(np.tile(offs, (n_sources, 1)), device=dev)
 
@@ -505,11 +513,12 @@ def phase_tracker(dev, pipe) -> float:
     return err
 
 
-def frontend_block(pipe) -> int:
-    """The pipeline's block: BLOCK where its block multiple divides it
-    (xlat, pfb), else one multiple (fft: 390336 samples, 162.6 ms)."""
+def frontend_block(pipe, samp_rate: float = SAMP_RATE) -> int:
+    """The pipeline's block: 100 ms where its block multiple divides it
+    (xlat, pfb; BLOCK at 2.4 MS/s), else one multiple (fft: 390336
+    samples, 162.6 ms)."""
     bm = pipe.block_multiple
-    return bm * max(1, BLOCK // bm)
+    return bm * max(1, round(samp_rate * 0.1) // bm)
 
 
 def phase_decode(dev, pipe, what: str = "decode",
@@ -2197,9 +2206,14 @@ def pfb_bins_case(pfb, hist, x, what: str) -> dict:
     taps' float32 FLOP and an FFT's for the IDFT), and the library
     yardstick: one
     ``torch.fft.ifft`` of the same [S, T/M, M] rows, made outside the
-    timed region."""
+    timed region. Then the kernel's plan (the IDFT's factors and FLOP a
+    row) and the kernel in turns with commit ef6af1a's, the direct
+    [M, M] table (``tools/pfb_rows_ef6af1a.cu``; its bins within
+    BINS_REL·max|bins| of the package's and its new history bit-identical,
+    or the case fails)."""
     from radiocapture_tpu_torch.ops import pfb_kernel as pk
     from radiocapture_tpu_torch.ops.channelizer import PfbState
+    from radiocapture_tpu_torch.tools import track_turns
     hp2 = pfb.device_hp2(x.device)
     m, p = hp2.shape
     s, t = x.shape[:2]
@@ -2221,9 +2235,12 @@ def pfb_bins_case(pfb, hist, x, what: str) -> dict:
     res["ms"] = float(np.mean(res["kernel_turns_ms"]))
     res["chain_ms"] = float(np.mean(res["plain_turns_ms"]))
     res["plain_ms"] = cuda_ms(lambda: pk.pfb_bins_plain(hist, x, hp2), 3)
-    nbytes = tensor_bytes(hist, x, hp2, pk.device_table(m, x.device), y, nh)
+    k, wb, slabs, m1, m2, shared = pk.bins_plan(
+        m, p, x.dtype == torch.bfloat16)
+    nbytes = tensor_bytes(hist, x, hp2, pk.device_table(m, m1, m2, x.device),
+                          y, nh)
     # the IDFT at an FFT's 5·M·log2 M FLOP a row, the least the function
-    # needs; the kernel's direct DFT does 8·M² (D.6g)
+    # needs; the kernel does 8·M·(M1 + M2), or 8·M² on the direct table
     flops = 4.0 * s * n * m * p + 5.0 * s * n * m * math.log2(m)
     res["bound_ms"], res["bound_by"] = bound(flops, F32_PEAK, nbytes)
     res["share_of_bound"] = res["bound_ms"] / res["ms"]
@@ -2231,7 +2248,23 @@ def pfb_bins_case(pfb, hist, x, what: str) -> dict:
     res["library_ms"] = cuda_ms(
         lambda: torch.fft.ifft(v, dim=-1, norm="forward"), 10)
     del v, y, nh
-    ok = err <= pk.BINS_REL * scale and same
+    res["plan"] = {"k": k, "wb": wb, "slabs": slabs, "m1": m1, "m2": m2,
+                   "shared": shared}
+    res["idft_flop_per_row"] = 8 * m * (m1 + m2 if m1 > 1 else m)
+    old = track_turns.bins_turns(track_turns.EARLIER_BINS, hist, x, hp2,
+                                 iters=10)
+    res["ef6af1a_turns"] = old
+    res["ef6af1a_ms"] = float(np.mean(old["other_ms"]))
+    ok = (err <= pk.BINS_REL * scale and same
+          and old["max_rel_diff"] <= pk.BINS_REL and old["history_identical"])
+    log(f"pfb bins turns: {what} M={m}: plan "
+        f"{'direct [M, M] table' if m1 == 1 else f'{m1} x {m2}'}, IDFT "
+        f"{res['idft_flop_per_row']} FLOP a row (direct {8 * m * m}), k={k} "
+        f"wb={wb} slabs={slabs} shared {shared} B; ef6af1a "
+        f"{old['other_ms'][0]:.4f}, kernel {old['package_ms'][0]:.4f}, "
+        f"{old['package_ms'][1]:.4f}, ef6af1a {old['other_ms'][1]:.4f} ms: "
+        f"{old['speedup']:.2f}x, bins within {old['max_rel_diff']:.3e} of "
+        f"max|bins|, history identical {old['history_identical']}")
     log(f"pfb bins kernel: {what} S={s} T={t} {res['wire']} M={m} P={p}: "
         f"max |err| {err:.3e} = {err / scale:.3e} of max|bins| (bound "
         f"{pk.BINS_REL:g}), new history identical {same}; chain "
@@ -2301,20 +2334,24 @@ def pfb_launches_match(what: str, launches: dict) -> None:
         raise AssertionError(f"{what}: pfb_bins not once a step")
 
 
-def phase_frontend_bench(dev, frontend: str) -> dict:
-    """``ControlPipeline.p25_c4fm(64, 2.4e6, frontend=...)`` at 128
+def phase_frontend_bench(dev, frontend: str,
+                         samp_rate: float = SAMP_RATE) -> dict:
+    """``ControlPipeline.p25_c4fm(64, samp_rate, frontend=...)`` at 128
     sources, bf16 wire blocks of ``frontend_block`` samples (fft: 390336,
     162.6 ms): step ms by CUDA events, MS/s, latency p50/p95 against the
-    block's own duration, peak memory and the profile."""
+    block's own duration, peak memory and the profile; for pfb also
+    ``pfb_bins``' ms a step in the profile and its share of the step."""
     from radiocapture_tpu_torch.frontend.pipeline import ControlPipeline
     s = BENCH_SOURCES
-    pipe = ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE, frontend=frontend)
-    blk = frontend_block(pipe)
-    block_ms = blk / SAMP_RATE * 1e3
+    pipe = ControlPipeline.p25_c4fm(SLOTS, samp_rate, frontend=frontend)
+    blk = frontend_block(pipe, samp_rate)
+    block_ms = blk / samp_rate * 1e3
+    what = (frontend if samp_rate == SAMP_RATE
+            else f"{frontend} {samp_rate / 1e6:g} MS/s")
     gen = torch.Generator(device=dev).manual_seed(4)
     x = torch.randn((s, blk, 2), generator=gen, device=dev).to(
         torch.bfloat16)
-    offs = grid_offsets(s, dev)
+    offs = grid_offsets(s, dev, samp_rate)
     box = [pipe.init(s, dev)]
 
     def one_step():
@@ -2336,22 +2373,38 @@ def phase_frontend_bench(dev, frontend: str) -> dict:
         lat.append((time.perf_counter() - t0) * 1e3)
     lat.sort()
     step_kernels = []
-    busy = profile_steps(one_step, f"c4fm {frontend}",
+    busy = profile_steps(one_step, f"c4fm {what}",
                          *((PFB_GLUE, pipe.bank.pfb.p - 1)
                            if frontend == "pfb" else ()),
                          kernels=step_kernels)
     med = float(np.median(win_ms))
-    res = {"frontend": frontend, "sources": s, "slots": SLOTS, "block": blk,
+    res = {"frontend": frontend, "samp_rate": samp_rate, "sources": s,
+           "slots": SLOTS, "block": blk,
            "block_ms": block_ms, "window_step_ms": win_ms,
            "step_ms_median": med, "msps_median": s * blk / med / 1e3,
            "latency_p50_ms": lat[len(lat) // 2],
            "latency_p95_ms": lat[int(len(lat) * 0.95)],
            "peak_mem_bytes": peak, "profile_busy_share": busy}
     if frontend == "pfb":
+        bins_ms = sum(ms for k, _, ms in step_kernels if "pfb_bins" in k)
+        res.update(M=pipe.bank.m, pfb_bins_ms=bins_ms,
+                   pfb_bins_share=bins_ms / med)
+        log(f"bench {what}: pfb_bins (M={pipe.bank.m}) {bins_ms:.4f} ms a "
+            f"step in the profile, {bins_ms / med:.3f} of the step")
+    if frontend == "pfb" and samp_rate == SAMP_RATE:
         res["planes_copies"] = planes_copies(pipe.bank, box[0].bank, x, offs,
                                              step_kernels)
-    log(f"bench {frontend}: " + json.dumps(res))
-    log(f"bench {frontend}: {type(pipe.bank).__name__} step median "
+    elif frontend == "pfb":
+        from radiocapture_tpu_torch.tools import track_turns
+        t = track_turns.bins_step_turns(track_turns.EARLIER_BINS, samp_rate,
+                                        s)
+        res["ef6af1a_step_turns"] = t
+        log(f"bench {what}: the step with ef6af1a's pfb_bins (the direct "
+            f"table) in turns: {t['other_step_ms'][0]:.3f}, this one "
+            f"{t['package_step_ms'][0]:.3f}, {t['package_step_ms'][1]:.3f}, "
+            f"ef6af1a {t['other_step_ms'][1]:.3f} ms: {t['speedup']:.3f}x")
+    log(f"bench {what}: " + json.dumps(res))
+    log(f"bench {what}: {type(pipe.bank).__name__} step median "
         f"{med:.3f} ms per {block_ms:.1f} ms block ({med / block_ms:.4f} of "
         f"it) = {res['msps_median']:.1f} MS/s; latency p50 "
         f"{res['latency_p50_ms']:.3f} / p95 {res['latency_p95_ms']:.3f} ms; "
@@ -3763,6 +3816,8 @@ def main() -> None:
     pfb_rows = phase_pfb_rows(dev)
     pfb_bins = phase_pfb_bins(dev)
     res_fe = {fe: phase_frontend_bench(dev, fe) for fe in ("pfb", "fft")}
+    # the live config's 10 MS/s source: the pfb step at M = 25
+    res_fe["pfb10"] = phase_frontend_bench(dev, "pfb", LIVE_PFB_RATE)
 
     sp = SpectrumSplit2(SAMP_RATE)
     cbank_err = phase_complex_bank(dev, sp)
@@ -3792,6 +3847,8 @@ def main() -> None:
         "pfb_rows_f32_ms": pfb_rows["f32"]["ms"],
         "pfb_bins_ms": pfb_bins["bf16"]["ms"],
         "pfb_bins_f32_ms": pfb_bins["f32"]["ms"],
+        "pfb_10msps_step_ms": res_fe["pfb10"]["step_ms_median"],
+        "pfb_10msps_bins_share": res_fe["pfb10"]["pfb_bins_share"],
         "runtime_pfb_p50_ms": rt_pfb["step_p50_ms"],
         "runtime_pfb_p95_ms": rt_pfb["step_p95_ms"],
         "launches": {"decode_pfb": launches_pfb, "decode_fft": launches_fft,

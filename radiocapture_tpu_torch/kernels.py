@@ -72,8 +72,8 @@ _SIGNATURES = {
     # hist, x, hp2, v, new_hist, S, T, M, P, x_bf16, stream
     "pfb_rows_launch": (_P,) * 5 + (_I,) * 5 + (_P,),
     # hist, x, hp2, table, bins, new_hist, S, T, M, P, x_bf16, k, wb,
-    # slabs, stream
-    "pfb_bins_launch": (_P,) * 6 + (_I,) * 8 + (_P,),
+    # slabs, m1, m2, stream
+    "pfb_bins_launch": (_P,) * 6 + (_I,) * 10 + (_P,),
 }
 
 

@@ -12,10 +12,13 @@ the flipped rows once, bit for bit the plain version's on the card.
 
 ``pfb_bins`` is the whole ``__call__`` (channelizer.py:276-295: the
 combiner, the M-point IDFT, the channel rotation, the bins bin-major) in
-one launch: the same staging and sums, then each row's channels through
-one folded [M, M] table (``bins_table``). Its plain version,
-``pfb_bins_plain``, is the chain the pfb step ran before it:
-``pfb_rows_plain``, ``torch.fft.ifft``, the rotation, bin-major.
+one launch: the same staging and sums, then each row's IDFT, factored as
+M = M1·M2 (``idft_factors``, ``factored_tables``: M2 DFTs of length M1,
+then M1 of length M2 with the twiddles and the rotation in their
+constants) or, where the plan does not factor M, through one folded
+[M, M] table (``bins_table``). Its plain version, ``pfb_bins_plain``, is
+the chain the pfb step ran before it: ``pfb_rows_plain``,
+``torch.fft.ifft``, the rotation, bin-major.
 """
 
 from __future__ import annotations
@@ -30,11 +33,24 @@ MB_MAX = 16          # pfb_rows' branches a block, pfb_bins' warps a slab
 WARPS_MAX = 8        # warps a block aims for
 WIRE_K = {True: 11, False: 7}   # rows a lane, by bf16 wire
 K_SMALL = 3          # rows a lane where the wire's K does not fit
-CB = 8               # channels a thread sums at once
+K_MID = 7            # rows a lane between the two
+CB = 8               # channels a direct-path thread sums at once
+CB_NARROW = 6        # ... where 6 pads no more channels (direct_chunk)
+FACTOR_MAX = 16      # the largest factor of a factored IDFT
 SMEM_MAX = 232448    # shared memory a block can use on the H100
+# what an H100 SM holds for the plan's blocks: shared memory (less the 1 KB
+# CUDA reserves a block), registers (64 a thread under the kernel's
+# __launch_bounds__(512, 2)), threads
+SM_SHARED, BLOCK_RESERVED, SM_REGS, REGS, SM_THREADS = (233472, 1024,
+                                                        65536, 64, 2048)
+# M that the plan leaves on the direct table although it factors: where
+# the direct path measured faster on an H100 (2·3 and 2·4 save too few
+# FLOP for the factored epilogue's second pass through the planes)
+DIRECT_M = (6, 8)
 # pfb_bins against pfb_bins_plain on the card, × max|bins|: the IDFT's sum
-# order is not cuFFT's and the rotation is folded into its table (at most
-# 6.0e-7 measured, at M = 100, on an H100 80GB HBM3 at 700 W)
+# order is not cuFFT's and the rotation is folded into its tables (at most
+# 2.9e-7 measured with the factored IDFT, at M = 25, and 7.7e-7 with the
+# direct table at M = 100, on an H100 80GB HBM3 at 700 W)
 BINS_REL = 2e-6
 
 
@@ -92,6 +108,64 @@ def bins_table(m: int) -> np.ndarray:
     k = (c * (m - 1 - np.arange(m))[None, :]) % m
     w = np.exp(2j * np.pi * k / m) * np.exp(1j * _rotation_angles(m))[:, None]
     return w.astype(np.complex64)
+
+
+def idft_factors(m: int) -> tuple[int, int]:
+    """The factored IDFT's (M1, M2) for M branches: M1·M2 = M, 2 ≤ M1 ≤
+    M2 ≤ FACTOR_MAX, the pair with the least M1 + M2 (8·M·(M1 + M2) FLOP
+    a row against the direct table's 8·M²). (1, M), the direct table, for
+    an M with no such pair (a prime such as 7, 11 or 13, or one whose
+    cofactor passes FACTOR_MAX, as 2·53) and for the M of ``DIRECT_M``."""
+    pairs = [(a, m // a) for a in range(2, int(m ** 0.5) + 1)
+             if m % a == 0 and m // a <= FACTOR_MAX]
+    if not pairs or m in DIRECT_M:
+        return 1, m
+    return min(pairs, key=sum)
+
+
+def _even(n: int) -> int:
+    return n + (n & 1)
+
+
+def _whole(n: int, c: int) -> int:
+    return -(-n // c) * c
+
+
+def direct_chunk(m: int) -> int:
+    """The direct path's channels a thread (csrc/pfb_rows.cu's
+    ``direct_chunk``): CB_NARROW where it pads no more of the M channels
+    than CB, else CB."""
+    return CB_NARROW if _whole(m, CB_NARROW) <= _whole(m, CB) else CB
+
+
+def factored_tables(m: int, m1: int, m2: int) -> np.ndarray:
+    """The factored IDFT's constants, flat complex64: W1 [M1, M1] then T2
+    [M, M2], each row padded with zeros to an even length (two constants a
+    16-byte load). With u[m] = v'[M-1-m] (the flip) and m = M2·m1 + m2,
+    c = c1 + M1·c2:
+
+        A[c1, m2] = Σ_m1 u[M2·m1 + m2] · W1[c1, m1]
+        bins[c]   = Σ_m2 A[c1, m2] · T2[c, m2]
+        W1[c1, m1] = e^{+j2π((c1·m1) mod M1)/M1}
+        T2[c, m2]  = e^{+j2π((c·m2) mod M)/M} · rot[c]
+
+    so T2 folds the twiddle e^{j2πc1·m2/M}, the second stage's own
+    e^{j2πc2·m2/M2} and the rotation (``rotation``'s float32 angles), all
+    in float64, rounded once."""
+    c1 = np.arange(m1)
+    w1 = np.zeros((m1, _even(m1)), np.complex128)
+    w1[:, :m1] = np.exp(2j * np.pi * ((c1[:, None] * c1) % m1) / m1)
+    c = np.arange(m)
+    t2 = np.zeros((m, _even(m2)), np.complex128)
+    t2[:, :m2] = (np.exp(2j * np.pi * ((c[:, None] * np.arange(m2)) % m) / m)
+                  * np.exp(1j * _rotation_angles(m))[:, None])
+    return np.concatenate([w1.ravel(), t2.ravel()]).astype(np.complex64)
+
+
+def plan_table(m: int, m1: int, m2: int) -> np.ndarray:
+    """The table ``pfb_bins_launch`` reads for the plan (M1, M2): the
+    direct [M, M] ``bins_table`` at M1 = 1, else ``factored_tables``."""
+    return bins_table(m) if m1 == 1 else factored_tables(m, m1, m2)
 
 
 def pfb_bins_plain(history: torch.Tensor, x: torch.Tensor,
@@ -181,32 +255,72 @@ def pfb_rows(history: torch.Tensor, x: torch.Tensor, hp2: torch.Tensor
 pfb_rows.launches = 0
 
 
-def bins_plan(m: int, p: int, bf16: bool) -> tuple[int, int, int, int]:
-    """``pfb_bins``' launch plan for M branches and P taps: (k rows a lane,
-    wb warps a slab over the branches, slabs, shared memory bytes a block).
-    A block holds every branch of its 32·k·slabs rows: ⌈M/16⌉ rounds of
-    wb = ⌈M/rounds⌉ warps, slabs as ``pfb_rows`` takes them; k is the
-    wire's K unless the planes, the padded table and the taps pass the
-    shared memory a block can use, then K_SMALL. Raises ValueError for an
-    M whose planes pass it even then (M > 115 at P = 24)."""
-    rounds = -(-m // MB_MAX)
-    wb = -(-m // rounds)
-    slabs = 1 if wb >= WARPS_MAX else WARPS_MAX // wb
-    cpad = -(-m // CB) * CB
-    for k in (WIRE_K[bf16], K_SMALL):
-        shared = 8 * m * (cpad + slabs * 32 * k + p - 1) + 4 * m * p
-        if shared <= SMEM_MAX:
-            return k, wb, slabs, shared
-    raise ValueError(f"pfb_bins: M={m}, P={p} needs {shared} bytes of "
-                     f"shared memory a block, more than {SMEM_MAX}")
+def _blocks_per_sm(threads: int, shared: int) -> int:
+    """The blocks of ``threads`` threads and ``shared`` bytes of shared
+    memory one H100 SM holds at once."""
+    return min(SM_SHARED // (shared + BLOCK_RESERVED),
+               SM_REGS // (REGS * threads), SM_THREADS // threads)
 
 
 @functools.cache
-def device_table(m: int, device: torch.device) -> torch.Tensor:
-    """``bins_table(m)`` on ``device``, copied there once (a copy from
-    pageable host memory would synchronize the stream every step); the
-    kernel only reads it."""
-    return torch.as_tensor(bins_table(m), device=device)
+def bins_plan(m: int, p: int, bf16: bool,
+              factors: tuple[int, int] | None = None
+              ) -> tuple[int, int, int, int, int, int]:
+    """``pfb_bins``' launch plan for M branches and P taps: (k rows a lane,
+    wb warps a slab over the branches, slabs, M1, M2, shared memory bytes
+    a block). A block holds every branch of its 32·k·slabs rows, its wb
+    warps a slab taking them in rounds (slabs = 8 // wb below 8 warps);
+    the IDFT is factored as M1·M2 (``idft_factors``, or ``factors``;
+    (1, M) is the direct table, which a prime M such as 7, 11 or 13, an M
+    whose cofactor passes FACTOR_MAX and DIRECT_M's 6 and 8 keep: there
+    2·3 and 2·4 save too few FLOP for the factored epilogue's second
+    pass through the planes, and measured slower on an H100).
+
+    A block runs its phases (staging, sums, IDFT, stores) one after
+    another, so only other blocks on an SM overlap them: of k in (the
+    wire's K, K_MID, K_SMALL) and wb in (⌈M/⌈M/16⌉⌉, 8, 16) whose planes,
+    table and taps fit the shared memory a block can use, the plan takes
+    the one an SM holds the most working warps of (blocks × min(wb, M) ×
+    slabs); then a k above K_SMALL (whose tiles stage 24% more rows than
+    they sum and reload each lane's window more often); then the most
+    blocks, the larger k, the fewer warps (none idle). On an H100: M =
+    25, bf16, 7 rows and 8 warps (four blocks an SM) 0.131 ms against
+    0.148 with 11 rows and 13 warps (two); M = 50, 7 rows and 16 warps
+    0.300 against 0.325 with 3 rows and 8 warps; M = 100, float32, 3 rows
+    and 16 warps (two blocks) 0.808 against 0.875 with 7 rows (one).
+    Raises ValueError for an M whose planes pass the shared memory a
+    block can use even at K_SMALL (M > 115 at P = 24 on the direct
+    table)."""
+    m1, m2 = factors or idft_factors(m)
+    if m1 * m2 != m or not (m1 == 1 or 2 <= m1 <= m2 <= FACTOR_MAX):
+        raise ValueError(f"pfb_bins: no plan factors M={m} as {m1}·{m2}")
+    table = (m * _whole(m, direct_chunk(m)) if m1 == 1
+             else m1 * _even(m1) + m * _even(m2))
+    best = None
+    for k in dict.fromkeys((WIRE_K[bf16], K_MID, K_SMALL)):
+        for wb in dict.fromkeys((-(-m // -(-m // MB_MAX)), 8, MB_MAX)):
+            slabs = 1 if wb >= WARPS_MAX else WARPS_MAX // wb
+            shared = 8 * (table + m * (slabs * 32 * k + p - 1)) + 4 * m * p
+            if shared > SMEM_MAX:
+                continue
+            blocks = _blocks_per_sm(32 * wb * slabs, shared)
+            key = (blocks * min(wb, m) * slabs, k > K_SMALL, blocks, k,
+                   -wb)
+            if best is None or key > best[0]:
+                best = key, (k, wb, slabs, m1, m2, shared)
+    if best is None:
+        raise ValueError(f"pfb_bins: M={m}, P={p} needs {shared} bytes of "
+                         f"shared memory a block, more than {SMEM_MAX}")
+    return best[1]
+
+
+@functools.cache
+def device_table(m: int, m1: int, m2: int,
+                 device: torch.device) -> torch.Tensor:
+    """``plan_table(m, m1, m2)`` on ``device``, copied there once (a copy
+    from pageable host memory would synchronize the stream every step);
+    the kernel only reads it."""
+    return torch.as_tensor(plan_table(m, m1, m2), device=device)
 
 
 def pfb_bins_args(history: torch.Tensor, x: torch.Tensor, hp2: torch.Tensor):
@@ -218,15 +332,15 @@ def pfb_bins_args(history: torch.Tensor, x: torch.Tensor, hp2: torch.Tensor):
     s, t = x.shape[:2]
     m, p = hp2.shape
     bf16 = x.dtype == torch.bfloat16
-    k, wb, slabs, _ = bins_plan(m, p, bf16)
-    table = device_table(m, x.device)
+    k, wb, slabs, m1, m2, _ = bins_plan(m, p, bf16)
+    table = device_table(m, m1, m2, x.device)
     bins = torch.empty((s, m, t // m), dtype=torch.complex64,
                        device=x.device)
     hist = torch.empty((s, (p - 1) * m), dtype=torch.complex64,
                        device=x.device)
     args = (history.data_ptr(), x.data_ptr(), hp2.data_ptr(),
             table.data_ptr(), bins.data_ptr(), hist.data_ptr(), s, t, m, p,
-            int(bf16), k, wb, slabs,
+            int(bf16), k, wb, slabs, m1, m2,
             torch.cuda.current_stream(x.device).cuda_stream)
     return args, (bins, hist)
 
@@ -236,16 +350,16 @@ def pfb_bins(history: torch.Tensor, x: torch.Tensor, hp2: torch.Tensor
     """The coarse PFB on one block, bin-major: ``pfb_bins_plain`` on CPU
     tensors, one launch of ``csrc/pfb_rows.cu``'s ``pfb_bins`` kernel on
     CUDA tensors (the combiner's staging and sums, then the IDFT and the
-    rotation through ``bins_table``), which reads x and the history in
-    place; what it does not take raises (``pfb_bins_args``). Returns
-    (bins [S, M, T/M] complex64, a new [S, (P-1)·M] history), the
-    history bit for bit ``pfb_rows``', the bins within a few float32 ulps
-    of max|bins| of the plain version's (another sum order than cuFFT's).
+    rotation, factored as ``bins_plan`` says, or through ``bins_table``),
+    which reads x and the history in place; what it does not take raises
+    (``pfb_bins_args``). Returns (bins [S, M, T/M] complex64, a new
+    [S, (P-1)·M] history), the history bit for bit ``pfb_rows``', the
+    bins within a few float32 ulps of max|bins| of the plain version's
+    (another sum order than cuFFT's).
 
     Bound by bytes, as ``pfb_rows``: 0.110 ms at the bench shape on bf16
-    (the IDFT counted at an FFT's 5·M·log2 M FLOP a row); the kernel's
-    direct IDFT does 8·M² FLOP a row, which keeps it off that bound from
-    M ~ 20."""
+    (the IDFT counted at an FFT's 5·M·log2 M FLOP a row); the factored
+    IDFT does 8·M·(M1 + M2) FLOP a row, the direct table 8·M²."""
     if x.device.type == "cpu":
         return pfb_bins_plain(history, x, hp2)
     from radiocapture_tpu_torch import kernels

@@ -61,13 +61,27 @@ loop::
         xlat_complex --shape pfb \
         radiocapture_tpu_torch/tools/xlat_complex_54b2cf5.cu
 
+``--kernel pfb_bins``: the other source must export ``pfb_bins_launch``
+with the signature of commit ef6af1a (the direct [M, M] table, no
+factors: ``BINS_DIRECT_SIGNATURE``), driven with the direct table's plan;
+``pfb_rows_ef6af1a.cu`` beside this module is that kernel, driven with
+that commit's plan (``ef6af1a_plan``). The tool times
+it against the package's ``pfb_bins`` on the same operands at the cases
+of ``pfb_variants.py`` (M = 6 at the bench shape, 128 sources × 240,000
+bf16 samples; M = 8 to 100 at 16 sources × 100 ms), and gives the
+largest difference between their bins over max|bins| and whether their
+new histories are bit-identical::
+
+    python3 -m radiocapture_tpu_torch.tools.track_turns --kernel \
+        pfb_bins radiocapture_tpu_torch/tools/pfb_rows_ef6af1a.cu
+
 The planes are the bank's output at the bench shape (128 sources × 64
 slots × 2500 samples, random-normal bf16 wire, mid-stream after three
 steps; for ``cqpsk_track`` the split2 → CQPSK shape, 256 halves × 64
 slots × 2500 samples; for ``xlat_complex`` split2's own operands, 128
 sources × 240,000 bf16 wire samples), as ``chip_smoke.py`` times them;
-``chip_smoke.py`` calls ``voice_turns``, ``cqpsk_turns`` and
-``complex_turns`` on its own operands. Kernels run in the order other,
+``chip_smoke.py`` calls ``voice_turns``, ``cqpsk_turns``,
+``complex_turns`` and ``bins_turns`` on its own operands. Kernels run in the order other,
 package, package, other, each over ITERS launches timed by CUDA events.
 Prints the card's ``nvidia-smi`` name and power limit, then one JSON
 line.
@@ -97,6 +111,7 @@ from radiocapture_tpu_torch.frontend.pipeline import (AnalogVoicePipeline,
 from radiocapture_tpu_torch.ops import channelizer_kernel as ck
 from radiocapture_tpu_torch.ops import fm
 from radiocapture_tpu_torch.ops import fm_kernel as fk
+from radiocapture_tpu_torch.ops import pfb_kernel as pk
 from radiocapture_tpu_torch.ops.fir import phase_step_u32
 
 SOURCES, SLOTS, BLOCK, SAMP_RATE = 128, 64, 240_000, 2.4e6
@@ -105,6 +120,7 @@ EARLIER_VOICE = Path(__file__).with_name("fm_voice_334afe8.cu")
 EARLIER_CQPSK = Path(__file__).with_name("cqpsk_track_54b2cf5.cu")
 EARLIER_COMPLEX = Path(__file__).with_name("xlat_complex_54b2cf5.cu")
 EARLIER_FSK = Path(__file__).with_name("fsk_track_3e03d30.cu")
+EARLIER_BINS = Path(__file__).with_name("pfb_rows_ef6af1a.cu")
 CQ_GRID_HZ = 12.5e3      # the CQPSK slot grid around each split2 half
 # fm_voice_launch of the one-thread-per-lane kernel: y_re, y_im, prev,
 # y_last, x_last, audio, power, S, N, C, gain, z1, b0, stream
@@ -114,6 +130,10 @@ VOICE_LANE_SIGNATURE = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 3
 # C, z_len, stream
 COMPLEX_Z_SIGNATURE = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5
                        + (ctypes.c_longlong, ctypes.c_void_p))
+# pfb_bins_launch of commit ef6af1a: hist, x, hp2, table, bins, new_hist,
+# S, T, M, P, x_bf16, k, wb, slabs, stream
+BINS_DIRECT_SIGNATURE = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 8
+                         + (ctypes.c_void_p,))
 
 
 def build_other(src: Path, entry: str = "fsk_track_launch",
@@ -312,6 +332,114 @@ def complex_turns(src: Path, x: torch.Tensor, history: torch.Tensor,
     return res
 
 
+def ef6af1a_plan(m: int, p: int, bf16: bool) -> tuple[int, int, int]:
+    """The plan commit ef6af1a's ``pfb_bins`` took: (k, wb, slabs), ⌈M/16⌉
+    rounds of wb = ⌈M/rounds⌉ warps, the wire's K unless its planes and
+    [M, M] table (padded to chunks of 8 channels) pass the shared memory
+    a block can use, then K_SMALL."""
+    wb = -(-m // -(-m // pk.MB_MAX))
+    slabs = 1 if wb >= pk.WARPS_MAX else pk.WARPS_MAX // wb
+    cpad = -(-m // 8) * 8
+    for k in (pk.WIRE_K[bf16], pk.K_SMALL):
+        if 8 * m * (cpad + slabs * 32 * k + p - 1) + 4 * m * p <= pk.SMEM_MAX:
+            return k, wb, slabs
+    raise ValueError(f"pfb_bins of ef6af1a: no plan for M={m}, P={p}")
+
+
+def _direct_bins(other, hist: torch.Tensor, x: torch.Tensor,
+                 hp2: torch.Tensor):
+    """(bins, new history) from ``other``, a ``pfb_bins_launch`` of commit
+    ef6af1a's signature, on that commit's plan (``ef6af1a_plan``)."""
+    m, p = hp2.shape
+    xr = torch.view_as_real(x) if x.is_complex() else x
+    s, t = xr.shape[:2]
+    bf16 = xr.dtype == torch.bfloat16
+    k, wb, slabs = ef6af1a_plan(m, p, bf16)
+    table = pk.device_table(m, 1, m, x.device)
+    bins = torch.empty((s, m, t // m), dtype=torch.complex64,
+                       device=x.device)
+    nh = torch.empty_like(hist)
+    kernels.check(other(hist.data_ptr(), xr.data_ptr(), hp2.data_ptr(),
+                        table.data_ptr(), bins.data_ptr(), nh.data_ptr(), s,
+                        t, m, p, int(bf16), k, wb, slabs,
+                        torch.cuda.current_stream(x.device).cuda_stream),
+                  "pfb_bins")
+    return bins, nh
+
+
+def bins_turns(src: Path, hist: torch.Tensor, x: torch.Tensor,
+               hp2: torch.Tensor, iters: int = ITERS) -> dict:
+    """``pfb_bins`` built from ``src`` (commit ef6af1a's signature, driven
+    with that commit's plan) against the package's on the
+    same CUDA operands: the history [S, (P-1)·M], the block x (an [S, T,
+    2] wire block or [S, T] complex64) and the taps hp2 [M, P]. Returns
+    the ms of each in turns (other, package, package, other), after one
+    untimed run of each, the speedup, the largest difference between
+    their bins over max|bins| and whether their new histories are
+    bit-identical."""
+    other = build_other(Path(src), "pfb_bins_launch", BINS_DIRECT_SIGNATURE)
+
+    def old():
+        return _direct_bins(other, hist, x, hp2)
+
+    def new():
+        return pk.pfb_bins(hist, x, hp2)
+
+    for fn in (old, new):                     # the card's clocks up
+        cuda_ms(fn, iters)
+    ms = {"other": [], "package": []}
+    for who, fn in (("other", old), ("package", new), ("package", new),
+                    ("other", old)):
+        ms[who].append(cuda_ms(fn, iters))
+    (yo, ho), (yp, hpk) = old(), new()
+    return {"other": str(src), "other_ms": ms["other"],
+            "package_ms": ms["package"],
+            "speedup": sum(ms["other"]) / sum(ms["package"]),
+            "max_rel_diff": float((yo - yp).abs().max() / yo.abs().max()),
+            "history_identical": torch.equal(_bits(torch.view_as_real(ho)),
+                                             _bits(torch.view_as_real(hpk)))}
+
+
+def bins_step_turns(src: Path, samp_rate: float, sources: int = SOURCES,
+                    iters: int = 3) -> dict:
+    """The pfb pipeline's step (``ControlPipeline.p25_c4fm(64, samp_rate,
+    frontend="pfb")``, ``sources`` sources × 100 ms of random-normal bf16
+    wire, the 25 kHz slot grid) with ``PfbChannelizer.bins`` on the
+    package's ``pfb_bins`` or on the kernel built from ``src`` (commit
+    ef6af1a's signature, the direct table's plan), in turns (other,
+    package, package, other): step ms by CUDA events, ``iters`` steps
+    each after one untimed step, and the speedup."""
+    from radiocapture_tpu_torch.ops import channelizer
+    other = build_other(Path(src), "pfb_bins_launch", BINS_DIRECT_SIGNATURE)
+    dev = require_cuda()
+    pipe = ControlPipeline.p25_c4fm(SLOTS, samp_rate, frontend="pfb")
+    bm = pipe.block_multiple
+    blk = bm * max(1, round(samp_rate * 0.1) // bm)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((sources, blk, 2), generator=gen, device=dev).to(
+        torch.bfloat16)
+    offs = ((torch.arange(SLOTS, device=dev) - SLOTS // 2) * 25e3
+            / samp_rate).expand(sources, SLOTS).contiguous()
+    box = [pipe.init(sources, dev)]
+    kernel = {"other": lambda h, xx, t: _direct_bins(other, h, xx, t),
+              "package": channelizer.pfb_bins}
+
+    def step():
+        box[0], _ = pipe.step(box[0], x, offs)
+
+    ms = {"other": [], "package": []}
+    try:
+        for who in ("other", "package", "package", "other"):
+            channelizer.pfb_bins = kernel[who]
+            ms[who].append(cuda_ms(step, iters))
+    finally:
+        channelizer.pfb_bins = kernel["package"]
+    return {"samp_rate": samp_rate, "M": pipe.bank.m, "sources": sources,
+            "block": blk, "other": str(src), "other_step_ms": ms["other"],
+            "package_step_ms": ms["package"],
+            "speedup": sum(ms["other"]) / sum(ms["package"])}
+
+
 def complex_bench_operands(dev):
     """The complex bank's operands at the split2 bench shape (128 sources
     × 240,000 random-normal bf16 wire samples), mid-stream after three
@@ -496,9 +624,21 @@ def fsk_turns(src: Path, y_re: torch.Tensor, y_im: torch.Tensor, state,
             "sample_agreement": agree}
 
 
+def main_bins(src: str) -> None:
+    from radiocapture_tpu_torch.tools import pfb_variants
+    dev = require_cuda()
+    res = {}
+    for m in pfb_variants.CASES:
+        res[m] = bins_turns(Path(src), *pfb_variants.case_operands(m, dev))
+        print(f"M={m}", json.dumps(res[m]), flush=True)
+    print(card_line())
+    print(json.dumps(res))
+
+
 def main(argv: list[str]) -> None:
     if argv[:1] == ["--kernel"] and len(argv) >= 3 and argv[1] in (
-            "fsk_track", "fm_voice", "cqpsk_track", "xlat_complex"):
+            "fsk_track", "fm_voice", "cqpsk_track", "xlat_complex",
+            "pfb_bins"):
         kernel, argv = argv[1], argv[2:]
     else:
         kernel = "fsk_track"
@@ -513,6 +653,8 @@ def main(argv: list[str]) -> None:
         return main_cqpsk(argv[0])
     if kernel == "xlat_complex":
         return main_complex(argv[0], shape)
+    if kernel == "pfb_bins":
+        return main_bins(argv[0])
     dev = require_cuda()
     card = card_line()
     pipe = ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE)

@@ -960,7 +960,8 @@ def test_pfb_fine_stage_in_place_at_bench_shape(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("fs,m,atten,wire,t", [
     (2.4e6, 6, 80.0, "bf16", 240000), (2.4e6, 6, 80.0, "float32", 6000),
-    (800e3, 8, 60.0, "complex64", 8000), (1.6e6, 16, 60.0, "float32", 1600)])
+    (800e3, 8, 60.0, "complex64", 8000), (1.6e6, 16, 60.0, "float32", 1600),
+    (20e6, 50, 80.0, "bf16", 200000), (40e6, 100, 80.0, "float32", 400000)])
 def test_pfb_bins_are_ifft_rot_transposed(cuda_device, fs, m, atten, wire,
                                           t):
     """``PfbChannelizer.bins`` on the card (one ``pfb_bins`` launch) is
@@ -968,7 +969,8 @@ def test_pfb_bins_are_ifft_rot_transposed(cuda_device, fs, m, atten, wire,
     ``BINS_REL``·max|bins| (the kernel's IDFT sums in another order than
     cuFFT), with ``rows``' new history bit for bit: the bench shape (128
     sources, bf16) and small float32 and complex64 blocks at M = 6, 8 and
-    16."""
+    16, and the 20 and 40 MS/s banks (M = 50 and 100, the IDFT factored
+    as 5·10 and 10·10)."""
     pfb = TCH.PfbChannelizer.for_rates(fs, m, atten_db=atten)
     rng = np.random.default_rng(m + t)
     s = 128 if t == 240000 else 3
@@ -1144,15 +1146,18 @@ def test_pfb_rows_kernel_matches_plain(cuda_device, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["bench_bf16", "bench_f32", "m8", "m16",
-                                  "m20", "m25", "m50", "m100", "short"])
+                                  "m20", "m25", "m50", "m100", "short",
+                                  "m7", "m11", "m105", "m112"])
 def test_pfb_bins_kernel_matches_plain(cuda_device, case):
     """``pfb_bins`` against ``pfb_bins_plain`` on the card, one launch:
     the bench shape (128 × 240000 samples, M = 6) on bf16 and float32
     wires, the pfb mode's 80 dB banks at M = 8 (complex64), 16 (float32),
     20 and 25 (the live config's 8 and 10 MS/s, bf16), 50 (bf16, four
-    rounds of warps) and 100 (float32, K_SMALL rows a lane), and a
-    60-sample block after a bench block. The bins within
-    ``BINS_REL``·max|bins|, the new history bit-identical."""
+    rounds of warps) and 100 (float32), the IDFT factored at each, a
+    60-sample block after a bench block, the direct table at the primes
+    M = 7 and 11, and the largest factors the plan takes below M = 116,
+    7·15 and 8·14 (bf16). The bins within ``BINS_REL``·max|bins|, the new
+    history bit-identical."""
     if case in ("bench_bf16", "bench_f32", "short"):
         pfb, hist, x = _pfb_rows_inputs(cuda_device, case)
     else:
