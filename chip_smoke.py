@@ -65,11 +65,13 @@ paths, the scan slice, live SDR ingest and the mesh steps.
    (``pfb fine turns:``; every output and the new fine history must be
    bit-identical) and with the general path it replaced (``complex
    general turns: pfb fine``; every output must be bit-identical to
-   ``tools/xlat_complex_54b2cf5.cu``'s), both modes' step at 128 sources
-   (``bench pfb:``, ``bench fft:``; fft's block is 390336 samples,
-   162.6 ms; the pfb profile may run no ``cat``, no ``addcmul_``, no
-   gather, no cuFFT, no complex multiply, no ``pfb_rows`` and no kernel
-   P-1 times a step), the pfb step again at the live config's 10 MS/s
+   ``tools/xlat_complex_54b2cf5.cu``'s) and with the narrow plan it
+   replaced (``pfb fine narrow turns:``, ``tools/xlat_complex_2cf31c4.cu``
+   in turns, every output and the new fine history bit-identical), both
+   modes' step at 128 sources (``bench pfb:``, ``bench fft:``; fft's
+   block is 390336 samples, 162.6 ms; the pfb profile may run no
+   ``cat``, no ``addcmul_``, no gather, no cuFFT, no complex multiply, no
+   ``pfb_rows`` and no kernel P-1 times a step), the pfb step again at the live config's 10 MS/s
    sources (M = 25, 128 sources × 100 ms, ``bench pfb 10 MS/s:``) with
    ``pfb_bins``' share of it and in turns with the same step on commit
    ef6af1a's ``pfb_bins``, and
@@ -1962,6 +1964,50 @@ def pfb_fine_turns(xb, rows, hist, grev, phase0, step, d) -> dict:
     return res
 
 
+def pfb_fine_narrow_turns(xb, rows, hist, grev, phase0, step, d) -> dict:
+    """``pfb fine narrow turns:`` the narrow plan in turns with the one it
+    replaced (``tools/xlat_complex_2cf31c4.cu``, built with the package's
+    flags) on the fine stage's operands, both reading the bins in place
+    through the row index: old, new, new, old, at the bench's 8192 rows
+    and at the runtime's groups of 64 and 256 rows (the first rows of the
+    bench's, one and four sources' slots: a 10 MS/s source alone and
+    ``decode pfb``'s group, 2500 outputs a row at every rate); fails
+    unless every output is bit-identical, and unless the new fine history
+    (``row_history``) is the gathered rows' ``complex_history`` bit for
+    bit. Returns the bench's turns, with the groups' under ``groups``."""
+    from radiocapture_tpu_torch.ops import channelizer as chz
+    from radiocapture_tpu_torch.tools import track_turns
+    turns = {}
+    for nrows in (rows.numel(), 64, 256):
+        h, g, p0, st, ro = (v[:nrows]
+                            for v in (hist, grev, phase0, step, rows))
+        t = track_turns.narrow_turns(track_turns.EARLIER_NARROW, xb, h, g,
+                                     p0, st, d, ro,
+                                     iters=5 if nrows > 256 else 20)
+        hi = chz.row_history(h, xb, ro)
+        hg = chz.complex_history(h, xb[ro])
+        t["identical_history"] = track_turns.identical_outputs(hi, hg)
+        t["history"] = hi.numel()
+        old = Path(t["other"]).name
+        ok = (t["identical_outputs"] == t["outputs"] == nrows * t["shape"][3]
+              // d and t["identical_history"] == t["history"])
+        log(f"pfb fine narrow turns: {nrows} rows over {xb.shape[0]} bin "
+            f"rows: {old} {t['other_ms'][0]:.4f}, kernel "
+            f"{t['package_ms'][0]:.4f}, {t['package_ms'][1]:.4f}, {old} "
+            f"{t['other_ms'][1]:.4f} ms: {t['speedup']:.2f}x; bit-identical "
+            f"outputs {t['identical_outputs']} of {t['outputs']}, new fine "
+            f"history {t['identical_history']} of {t['history']} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"pfb fine narrow turns: the narrow plan "
+                                 f"differs from the one it replaced at "
+                                 f"{nrows} rows")
+        turns[nrows] = t
+    res = turns.pop(rows.numel())
+    res["groups"] = turns
+    return res
+
+
 def phase_pfb_fine(dev) -> tuple[dict, float]:
     """The pfb frontend's fine stage on the complex bank kernel's general
     path (one slot per row, K2 = 467 taps, D = 16), each row reading its
@@ -1975,8 +2021,9 @@ def phase_pfb_fine(dev) -> tuple[dict, float]:
     would need a 77 GB window matrix), its ms, bound and the library
     yardstick, one grouped ``conv1d`` (groups = 8192, no rotation) over
     the gathered rows and taps; the gathered form in turns
-    (``pfb_fine_turns``) and the kernel the general path replaced in turns
-    (``general_turns``).
+    (``pfb_fine_turns``), the kernel the general path replaced in turns
+    (``general_turns``) and the narrow plan this one replaced
+    (``pfb_fine_narrow_turns``).
     Returns (numbers, max |err|)."""
     from radiocapture_tpu_torch.frontend.pipeline import ControlPipeline
     from radiocapture_tpu_torch.ops import channelizer as chz
@@ -2082,6 +2129,8 @@ def phase_pfb_fine(dev) -> tuple[dict, float]:
                                                     phase0, step, d)
     res["pfb_fine_turns"] = general_turns("pfb fine", xb, hist, grev, phase0,
                                           step, d, rows)
+    res["pfb_fine_narrow_turns"] = pfb_fine_narrow_turns(
+        xb, rows, hist, grev, phase0, step, d)
     return res, worst
 
 
@@ -3986,6 +4035,7 @@ def main() -> None:
          "pfb_fine_library_ms": res_fine["pfb_fine_library_ms"],
          "pfb_fine_turns": res_fine["pfb_fine_turns"],
          "pfb_fine_in_place_turns": res_fine["pfb_fine_in_place_turns"],
+         "pfb_fine_narrow_turns": res_fine["pfb_fine_narrow_turns"],
          "pfb_bins": res_fine["pfb_bins"],
          "mesh_c4fm_launches": mesh["launches"]["xlat_complex"],
          "mesh_c4fm_max_abs_err": bench_mesh["complex_bank_err"],

@@ -393,8 +393,8 @@ class PfbXlatBank:
     The fine stage is the complex bank kernel (``bank_complex``,
     ``csrc/xlat_complex.cu``) with each slot as a one-slot source: S·C
     rows, one K2-tap filter each, decimating by ``decim2``; one slot a
-    row takes the kernel's narrow plan (a row's taps held in shared
-    memory, 3 consecutive outputs a lane). That is what the JAX
+    row takes the kernel's narrow plan (a bin's span staged once for the
+    rows reading it, 5 consecutive outputs a lane). That is what the JAX
     ``vmap(freq_xlating_fir)`` computes (ops/fir.py:117-143: the same tap
     modulation, correlation order and uint32 ramp). Each row reads its
     slot's bin in place from the PFB's bin-major bins by a row index, as

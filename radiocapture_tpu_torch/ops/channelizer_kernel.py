@@ -451,9 +451,10 @@ def bank_complex(x: torch.Tensor, history: torch.Tensor, grev: torch.Tensor,
     its outputs' span as polyphase planes; with 8 slots or more (the
     time-sharded mesh step, C=64) each thread holds 4 outputs × 8 slots
     and the taps stream through shared memory, with fewer (the pfb fine
-    stage, C=1) each lane holds 3 consecutive outputs of a slot, whose
-    taps stay in shared memory. Every output is one ``fmaf`` chain in k
-    order, the same bits on every path."""
+    stage, C=1) a block stages each x row's span once for the bank rows
+    that read it and each lane holds 5 consecutive outputs of a slot.
+    Every output is one ``fmaf`` chain in k order, the same bits on
+    every path."""
     if x.device.type == "cpu":
         xs = x if rows is None else x[rows]
         return bank_complex_plain(complex_z(xs, history), grev, phase0, step,

@@ -4,9 +4,12 @@ one CUDA card at the split2 bench shape (128 sources × 240,000 bf16 wire
 samples, mid-stream after three steps, as
 ``track_turns.complex_bench_operands`` makes them), or with ``--shape
 mesh`` or ``--shape pfb`` first at a shape of the general path
-(``track_turns.complex_general_operands``).
+(``track_turns.complex_general_operands``). ``--source FILE`` (before
+the shape) rewrites another source with the package's entry, such as
+``tools/xlat_complex_2cf31c4.cu``, the narrow plan before its redesign.
 
-Each variant rewrites a copy of the source (``a+b`` applies both):
+Each variant rewrites a copy of the source (``a+b`` applies both;
+``base`` is the source as it is):
 
 - ``r=N``: N outputs per lane (odd; the package's 7);
 - ``warps=N``: N warps per block (the package's 4);
@@ -27,12 +30,19 @@ Each variant rewrites a copy of the source (``a+b`` applies both):
   slots per thread, ``wide_warps=N`` warps per block at most,
   ``wide_kc=N`` taps per staged chunk (the package's 4, 8, 8, 96);
   ``narrow_r=N`` outputs per lane (odd), ``narrow_warps=N`` warps per
-  block, ``narrow_blocks=N`` blocks per SM asked of the compiler (the
-  package's 3, 4, 3);
+  block at most, ``narrow_blocks=N`` blocks per SM asked of the
+  compiler, ``narrow_rows=N`` bank rows a block at most (the package's
+  5, 8, 1, 64; commit 2cf31c4's 3, 4, 3 and one row);
 
 and, wrong on purpose, to show what one part of the work costs:
 
-- ``fma1``: one FMA per tap and slot instead of four.
+- ``fma1``: one FMA per tap and slot instead of four in split2's loop;
+  ``fma1_general`` the same in the general plans' ``fma4``;
+- ``stage_only``: the narrow plan stages its span and taps and computes
+  nothing, stores nothing;
+- ``no_stores``: the narrow plan computes and rotates every output but
+  stores none;
+- ``no_tail``: the narrow plan without its last group of tap rows.
 
 ::
 
@@ -40,6 +50,9 @@ and, wrong on purpose, to show what one part of the work costs:
         r=5 r=9 blocks=3 taps_held sincos fma1
     python3 -m radiocapture_tpu_torch.tools.complex_variants --shape pfb \\
         narrow_r=7 narrow_warps=2
+    python3 -m radiocapture_tpu_torch.tools.complex_variants --source \\
+        radiocapture_tpu_torch/tools/xlat_complex_2cf31c4.cu --shape pfb \\
+        base stage_only fma1_general
 
 Every variant is built with the package's flags (all at once, one nvcc
 process each) into ``_build/variants/``; for each its ptxas line (the
@@ -47,8 +60,10 @@ bf16 instance of the split2 kernel; at ``mesh`` the float32 wide kernel
 without a row index, at ``pfb`` the float32 narrow one with it), the
 count of outputs bit-identical to the package's, and its ms in ROUNDS
 rounds (the order reversed every other round, ITERS launches each timed
-by CUDA events). Prints the card's ``nvidia-smi`` name and power limit,
-then one JSON line.
+by CUDA events). The compared outputs are filled first, the package's
+with NaN and each variant's with infinity, so an output a variant skips
+does not count as identical. Prints the card's ``nvidia-smi`` name and
+power limit, then one JSON line.
 """
 
 from __future__ import annotations
@@ -58,6 +73,7 @@ import json
 import re
 import subprocess
 import sys
+from pathlib import Path
 
 import torch
 
@@ -87,6 +103,19 @@ FMA4 = """            ar[r][c] = fmaf(gv.x, zv.x, ar[r][c]);
 """
 FMA1 = """            ar[r][c] = fmaf(gv.x, zv.x, ar[r][c]);
 """
+GENERAL_FMA4 = """  ar = fmaf(gv.x, zv.x, ar);
+  ar = fmaf(-gv.y, zv.y, ar);
+  ai = fmaf(gv.x, zv.y, ai);
+  ai = fmaf(gv.y, zv.x, ai);
+"""
+NARROW_STORE = """        if (n < N)
+          y[sc * N + n] = rotate(ar[r], ai[r], p0 + st * (uint32_t)n);
+"""
+# the rotated value is compared, so the FMAs and the rotation stay
+NARROW_NO_STORE = (
+    "        const float2 v = rotate(ar[r], ai[r], p0 + st * (uint32_t)n);\n"
+    "        if (n < N && v.x == 1.25e-38f && v.y == 1.25e-38f)\n"
+    "          y[sc * N + n] = v;\n")
 
 # name -> [(text of the source, its replacement)]
 EDITS = {
@@ -97,6 +126,15 @@ EDITS = {
                   (TAPS_PER_TILE, TAPS_HELD)],
     "sincos": [("\n    if (two) {\n", "\n    if (false) {\n")],
     "fma1": [(FMA4, FMA1)],
+    "fma1_general": [(GENERAL_FMA4, "  ar = fmaf(gv.x, zv.x, ar);\n")],
+    "stage_only": [("    if (active) {\n      float ar[R], ai[R];\n",
+                    "    if (false) {\n"
+                    "      float ar[R], ai[R];\n")],
+    "no_stores": [(NARROW_STORE, NARROW_NO_STORE)],
+    "no_tail": [("        if (q + u < QF) tap_row(u, q + u, D);\n",
+                 "        if (false) tap_row(u, q + u, D);\n"),
+                ("        if (q + u == QF && QF < Q) tap_row(u, QF, JL);\n",
+                 "        if (false) tap_row(u, QF, JL);\n")],
     "index_branch": [("  if constexpr (kRows)\n"
                       "    return x + __ldg(xrow + s) * T;\n"
                       "  else\n"
@@ -117,7 +155,8 @@ SIZED = {"r": "constexpr int R = {};",
          "wide_kc": "constexpr int WIDE_KC = {};",
          "narrow_r": "constexpr int NARROW_R = {};",
          "narrow_warps": "constexpr int NARROW_WARPS = {};",
-         "narrow_blocks": "constexpr int NARROW_BLOCKS = {};"}
+         "narrow_blocks": "constexpr int NARROW_BLOCKS = {};",
+         "narrow_rows": "constexpr int NARROW_ROWS = {};"}
 # the kernel whose ptxas line a shape's run prints: its name and the
 # mangled template arguments (the wire; the general plans' row index,
 # Lb1E with one, as at pfb, Lb0E without)
@@ -127,8 +166,8 @@ PTXAS_OF = {"split2": ("xlat_complex_split2", "Bf16Pair"),
 
 
 def variant_source(src: str, name: str) -> str:
-    """The package's source with the variant ``name``'s edits (``a+b``:
-    both); each edited text must occur once."""
+    """``src`` with the variant ``name``'s edits (``a+b``: both); each
+    edited text must occur once."""
     edits = []
     for part in name.split("+"):
         key, _, size = part.partition("=")
@@ -141,7 +180,7 @@ def variant_source(src: str, name: str) -> str:
             edits.append((found.group(0), text.format(int(size))))
         elif part in EDITS:
             edits += EDITS[part]
-        else:
+        elif part != "base":
             raise SystemExit(f"unknown variant {part!r}\n{__doc__}")
     for old, new in edits:
         if src.count(old) != 1:
@@ -151,10 +190,12 @@ def variant_source(src: str, name: str) -> str:
     return src
 
 
-def build(names: list, shape: str = "split2") -> tuple:
+def build(names: list, shape: str = "split2",
+          source: Path = kernels.CSRC / "xlat_complex.cu") -> tuple:
     """({variant: its ``xlat_complex_launch``}, {variant: its ptxas line
-    for ``shape``'s kernel, ``PTXAS_OF``})."""
-    src = (kernels.CSRC / "xlat_complex.cu").read_text()
+    for ``shape``'s kernel, ``PTXAS_OF``}), each variant a rewrite of
+    ``source``."""
+    src = Path(source).read_text()
     out_dir = kernels.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -175,10 +216,11 @@ def build(names: list, shape: str = "split2") -> tuple:
             raise RuntimeError(f"nvcc failed for {name}:\n{text}")
         so.with_suffix(".ptxas.txt").write_text(text)
         lines = text.splitlines()
-        at = min(i for i, l in enumerate(lines) if "Function properties" in l
+        at = min(i for i, l in enumerate(lines) if "entry function" in l
                  and kernel in l and wire in l)
-        ptxas[name] = " | ".join(l.split(":", 1)[-1].strip()
-                                 for l in lines[at + 1:at + 3])
+        ptxas[name] = " | ".join(
+            next(l for l in lines[at:] if key in l).split(":", 1)[-1].strip()
+            for key in ("spill", "Used"))
         print(name, ptxas[name], flush=True)
         fn = getattr(ctypes.CDLL(str(so)), "xlat_complex_launch")
         fn.argtypes = list(kernels._SIGNATURES["xlat_complex_launch"])
@@ -188,7 +230,9 @@ def build(names: list, shape: str = "split2") -> tuple:
 
 
 def main(argv: list[str]) -> None:
-    shape = "split2"
+    shape, source = "split2", kernels.CSRC / "xlat_complex.cu"
+    if argv[:1] == ["--source"] and len(argv) > 1:
+        source, argv = Path(argv[1]), argv[2:]
     if argv[:1] == ["--shape"] and len(argv) > 1:
         shape, argv = argv[1], argv[2:]
     if not argv or shape not in PTXAS_OF:
@@ -197,15 +241,17 @@ def main(argv: list[str]) -> None:
     x, hist, grev, phase0, step, d, rows = (
         complex_bench_operands(dev) + (None,) if shape == "split2"
         else complex_general_operands(dev, shape))
-    fns, ptxas = build(argv, shape)
+    fns, ptxas = build(argv, shape, source)
     fns["package"] = kernels.load().xlat_complex_launch
     t = x.shape[1]
     s, c, k = grev.shape
     n = t // d
     stream = torch.cuda.current_stream(dev).cuda_stream
 
-    def run(name):
+    def run(name, fill=None):
         y = torch.empty((s, c, n), dtype=torch.complex64, device=dev)
+        if fill is not None:
+            y.fill_(fill)
         kernels.check(fns[name](
             x.data_ptr(), None if rows is None else rows.data_ptr(),
             hist.data_ptr(), grev.data_ptr(), phase0.data_ptr(),
@@ -215,9 +261,10 @@ def main(argv: list[str]) -> None:
         return y
 
     keys = ["package"] + argv
-    ref = run("package")
+    ref = run("package", float("nan"))
     res = {key: {"ptxas": ptxas.get(key), "ms": [],
-                 "identical_outputs": identical_outputs(run(key), ref)}
+                 "identical_outputs": identical_outputs(
+                     run(key, float("inf")), ref)}
            for key in keys}
     for r in range(ROUNDS):
         for key in (keys if r % 2 == 0 else keys[::-1]):
@@ -227,7 +274,8 @@ def main(argv: list[str]) -> None:
               "identical outputs", res[key]["identical_outputs"], "of",
               ref.numel())
     print(card_line())
-    print(json.dumps({"shape": [s, t, c, k, d], "outputs": ref.numel(),
+    print(json.dumps({"source": str(source), "shape": [s, t, c, k, d],
+                      "outputs": ref.numel(),
                       "variants": res}))
 
 

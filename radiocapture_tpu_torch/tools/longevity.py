@@ -6,8 +6,12 @@ runtime holds steady-state memory and thread counts under continuous
 call lifecycle churn — open 8 calls, hold, hang-time close, repeat — on
 one soak site (``tools/soak.py``: 1 source × 80 slots at 1 MS/s, two P25
 systems, the stream clock), sampling every 10 cycles the process's
-VmRSS and thread count and, on a CUDA device, the allocator's
-``memory_allocated`` and ``max_memory_allocated``.
+VmRSS and thread count, the calls still open and, on a CUDA device, the
+allocator's ``memory_allocated`` and ``max_memory_allocated``. The
+site's grant fence (``soak.GrantFence``) goes before the identifiers,
+after each cycle's grants and before each sample, so the grants land in
+the block they were sent for and a sample counts the calls whose close
+the bus has delivered, not those whose close is still in flight.
 
 Usage: ``python -m radiocapture_tpu_torch.tools.longevity [seconds]``
 (the first CUDA device; ``main(seconds, device="cpu")`` from Python runs
@@ -40,6 +44,7 @@ def vmrss_mb() -> int:
 
 
 def sample(site, cycle: int, dev: torch.device) -> dict:
+    site.fence.wait()       # the calls closed so far have been handled
     gc.collect()
     s = {"cycle": cycle, "rss_mb": vmrss_mb(),
          "threads": threading.active_count(),
@@ -71,6 +76,7 @@ def main(duration_s: float = 420.0, device=None,
                      audio_dir, device=dev)
     samples = []
     try:
+        site.fence.wait()   # the runtime's subscriptions are live
         site.publish_iden()
         site.rt.step()
         samples.append(sample(site, 0, dev))
@@ -79,6 +85,7 @@ def main(duration_s: float = 420.0, device=None,
         while time.time() - t0 < duration_s:
             for c in range(8):
                 site.grant(c % 2, (cycle * 8 + c) % 70, 1000 + c)
+            site.fence.wait()
             for _ in range(BLOCKS_ACTIVE + BLOCKS_CLOSE):
                 site.rt.step()
                 for cm in site.rt.call_managers.values():

@@ -21,6 +21,14 @@ so hang-time closes everything, then re-opening a second wave into the
 still-idle slots to exercise the warm-reuse path
 (rc_frontend/receiver.py:51,307-341 idle-channel economics).
 
+Each block's grants are fenced before the block's ``step``
+(:class:`GrantFence`): the runtime's call managers take grants on the
+bus's listener thread, so an unfenced grant can land a block late when
+the host is loaded, and a run's numbers then depend on thread timing.
+The first fence, before the channel identifiers go out, waits until the
+runtime's subscriptions have reached the broker, which drops what it
+takes for a pattern not yet subscribed.
+
 Measured per run: peak concurrent open calls, grant→first-voice-block
 latency (p50/p95, split warm vs cold alloc), call-manager sweep
 latency over the full table, calls opened/closed per stream second,
@@ -42,6 +50,73 @@ import time
 import numpy as np
 
 CHANNEL_HZ = 12500.0
+
+
+class GrantFence:
+    """Waits until the bus's listener thread has handled everything
+    published on the runtime ``rt``'s control topics (each control
+    instance's ``/topic/raw_control/<uuid>``) before the wait began, and
+    what that work published in turn. ``wait`` publishes a marker on each
+    topic after them; the listener thread handles a connection's messages
+    in the order the broker took them, so a marker comes back there after
+    the runtime's call managers have taken every grant before it (and
+    published each new call). There the marker publishes a second one,
+    which comes back after those new calls, once the recorder manager has
+    opened them. Nothing else on the topics handles the marker's name.
+
+    The lossy tier drops what the broker takes before a subscription
+    reaches it, markers too: a topic's marker is published again every
+    ``retry`` seconds until one comes back, so the first wait also shows
+    that the runtime's subscriptions, made before the fence's own on the
+    same connection, are live. ``wait`` raises after ``timeout``
+    seconds."""
+
+    NAME = "SOAK_FENCE"
+
+    def __init__(self, bus, rt, retry: float = 0.2, timeout: float = 30.0):
+        self.bus = bus
+        self.topics = [f"/topic/raw_control/{inst.instance_uuid}"
+                       for inst in rt.instances]
+        self.retry = retry
+        self.timeout = timeout
+        self._token = 0
+        self._back: set = set()          # topics whose marker came back
+        self._cv = threading.Condition()
+        for topic in self.topics:
+            bus.subscribe(topic, self._on_marker)
+
+    def _on_marker(self, ev: dict) -> None:
+        if ev.get("name") != self.NAME:
+            return
+        if ev["hop"] == 1:
+            self.bus.send_event_lazy(ev["topic"], dict(ev, hop=2))
+            return
+        with self._cv:
+            if ev["token"] == self._token:
+                self._back.add(ev["topic"])
+                self._cv.notify_all()
+
+    def wait(self) -> None:
+        with self._cv:
+            self._token += 1
+            self._back = set()
+        deadline = time.monotonic() + self.timeout
+        while True:
+            with self._cv:
+                missing = [t for t in self.topics if t not in self._back]
+            for topic in missing:
+                self.bus.send_event_lazy(topic, {
+                    "name": self.NAME, "hop": 1, "topic": topic,
+                    "token": self._token})
+            with self._cv:
+                if self._cv.wait_for(
+                        lambda: len(self._back) == len(self.topics),
+                        min(self.retry, max(deadline - time.monotonic(),
+                                            0.0))):
+                    return
+            if time.monotonic() >= deadline:
+                raise RuntimeError(f"soak: the bus did not hand back the "
+                                   f"grant fence within {self.timeout} s")
 
 
 class _SoakSite:
@@ -83,6 +158,7 @@ class _SoakSite:
                               resolve_device(device), bus=self.bus)
         self.rt.use_stream_clock()
         self.n_systems = n_systems
+        self.fence = GrantFence(self.bus, self.rt)
 
     def channel_freq(self, n: int) -> float:
         return self.base_hz + (n + 0.5) * CHANNEL_HZ
@@ -181,6 +257,7 @@ def run_soak(target_concurrency: int = 256, n_runtimes: int = 2,
     def _site_loop(site: _SoakSite) -> None:
         desired: dict[tuple, int] = {}   # (sys, chan) -> group
         chan_cursor = 0
+        site.fence.wait()         # the runtime's subscriptions are live
         site.publish_iden()
         for phase, n_blocks in phases:
             for b in range(n_blocks):
@@ -207,6 +284,7 @@ def run_soak(target_concurrency: int = 256, n_runtimes: int = 2,
                             site.grant(k, chan, g)
                 else:
                     desired.clear()
+                site.fence.wait()     # this block's grants are handled
                 site.rt.step()
                 if phase in ("wave2", "hold2"):
                     peak_during_wave2[site.idx] = max(

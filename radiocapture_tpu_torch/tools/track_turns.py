@@ -61,6 +61,20 @@ loop::
         xlat_complex --shape pfb \
         radiocapture_tpu_torch/tools/xlat_complex_54b2cf5.cu
 
+``--kernel xlat_complex_narrow``: the other source must export
+``xlat_complex_launch`` with the package's C signature;
+``xlat_complex_2cf31c4.cu`` beside this module is the complex bank as
+commit 2cf31c4 had it, before the narrow plan's redesign. The tool times
+it against the package's ``bank_complex`` on the pfb fine stage's
+operands (as ``--shape pfb``, each row's bin read in place through the
+row index by both), at all 8192 rows and at the first 64, 128 and 256
+(the runtime's groups: one 10 MS/s source, two 2.4 MS/s ones, ``decode
+pfb``'s), and counts the outputs that are bit-identical::
+
+    python3 -m radiocapture_tpu_torch.tools.track_turns --kernel \
+        xlat_complex_narrow \
+        radiocapture_tpu_torch/tools/xlat_complex_2cf31c4.cu
+
 ``--kernel pfb_bins``: the other source must export ``pfb_bins_launch``
 with the signature of commit ef6af1a (the direct [M, M] table, no
 factors: ``BINS_DIRECT_SIGNATURE``), driven with the direct table's plan;
@@ -81,7 +95,8 @@ steps; for ``cqpsk_track`` the split2 → CQPSK shape, 256 halves × 64
 slots × 2500 samples; for ``xlat_complex`` split2's own operands, 128
 sources × 240,000 bf16 wire samples), as ``chip_smoke.py`` times them;
 ``chip_smoke.py`` calls ``voice_turns``, ``cqpsk_turns``,
-``complex_turns`` and ``bins_turns`` on its own operands. Kernels run in the order other,
+``complex_turns``, ``narrow_turns`` and ``bins_turns`` on its own
+operands. Kernels run in the order other,
 package, package, other, each over ITERS launches timed by CUDA events.
 Prints the card's ``nvidia-smi`` name and power limit, then one JSON
 line.
@@ -121,6 +136,7 @@ EARLIER_CQPSK = Path(__file__).with_name("cqpsk_track_54b2cf5.cu")
 EARLIER_COMPLEX = Path(__file__).with_name("xlat_complex_54b2cf5.cu")
 EARLIER_FSK = Path(__file__).with_name("fsk_track_3e03d30.cu")
 EARLIER_BINS = Path(__file__).with_name("pfb_rows_ef6af1a.cu")
+EARLIER_NARROW = Path(__file__).with_name("xlat_complex_2cf31c4.cu")
 CQ_GRID_HZ = 12.5e3      # the CQPSK slot grid around each split2 half
 # fm_voice_launch of the one-thread-per-lane kernel: y_re, y_im, prev,
 # y_last, x_last, audio, power, S, N, C, gain, z1, b0, stream
@@ -138,14 +154,19 @@ BINS_DIRECT_SIGNATURE = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 8
 
 def build_other(src: Path, entry: str = "fsk_track_launch",
                 argtypes: tuple | None = None):
-    """``src`` compiled with the package's flags into its own library;
+    """``src`` compiled with the package's flags into its own library
+    (once: the library's name holds the hash of the source and flags);
     its ``entry`` bound with ``argtypes`` (the package's signature of
     ``entry`` by default)."""
-    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    tag = hashlib.sha256(Path(src).read_bytes() + " ".join(
+        kernels.NVCC_FLAGS).encode()).hexdigest()[:16]
     out = kernels.BUILD_DIR / "turns" / f"lib{Path(src).stem}_{tag}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-shared",
-                    "-o", str(out), str(src)], check=True, timeout=600)
+    if not out.exists():
+        tmp = out.with_suffix(".tmp.so")
+        subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-shared",
+                        "-o", str(tmp), str(src)], check=True, timeout=600)
+        tmp.replace(out)
     fn = getattr(ctypes.CDLL(str(out)), entry)
     fn.argtypes = list(argtypes or kernels._SIGNATURES[entry])
     fn.restype = ctypes.c_int
@@ -330,6 +351,50 @@ def complex_turns(src: Path, x: torch.Tensor, history: torch.Tensor,
         res[f"{name}_speedup"] = sum(ms["other"]) / sum(ms["package"])
         res[f"{name}_identical_outputs"] = identical_outputs(old(), new())
     return res
+
+
+def narrow_turns(src: Path, x: torch.Tensor, history: torch.Tensor,
+                 grev: torch.Tensor, phase0: torch.Tensor,
+                 step: torch.Tensor, d: int,
+                 rows: torch.Tensor | None = None,
+                 iters: int = ITERS) -> dict:
+    """The complex bank built from ``src`` (the package's signature of
+    ``xlat_complex_launch``) against the package's ``bank_complex`` on the
+    same CUDA operands, both reading x in place (through ``rows`` when
+    given): ms of each in turns (other, package, package, other) after
+    one untimed run of each, the speedup and the count of bit-identical
+    outputs. The compared runs write into outputs filled first, the
+    other's with NaN and the package's with infinity, so an output that
+    either kernel skips cannot count as identical."""
+    other = build_other(Path(src), "xlat_complex_launch")
+
+    def run(fn, fill=None):
+        args, y = ck.complex_args(x, history, grev, phase0, step, d, rows)
+        if fill is not None:
+            y.fill_(fill)
+        kernels.check(fn(*args), "xlat_complex")
+        return y
+
+    def old():
+        return run(other)
+
+    def new():
+        return ck.bank_complex(x, history, grev, phase0, step, d, rows)
+
+    for fn in (old, new):                     # the card's clocks up
+        cuda_ms(fn, iters)
+    ms = {"other": [], "package": []}
+    for who, fn in (("other", old), ("package", new), ("package", new),
+                    ("other", old)):
+        ms[who].append(cuda_ms(fn, iters))
+    yo = run(other, float("nan"))
+    yp = run(kernels.load().xlat_complex_launch, float("inf"))
+    return {"other": str(src), "shape": list(grev.shape) + [x.shape[1], d],
+            "row_index": rows is not None, "other_ms": ms["other"],
+            "package_ms": ms["package"],
+            "speedup": sum(ms["other"]) / sum(ms["package"]),
+            "identical_outputs": identical_outputs(yo, yp),
+            "outputs": yp.numel()}
 
 
 def ef6af1a_plan(m: int, p: int, bf16: bool) -> tuple[int, int, int]:
@@ -579,6 +644,17 @@ def main_complex(src: str, shape: str | None = None) -> None:
     print(json.dumps(res))
 
 
+def main_narrow(src: str) -> None:
+    dev = require_cuda()
+    x, hist, grev, phase0, step, d, rows = complex_general_operands(dev,
+                                                                    "pfb")
+    res = {n: narrow_turns(Path(src), x, hist[:n], grev[:n], phase0[:n],
+                           step[:n], d, rows[:n])
+           for n in (rows.numel(), 64, 128, 256)}
+    print(card_line())
+    print(json.dumps(res))
+
+
 def fsk_turns(src: Path, y_re: torch.Tensor, y_im: torch.Tensor, state,
               prm, iters: int = ITERS) -> dict:
     """The fsk tracker built from ``src`` (exporting ``fsk_track_launch``
@@ -638,7 +714,7 @@ def main_bins(src: str) -> None:
 def main(argv: list[str]) -> None:
     if argv[:1] == ["--kernel"] and len(argv) >= 3 and argv[1] in (
             "fsk_track", "fm_voice", "cqpsk_track", "xlat_complex",
-            "pfb_bins"):
+            "xlat_complex_narrow", "pfb_bins"):
         kernel, argv = argv[1], argv[2:]
     else:
         kernel = "fsk_track"
@@ -653,6 +729,8 @@ def main(argv: list[str]) -> None:
         return main_cqpsk(argv[0])
     if kernel == "xlat_complex":
         return main_complex(argv[0], shape)
+    if kernel == "xlat_complex_narrow":
+        return main_narrow(argv[0])
     if kernel == "pfb_bins":
         return main_bins(argv[0])
     dev = require_cuda()

@@ -921,6 +921,71 @@ def test_complex_bank_refuses_bad_row_index(cuda_device):
             rows)
 
 
+@functools.cache
+def _narrow_2cf31c4():
+    """The complex bank as commit 2cf31c4 had it, before the narrow plan's
+    redesign (``tools/xlat_complex_2cf31c4.cu``, the package's signature),
+    built with the package's flags."""
+    from radiocapture_tpu_torch.tools import track_turns
+    return track_turns.build_other(track_turns.EARLIER_NARROW,
+                                   "xlat_complex_launch")
+
+
+def _run_2cf31c4(x, hist, grev, phase0, step, d, rows=None):
+    args, y = ck.complex_args(x, hist, grev, phase0, step, d, rows)
+    y.fill_(float("nan"))     # an output the kernel skips stays NaN
+    kernels.check(_narrow_2cf31c4()(*args), "xlat_complex")
+    return y
+
+
+def _poison(shape, dev):
+    """Fill and free a complex64 block of ``shape``: the caching allocator
+    hands it to the next output of that size, so an output the kernel
+    skips holds infinity, not an earlier result."""
+    torch.full(shape, float("inf"), dtype=torch.complex64, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,r,n,k,c,wire", [
+    (3, None, 700, 467, 1, "float32"), (2, None, 5, 467, 1, "bf16"),
+    (4, 3, 333, 467, 3, "bf16"), (5, 2, 1001, 47, 7, "float32"),
+    (2, None, 613, 400, 2, "bf16"), (3, 3, 37, 33, 5, "float32"),
+    (2, None, 1289, 480, 4, "float32"), (6, 4, 2500, 467, 6, "bf16"),
+    (150, 20, 300, 467, 1, "float32"), (70, None, 41, 95, 2, "bf16"),
+    (64, 8, 2500, 467, 1, "bf16"), (256, 16, 2500, 467, 1, "float32"),
+    (64, 8, 1250, 467, 1, "float32"), (5, 3, 300, 8000, 1, "bf16"),
+    (3, 2, 100, 13000, 2, "float32")])
+def test_narrow_plan_matches_2cf31c4(cuda_device, s, r, n, k, c, wire):
+    """The narrow plan (C < 8 slots at D = 16) against the one it replaced
+    (``tools/xlat_complex_2cf31c4.cu``) on the same operands, every output
+    bit-identical: C = 1 to 7; K % D ≠ 0 (467, 47, and 33, whose three
+    tap rows all fall in the last group) and K % D = 0 (400, 25 tap rows
+    in whole groups; 480, 30); ragged N and N = 5 < K-1; bf16 and float32
+    wires; without a row index and through one (R rows, repeated); more
+    bank rows than a block takes (150 rows over 20 x rows, 70 without an
+    index); the runtime's groups of 64 and 256 rows of 2500 outputs (one
+    and four rows a block) and 64 rows of 1250 (blocks of four warps);
+    one tap buffer, the history fetched into the planes (K = 8000 and
+    13000, the latter one warp a block)."""
+    rng = np.random.default_rng(s + n + k + c)
+    d = 16
+    x, hist, grev, phase0, step = _complex_operands(
+        rng, s, n, k, d, c, wire, cuda_device)
+    rows = None
+    if r is not None:
+        x = x[torch.as_tensor(rng.integers(0, s, r), device=cuda_device)]
+        rows = torch.as_tensor(rng.integers(0, r, s), device=cuda_device)
+        rows[1] = rows[0]
+    before = ck.bank_complex.launches
+    _poison((s, c, n), cuda_device)
+    got = ck.bank_complex(x, hist, grev, phase0, step, d, rows)
+    assert ck.bank_complex.launches == before + 1
+    old = _run_2cf31c4(x, hist, grev, phase0, step, d, rows)
+    torch.cuda.synchronize()
+    from radiocapture_tpu_torch.tools import track_turns
+    assert track_turns.identical_outputs(got, old) == s * c * n
+
+
 def _bench_pfb_operands(dev, steps: int = 2):
     """``PfbXlatBank.fine_operands`` at the bench shape (128 sources × 64
     slots on the 25 kHz grid, one random-normal bf16 100 ms block) after
@@ -955,6 +1020,27 @@ def test_pfb_fine_stage_in_place_at_bench_shape(cuda_device):
     assert torch.equal(
         torch.view_as_real(TCH.row_history(hist, xb, rows)),
         torch.view_as_real(TCH.complex_history(hist, xg)))
+
+
+@pytest.mark.cuda
+def test_pfb_fine_narrow_matches_2cf31c4_at_bench_shape(cuda_device):
+    """The pfb fine stage at the bench shape (8192 one-slot rows reading
+    the 768 bin rows in place, K = 467, D = 16): all 20480000 outputs of
+    the narrow plan bit-identical to those of the plan it replaced
+    (``tools/xlat_complex_2cf31c4.cu``) on the same operands, and the new
+    fine history through ``row_history`` bit-identical to the gathered
+    rows' ``complex_history``."""
+    from radiocapture_tpu_torch.tools import track_turns
+    bank, _, _, (_, xb, rows, hist, grev, phase0, step) = \
+        _bench_pfb_operands(cuda_device)
+    d = bank.decim2
+    _poison(grev.shape[:2] + (xb.shape[1] // d,), cuda_device)
+    got = ck.bank_complex(xb, hist, grev, phase0, step, d, rows)
+    old = _run_2cf31c4(xb, hist, grev, phase0, step, d, rows)
+    assert track_turns.identical_outputs(got, old) == 20480000
+    assert torch.equal(
+        torch.view_as_real(TCH.row_history(hist, xb, rows)),
+        torch.view_as_real(TCH.complex_history(hist, xb[rows])))
 
 
 @pytest.mark.cuda

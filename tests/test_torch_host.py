@@ -109,14 +109,41 @@ SOAK_EDITS = ((", device=None", ""), ("resolve_device(device), ", ""),
               (", device)", ")"))
 
 
+# The lines of the port's soak that make a site's fence and wait on it,
+# whole.
+FENCE_LINES = (
+    "        self.fence = GrantFence(self.bus, self.rt)",
+    "        site.fence.wait()         # the runtime's subscriptions are live",
+    "                site.fence.wait()     # this block's grants are handled")
+
+
+def _without_fence(text: str) -> str:
+    """The port's soak without its grant fence: the ``GrantFence`` class,
+    the module docstring's paragraph on it and ``FENCE_LINES``, each of
+    which must occur once."""
+    text = text[:text.index("class GrantFence:")] + text[text.index(
+        "class _SoakSite:"):]
+    at = text.index("Each block's grants are fenced")
+    text = text[:at] + text[text.index("\n\n", at) + 2:]
+    lines = text.splitlines()
+    for ln in FENCE_LINES:
+        assert lines.count(ln) == 1, ln
+        lines.remove(ln)
+    return "\n".join(lines)
+
+
 def test_soak_is_a_copy_but_device():
     """``tools/soak.py`` equals its original but where it takes the
-    runtimes' device: ``_SoakSite`` and ``run_soak`` take ``device``,
-    ``run_soak`` resolves it before starting anything, and ``_SoakSite``
-    hands it to the port's ``SiteRuntime``. Undo those edits, drop the
-    lines they added (each names the device), and the original is
-    left."""
+    runtimes' device and where it fences each block's grants:
+    ``_SoakSite`` and ``run_soak`` take ``device``, ``run_soak`` resolves
+    it before starting anything, and ``_SoakSite`` hands it to the port's
+    ``SiteRuntime``; ``GrantFence`` and the lines that use it fence the
+    grants. Take out the fence (``_without_fence``), undo the device's
+    edits, drop the lines they added (each names the device), and the
+    original is left."""
     got, want = _ported("tools/soak")
+    assert "fence" not in want and "GrantFence(self.bus, self.rt)" in got
+    got = _without_fence(got)
     lines = []
     for ln in got.splitlines():
         for edit, orig in SOAK_EDITS:

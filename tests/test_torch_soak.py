@@ -45,6 +45,35 @@ DRAIN_KEYS = ("grants_denied", "stuck_calls_after_drain",
               "leaked_slots_after_drain", "recorder_backlog_after_drain")
 
 
+@pytest.fixture
+def fenced_jax_soak(monkeypatch):
+    """Give the JAX soak the port's grant fence (``GrantFence``) before it
+    publishes the channel identifiers and before each block's step, as
+    the port's soak has it: JAX's ``_SoakSite`` takes its grants on the
+    bus's listener thread too, so a loaded host lands one a block late
+    there as well, or drops the identifiers before the subscriptions
+    are live. The test patches the site; the JAX package is unchanged."""
+    init = JS._SoakSite.__init__
+
+    def fenced_init(site, *args, **kwargs):
+        init(site, *args, **kwargs)
+        fence = TS.GrantFence(site.bus, site.rt)
+        publish_iden, step = site.publish_iden, site.rt.step
+
+        def publish_iden_after_fence():
+            fence.wait()
+            publish_iden()
+
+        def step_after_fence():
+            fence.wait()
+            step()
+
+        site.publish_iden = publish_iden_after_fence
+        site.rt.step = step_after_fence
+
+    monkeypatch.setattr(JS._SoakSite, "__init__", fenced_init)
+
+
 def test_create_channel_ex_reports_warm_reuse():
     sched = ChannelScheduler({0: (857e6, 2.4e6)}, num_slots=4)
     a = sched.create_channel_ex("c1", 25e3, 856.9e6)
@@ -103,12 +132,12 @@ def test_recorder_manager_measures_open_latency(tmp_path):
         bus.close()
 
 
-def test_run_soak_as_jax(tmp_path):
+def test_run_soak_as_jax(tmp_path, fenced_jax_soak):
     """The port's soak on the CPU and the JAX soak at the same parameters
     open and close the same calls (every call opened is closed after the
     drain), reach the same peak and second-wave concurrency with the same
-    stream-clock latencies, and end with every drain invariant at
-    zero."""
+    stream-clock latencies, and end with every drain invariant at zero.
+    Both fence each block's grants before its step (``GrantFence``)."""
     got = TS.run_soak(audio_dir=str(tmp_path / "torch"), device="cpu",
                       **SOAK)
     want = JS.run_soak(audio_dir=str(tmp_path / "jax"), **SOAK)
