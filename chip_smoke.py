@@ -345,30 +345,22 @@ def grid_offsets(n_sources: int, dev,
     return torch.as_tensor(np.tile(offs, (n_sources, 1)), device=dev)
 
 
-def kernel_wrappers() -> dict:
-    """The kernel wrappers by kernel name (``fsk_track_stream`` is the
-    second entry of ``csrc/fsk_track.cu``)."""
-    from radiocapture_tpu_torch.demod import cqpsk_kernel as cqk
-    from radiocapture_tpu_torch.demod import track_kernel as tk
-    from radiocapture_tpu_torch.ops import channelizer_kernel as ck
-    from radiocapture_tpu_torch.ops import fm_kernel as fk
-    from radiocapture_tpu_torch.ops import pfb_kernel as pk
-    return {"bank_operands": ck.bank_operands, "xlat_bank": ck.bank_fused,
-            "fsk_track": tk.track, "xlat_complex": ck.bank_complex,
-            "agc": cqk.agc_scale_kernel,
-            "cqpsk_track": cqk.track_cqpsk, "fm_voice": fk.voice_track,
-            "fsk_track_stream": tk.track_stream, "pfb_rows": pk.pfb_rows,
-            "pfb_bins": pk.pfb_bins}
+# the main path's kernels (``fsk_track_stream`` is the second entry of
+# ``csrc/fsk_track.cu``), each counted in ``launch.<name>``
+KERNELS = ("bank_operands", "xlat_bank", "fsk_track", "xlat_complex", "agc",
+           "cqpsk_track", "fm_voice", "fsk_track_stream", "pfb_rows",
+           "pfb_bins")
 
 
 def kernel_counts() -> dict:
-    """Launch counts of the kernel wrappers."""
-    return {k: fn.launches for k, fn in kernel_wrappers().items()}
+    """Launch counts of the main path's kernels since the last reset."""
+    from radiocapture_tpu_torch.utils import trace
+    return {k: trace.counter(f"launch.{k}") for k in KERNELS}
 
 
 def reset_kernel_counts() -> None:
-    for fn in kernel_wrappers().values():
-        fn.launches = 0
+    from radiocapture_tpu_torch.utils import trace
+    trace.reset("launch.")
 
 
 def check_bank(got, want, what: str) -> float:

@@ -124,12 +124,8 @@ def agc_scale_kernel(y_re: torch.Tensor, y_im: torch.Tensor
         return _cq.agc_scale(y_re, y_im, dim=1)
     from radiocapture_tpu_torch import kernels
     args, scale = agc_args(y_re, y_im)
-    kernels.check(kernels.load().agc_launch(*args), "agc")
-    agc_scale_kernel.launches += 1
+    kernels.launch("agc", *args)
     return scale
-
-
-agc_scale_kernel.launches = 0
 
 
 def track_cqpsk(y_re: torch.Tensor, y_im: torch.Tensor, scale: torch.Tensor,
@@ -167,13 +163,9 @@ def track_cqpsk(y_re: torch.Tensor, y_im: torch.Tensor, scale: torch.Tensor,
     from radiocapture_tpu_torch import kernels
     args, (syms, valid, dibits) = kernel_args(y_re, y_im, scale, state,
                                               samp_rate, symbol_rate)
-    kernels.check(kernels.load().cqpsk_track_launch(*args), "cqpsk_track")
-    track_cqpsk.launches += 1
+    kernels.launch("cqpsk_track", *args)
     return (state, syms.transpose(1, 2), valid.transpose(1, 2),
             dibits.transpose(1, 2))
-
-
-track_cqpsk.launches = 0
 
 
 def chain_probe(x_re: torch.Tensor, x_im: torch.Tensor,

@@ -155,13 +155,9 @@ def track(y_re: torch.Tensor, y_im: torch.Tensor,
     from radiocapture_tpu_torch import kernels
     args, (syms, valid, dibits) = kernel_args(y_re, y_im, quad, sym_hist,
                                               fsk4, prm)
-    kernels.check(kernels.load().fsk_track_launch(*args), "fsk_track")
-    track.launches += 1
+    kernels.launch("fsk_track", *args)
     return (quad, sym_hist, fsk4, syms.transpose(1, 2),
             valid.transpose(1, 2), dibits.transpose(1, 2))
-
-
-track.launches = 0
 
 
 def track_stream_plain(x: torch.Tensor, fsk4: _fsk4.Fsk4State,
@@ -209,20 +205,16 @@ def track_stream(x: torch.Tensor, fsk4: _fsk4.Fsk4State, prm: TrackParams):
     valid = torch.empty((s, m, c), dtype=torch.int32, device=x.device)
     dibits = torch.empty_like(valid)
     lo, spacing = _fsk4.uniform_alphabet(prm.levels)
-    kernels.check(kernels.load().fsk_track_stream_launch(
-        x.data_ptr(), fsk4.clock.data_ptr(), fsk4.fine_freq.data_ptr(),
-        fsk4.hist.data_ptr(), syms.data_ptr(), valid.data_ptr(),
-        dibits.data_ptr(), consts(prm).ctypes, s, m, c,
+    kernels.launch(
+        "fsk_track_stream", x.data_ptr(), fsk4.clock.data_ptr(),
+        fsk4.fine_freq.data_ptr(), fsk4.hist.data_ptr(), syms.data_ptr(),
+        valid.data_ptr(), dibits.data_ptr(), consts(prm).ctypes, s, m, c,
         _fsk4.f32(prm.symbol_rate / prm.track_fs), lo, spacing,
         len(prm.levels), _fsk4.f32(_fsk4.K_FINE_FREQ),
         _fsk4.f32(_fsk4.K_TIMING),
-        torch.cuda.current_stream(x.device).cuda_stream), "fsk_track_stream")
-    track_stream.launches += 1
+        torch.cuda.current_stream(x.device).cuda_stream)
     return (fsk4, syms.transpose(1, 2), valid.transpose(1, 2),
             dibits.transpose(1, 2))
-
-
-track_stream.launches = 0
 
 
 def chain_probe(xn: torch.Tensor, steps: int, prm: TrackParams) -> int:

@@ -20,6 +20,7 @@ import torch
 
 from radiocapture_tpu_torch.device import wire_from_numpy
 from radiocapture_tpu_torch.frontend.pipeline import ControlPipeline
+from radiocapture_tpu_torch.utils import trace
 
 SAMP_RATE = 2.4e6
 NUM_SLOTS = 64
@@ -61,22 +62,16 @@ def grant_capture(samp_rate: float = DRYRUN_RATE) -> np.ndarray:
     return M.multi_channel(samp_rate, [(DRYRUN_OFFSET, up)], n=len(up))
 
 
+_KERNELS = ("bank_operands", "xlat_bank", "fsk_track", "xlat_complex",
+            "fsk_track_stream")
+
+
 def _launches() -> dict:
-    from radiocapture_tpu_torch.demod import track_kernel as tk
-    from radiocapture_tpu_torch.ops import channelizer_kernel as ck
-    return {"bank_operands": ck.bank_operands.launches,
-            "xlat_bank": ck.bank_fused.launches,
-            "fsk_track": tk.track.launches,
-            "xlat_complex": ck.bank_complex.launches,
-            "fsk_track_stream": tk.track_stream.launches}
+    return {k: trace.counter(f"launch.{k}") for k in _KERNELS}
 
 
 def _reset_launches() -> None:
-    from radiocapture_tpu_torch.demod import track_kernel as tk
-    from radiocapture_tpu_torch.ops import channelizer_kernel as ck
-    for fn in (ck.bank_operands, ck.bank_fused, tk.track, ck.bank_complex,
-               tk.track_stream):
-        fn.launches = 0
+    trace.reset("launch.")
 
 
 def _grants_of(dibs: list, vals: list, src: int, slot: int) -> list:

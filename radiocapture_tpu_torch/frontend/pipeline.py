@@ -27,6 +27,11 @@ with the source axis ``S``.
 On CUDA the step updates the streaming state in place (the trackers'
 lane state is written back by the kernel); on CPU it builds new tensors.
 Either way, use the state the step returns.
+
+Each step is a request to the tracer (``utils/trace.py``): the root span
+``pipeline.step`` (``split2.step`` for the split), inside it
+``channelize`` around the bank and ``demod`` around the tracker, inside
+those the hand kernels' ``kernel.<name>``.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from radiocapture_tpu_torch.ops.channelizer import (PfbXlatBank, XlatBank,
 from radiocapture_tpu_torch.ops.fft_bank import FftXlatBank
 from radiocapture_tpu_torch.ops.fir import batched_fir, phase_step_u32
 from radiocapture_tpu_torch.ops.fm_kernel import voice_track
+from radiocapture_tpu_torch.utils import trace
 
 
 def _make_bank(frontend: str, num_slots: int, samp_rate: float,
@@ -57,13 +63,15 @@ def _make_bank(frontend: str, num_slots: int, samp_rate: float,
     """The channel-extraction stage of the config's ``frontend_mode``
     (rc_frontend/receiver.py:242: 'xlat' per-channel filters, 'pfb' coarse
     polyphase bins + fine xlat; 'fft' the overlap-save form of xlat, the
-    same filter), as the JAX ``_make_bank`` (pipeline.py:57-71)."""
-    if frontend == "pfb":
-        return PfbXlatBank(num_slots, samp_rate, channel_rate)
-    if frontend == "xlat":
-        return XlatBank.for_rates(num_slots, samp_rate, channel_rate)
-    if frontend == "fft":
-        return FftXlatBank.for_rates(num_slots, samp_rate, channel_rate)
+    same filter), as the JAX ``_make_bank`` (pipeline.py:57-71). The
+    filter design's host seconds count in ``setup.design_s``."""
+    with trace.timed("setup.design_s"):
+        if frontend == "pfb":
+            return PfbXlatBank(num_slots, samp_rate, channel_rate)
+        if frontend == "xlat":
+            return XlatBank.for_rates(num_slots, samp_rate, channel_rate)
+        if frontend == "fft":
+            return FftXlatBank.for_rates(num_slots, samp_rate, channel_rate)
     raise ValueError(f"unknown frontend_mode {frontend!r}")
 
 
@@ -176,9 +184,12 @@ class ControlPipeline:
         slot centre offset in cycles/input-sample (offset_hz / samp_rate).
         Returns (state, (symbols [S, C, M] f32, valid [S, C, M] int32 0/1,
         dibits [S, C, M] int32)) with M = T // (decim · sym_decim)."""
-        _check_block(x, self.block_multiple)
-        bs, y_re, y_im = self.bank.call_planes(state.bank, x, offsets_norm)
-        return self._track(state, bs, y_re, y_im)
+        with trace.span("pipeline.step", cuda=x.is_cuda):
+            _check_block(x, self.block_multiple)
+            with trace.span("channelize"):
+                bs, y_re, y_im = self.bank.call_planes(state.bank, x,
+                                                       offsets_norm)
+            return self._track(state, bs, y_re, y_im)
 
     def step_debug(self, state: ControlPipelineState, x: torch.Tensor,
                    offsets_norm: torch.Tensor):
@@ -210,14 +221,15 @@ class ControlPipeline:
 
     def _track(self, state: ControlPipelineState, bs, y_re: torch.Tensor,
                y_im: torch.Tensor):
-        if self.fsk4_block > 1:
-            quad, sym_hist, fsk4, syms, valid, dibits = track_plain(
-                y_re, y_im, state.quad, state.sym_hist, state.fsk4,
-                self.track_params, block=self.fsk4_block)
-        else:
-            quad, sym_hist, fsk4, syms, valid, dibits = track(
-                y_re, y_im, state.quad, state.sym_hist, state.fsk4,
-                self.track_params)
+        with trace.span("demod"):
+            if self.fsk4_block > 1:
+                quad, sym_hist, fsk4, syms, valid, dibits = track_plain(
+                    y_re, y_im, state.quad, state.sym_hist, state.fsk4,
+                    self.track_params, block=self.fsk4_block)
+            else:
+                quad, sym_hist, fsk4, syms, valid, dibits = track(
+                    y_re, y_im, state.quad, state.sym_hist, state.fsk4,
+                    self.track_params)
         new_state = ControlPipelineState(bank=bs, quad=quad,
                                          sym_hist=sym_hist, fsk4=fsk4)
         return new_state, (syms, valid, dibits)
@@ -301,12 +313,16 @@ class CqpskControlPipeline:
              offsets_norm: torch.Tensor):
         """Same contract as :meth:`ControlPipeline.step`; here
         M = T // decim (one output per channel sample)."""
-        _check_block(x, self.block_multiple)
-        bs, y_re, y_im = self.bank.call_planes(state.bank, x, offsets_norm)
-        scale = agc_scale_kernel(y_re, y_im)                 # [S, C]
-        cs, syms, valid, dibits = track_cqpsk(
-            y_re, y_im, scale, state.cqpsk, self.channel_fs,
-            self.symbol_rate)
+        with trace.span("pipeline.step", cuda=x.is_cuda):
+            _check_block(x, self.block_multiple)
+            with trace.span("channelize"):
+                bs, y_re, y_im = self.bank.call_planes(state.bank, x,
+                                                       offsets_norm)
+            with trace.span("demod"):
+                scale = agc_scale_kernel(y_re, y_im)             # [S, C]
+                cs, syms, valid, dibits = track_cqpsk(
+                    y_re, y_im, scale, state.cqpsk, self.channel_fs,
+                    self.symbol_rate)
         return CqpskPipelineState(bank=bs, cqpsk=cs), (syms, valid, dibits)
 
     def offsets_for(self, freqs_hz: np.ndarray, center_hz: float
@@ -360,10 +376,15 @@ class AnalogVoicePipeline:
         block_multiple == 0;
         offsets_norm [S, num_slots] → (state, (audio [S, C, T//decim]
         float32, power [S, C] float32 mean |chan|²))."""
-        _check_block(x, self.block_multiple)
-        bs, y_re, y_im = self.bank.call_planes(state.bank, x, offsets_norm)
-        quad, deemph, audio, power = voice_track(
-            y_re, y_im, state.quad, state.deemph, self.gain, self.channel_fs)
+        with trace.span("pipeline.step", cuda=x.is_cuda):
+            _check_block(x, self.block_multiple)
+            with trace.span("channelize"):
+                bs, y_re, y_im = self.bank.call_planes(state.bank, x,
+                                                       offsets_norm)
+            with trace.span("demod"):
+                quad, deemph, audio, power = voice_track(
+                    y_re, y_im, state.quad, state.deemph, self.gain,
+                    self.channel_fs)
         return (VoicePipelineState(bank=bs, quad=quad, deemph=deemph),
                 (audio, power))
 
@@ -379,9 +400,10 @@ class SpectrumSplit2:
     def __init__(self, samp_rate: float):
         self.samp_rate = float(samp_rate)
         channel_rate = (samp_rate / 2.0) / 2.0
-        taps = _taps.low_pass(1.0, samp_rate, channel_rate,
-                              0.5 * channel_rate)
-        self.bank = XlatBank(2, 2, taps)
+        with trace.timed("setup.design_s"):
+            taps = _taps.low_pass(1.0, samp_rate, channel_rate,
+                                  0.5 * channel_rate)
+            self.bank = XlatBank(2, 2, taps)
         # halves at centre - fs/4 (index 0) and centre + fs/4 (index 1),
         # the reference's newsource1/newsource2 ordering
         self.offsets = np.array([-0.25, 0.25], np.float32)
@@ -400,14 +422,17 @@ class SpectrumSplit2:
         """x: [S, T] complex64, or an [S, T, 2] float32/bf16 wire block,
         read in place by the bank; T % 2 == 0 → (state, halves
         [S, 2, T//2, 2] float32 re/im)."""
-        key = (x.device, x.shape[0])
-        if key not in self._ops:
-            offs = torch.as_tensor(np.tile(self.offsets, (x.shape[0], 1)),
-                                   device=x.device)
-            self._ops[key] = (self.bank.modulated_taps(offs),
-                              phase_step_u32(offs, self.bank.decim))
-        state, y = self.bank.call_taps(state, x, *self._ops[key])  # [S,2,T/2]
-        return state, torch.view_as_real(y)
+        with trace.span("split2.step", cuda=x.is_cuda):
+            key = (x.device, x.shape[0])
+            if key not in self._ops:
+                with trace.timed("setup.plans_s"):
+                    offs = torch.as_tensor(
+                        np.tile(self.offsets, (x.shape[0], 1)),
+                        device=x.device)
+                    self._ops[key] = (self.bank.modulated_taps(offs),
+                                      phase_step_u32(offs, self.bank.decim))
+            state, y = self.bank.call_taps(state, x, *self._ops[key])
+            return state, torch.view_as_real(y)                # [S,2,T/2]
 
 
 def split2_sources(halves: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,9 @@ shared library with a plain C interface under ``_build/`` (a directory
 git ignores), named by a hash of the sources and flags so an edited
 source rebuilds and an unchanged one loads at once. The library is bound
 with ``ctypes``; each C entry point launches on the stream it is given
-and returns ``cudaGetLastError()``.
+and returns ``cudaGetLastError()``. The main path's wrappers launch
+through ``launch``: the span ``kernel.<name>`` and the counter
+``launch.<name>`` (``utils/trace.py``).
 
 No ``--use_fast_math``: the tracker is a feedback loop, and its atan2,
 tanh, division and sin/cos must stay IEEE-accurate to track the plain
@@ -23,6 +25,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+from radiocapture_tpu_torch.utils import trace
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -135,14 +139,18 @@ def build(verbose: bool = False) -> Path:
 
 @functools.cache
 def load() -> ctypes.CDLL:
-    """The built kernel library (built on first call, once per process)."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    lib.rc_error_string.argtypes = [ctypes.c_int]
-    lib.rc_error_string.restype = ctypes.c_char_p
+    """The built kernel library (built on first call, once per process).
+    The load's host seconds, the build's left out, count in
+    ``setup.kernels_s``."""
+    path = build()
+    with trace.timed("setup.kernels_s"):
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        lib.rc_error_string.argtypes = [ctypes.c_int]
+        lib.rc_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -151,3 +159,13 @@ def check(err: int, what: str) -> None:
     if err:
         msg = load().rc_error_string(err).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+
+
+def launch(name: str, *args) -> None:
+    """Launch the kernel ``name`` through its C entry point
+    ``<name>_launch`` with ``args``, inside the span ``kernel.<name>``;
+    raise on a CUDA error (``check``), else count ``launch.<name>``."""
+    with trace.span(f"kernel.{name}", cuda=True):
+        err = getattr(load(), f"{name}_launch")(*args)
+    check(err, name)
+    trace.count(f"launch.{name}")

@@ -31,6 +31,7 @@ from radiocapture_tpu_torch.ops.channelizer_kernel import (
     wire_z2)
 from radiocapture_tpu_torch.ops.fir import U32_MASK, XlatState, phase_step_u32
 from radiocapture_tpu_torch.ops.pfb_kernel import pfb_bins, pfb_rows, rotation
+from radiocapture_tpu_torch.utils import trace
 
 
 class XlatBankState(NamedTuple):
@@ -108,11 +109,13 @@ def device_const(cache: dict, name: str, value: np.ndarray,
                  device) -> torch.Tensor:
     """``value`` on ``device``, copied there once and kept in ``cache``:
     PyTorch follows a host→device copy of pageable memory with a stream
-    synchronize, which would stall every step."""
+    synchronize, which would stall every step. A copy made counts its
+    host seconds in ``setup.plans_s``."""
     key = (name, torch.device(device))
     t = cache.get(key)
     if t is None:
-        t = cache[key] = torch.as_tensor(value, device=device)
+        with trace.timed("setup.plans_s"):
+            t = cache[key] = torch.as_tensor(value, device=device)
     return t
 
 

@@ -265,12 +265,8 @@ def bank_operands(history: torch.Tensor, x2: torch.Tensor,
         return bank_operands_plain(history, x2, offsets_norm, taps, p, d)
     from radiocapture_tpu_torch import kernels
     args, outs = operands_args(history, x2, offsets_norm, taps, p, d)
-    kernels.check(kernels.load().bank_operands_launch(*args), "bank_operands")
-    bank_operands.launches += 1
+    kernels.launch("bank_operands", *args)
     return outs
-
-
-bank_operands.launches = 0
 
 
 def bank_fused(z2: torch.Tensor, g2: torch.Tensor, phase0: torch.Tensor,
@@ -319,16 +315,12 @@ def bank_fused(z2: torch.Tensor, g2: torch.Tensor, phase0: torch.Tensor,
     zb = kernel_rows(z2, n, p, d)
     y_re = torch.empty((s, n, c), dtype=torch.float32, device=z2.device)
     y_im = torch.empty_like(y_re)
-    err = kernels.load().xlat_bank_launch(
-        zb.data_ptr(), g2.data_ptr(), phase0.data_ptr(), step.data_ptr(),
-        y_re.data_ptr(), y_im.data_ptr(), s, n, p, w, c, zb.shape[1],
-        zb.stride(0), torch.cuda.current_stream(z2.device).cuda_stream)
-    kernels.check(err, "xlat_bank")
-    bank_fused.launches += 1
+    kernels.launch(
+        "xlat_bank", zb.data_ptr(), g2.data_ptr(), phase0.data_ptr(),
+        step.data_ptr(), y_re.data_ptr(), y_im.data_ptr(), s, n, p, w, c,
+        zb.shape[1], zb.stride(0),
+        torch.cuda.current_stream(z2.device).cuda_stream)
     return y_re, y_im
-
-
-bank_fused.launches = 0
 
 
 def bank_complex_plain(z: torch.Tensor, grev: torch.Tensor,
@@ -465,9 +457,5 @@ def bank_complex(x: torch.Tensor, history: torch.Tensor, grev: torch.Tensor,
     args, y = complex_args(x, history, grev, phase0, step, d, rows)
     if y.shape[-1] == 0:
         return y
-    kernels.check(kernels.load().xlat_complex_launch(*args), "xlat_complex")
-    bank_complex.launches += 1
+    kernels.launch("xlat_complex", *args)
     return y
-
-
-bank_complex.launches = 0

@@ -93,9 +93,5 @@ def voice_track(y_re: torch.Tensor, y_im: torch.Tensor,
     from radiocapture_tpu_torch import kernels
     args, (audio, power) = kernel_args(y_re, y_im, quad, deemph, gain,
                                        samp_rate)
-    kernels.check(kernels.load().fm_voice_launch(*args), "fm_voice")
-    voice_track.launches += 1
+    kernels.launch("fm_voice", *args)
     return quad, deemph, audio.transpose(1, 2), power
-
-
-voice_track.launches = 0

@@ -28,6 +28,8 @@ import functools
 import numpy as np
 import torch
 
+from radiocapture_tpu_torch.utils import trace
+
 # csrc/pfb_rows.cu's constants that pfb_bins' plan depends on
 MB_MAX = 16          # pfb_rows' branches a block, pfb_bins' warps a slab
 WARPS_MAX = 8        # warps a block aims for
@@ -247,12 +249,8 @@ def pfb_rows(history: torch.Tensor, x: torch.Tensor, hp2: torch.Tensor
         return pfb_rows_plain(history, x, hp2)
     from radiocapture_tpu_torch import kernels
     args, outs = pfb_rows_args(history, x, hp2)
-    kernels.check(kernels.load().pfb_rows_launch(*args), "pfb_rows")
-    pfb_rows.launches += 1
+    kernels.launch("pfb_rows", *args)
     return outs
-
-
-pfb_rows.launches = 0
 
 
 def _blocks_per_sm(threads: int, shared: int) -> int:
@@ -290,24 +288,27 @@ def bins_plan(m: int, p: int, bf16: bool,
     and 16 warps (two blocks) 0.808 against 0.875 with 7 rows (one).
     Raises ValueError for an M whose planes pass the shared memory a
     block can use even at K_SMALL (M > 115 at P = 24 on the direct
-    table)."""
-    m1, m2 = factors or idft_factors(m)
-    if m1 * m2 != m or not (m1 == 1 or 2 <= m1 <= m2 <= FACTOR_MAX):
-        raise ValueError(f"pfb_bins: no plan factors M={m} as {m1}·{m2}")
-    table = (m * _whole(m, direct_chunk(m)) if m1 == 1
-             else m1 * _even(m1) + m * _even(m2))
-    best = None
-    for k in dict.fromkeys((WIRE_K[bf16], K_MID, K_SMALL)):
-        for wb in dict.fromkeys((-(-m // -(-m // MB_MAX)), 8, MB_MAX)):
-            slabs = 1 if wb >= WARPS_MAX else WARPS_MAX // wb
-            shared = 8 * (table + m * (slabs * 32 * k + p - 1)) + 4 * m * p
-            if shared > SMEM_MAX:
-                continue
-            blocks = _blocks_per_sm(32 * wb * slabs, shared)
-            key = (blocks * min(wb, m) * slabs, k > K_SMALL, blocks, k,
-                   -wb)
-            if best is None or key > best[0]:
-                best = key, (k, wb, slabs, m1, m2, shared)
+    table). A plan made counts its host seconds in ``setup.plans_s``."""
+    with trace.timed("setup.plans_s"):
+        m1, m2 = factors or idft_factors(m)
+        if m1 * m2 != m or not (m1 == 1 or 2 <= m1 <= m2 <= FACTOR_MAX):
+            raise ValueError(
+                f"pfb_bins: no plan factors M={m} as {m1}·{m2}")
+        table = (m * _whole(m, direct_chunk(m)) if m1 == 1
+                 else m1 * _even(m1) + m * _even(m2))
+        best = None
+        for k in dict.fromkeys((WIRE_K[bf16], K_MID, K_SMALL)):
+            for wb in dict.fromkeys((-(-m // -(-m // MB_MAX)), 8, MB_MAX)):
+                slabs = 1 if wb >= WARPS_MAX else WARPS_MAX // wb
+                shared = (8 * (table + m * (slabs * 32 * k + p - 1))
+                          + 4 * m * p)
+                if shared > SMEM_MAX:
+                    continue
+                blocks = _blocks_per_sm(32 * wb * slabs, shared)
+                key = (blocks * min(wb, m) * slabs, k > K_SMALL, blocks, k,
+                       -wb)
+                if best is None or key > best[0]:
+                    best = key, (k, wb, slabs, m1, m2, shared)
     if best is None:
         raise ValueError(f"pfb_bins: M={m}, P={p} needs {shared} bytes of "
                          f"shared memory a block, more than {SMEM_MAX}")
@@ -319,8 +320,9 @@ def device_table(m: int, m1: int, m2: int,
                  device: torch.device) -> torch.Tensor:
     """``plan_table(m, m1, m2)`` on ``device``, copied there once (a copy
     from pageable host memory would synchronize the stream every step);
-    the kernel only reads it."""
-    return torch.as_tensor(plan_table(m, m1, m2), device=device)
+    the kernel only reads it. Timed as ``bins_plan``'s plans are."""
+    with trace.timed("setup.plans_s"):
+        return torch.as_tensor(plan_table(m, m1, m2), device=device)
 
 
 def pfb_bins_args(history: torch.Tensor, x: torch.Tensor, hp2: torch.Tensor):
@@ -364,9 +366,5 @@ def pfb_bins(history: torch.Tensor, x: torch.Tensor, hp2: torch.Tensor
         return pfb_bins_plain(history, x, hp2)
     from radiocapture_tpu_torch import kernels
     args, outs = pfb_bins_args(history, x, hp2)
-    kernels.check(kernels.load().pfb_bins_launch(*args), "pfb_bins")
-    pfb_bins.launches += 1
+    kernels.launch("pfb_bins", *args)
     return outs
-
-
-pfb_bins.launches = 0

@@ -33,6 +33,7 @@ from radiocapture_tpu_torch.rxconfig import (RcConfig, SourceConfig,
                                              SystemConfig)
 from radiocapture_tpu_torch.testing import modulators as M
 from radiocapture_tpu_torch.testing import streams
+from radiocapture_tpu_torch.utils import trace
 
 FUSED_REL = 0.03    # bf16 operands, test_ops_channelizer.py:176
 # The complex bank is float32 in both versions: only the sum order
@@ -77,9 +78,9 @@ def test_bank_kernel_matches_plain(cuda_device, s, n, c):
     phase0 = torch.as_tensor(rng.integers(0, 2 ** 32, (s, c)),
                              dtype=torch.int64, device=cuda_device)
     step = phase_step_u32(offs, d)
-    before = ck.bank_fused.launches
+    before = trace.counter("launch.xlat_bank")
     got = ck.bank_fused(z2, ck.kernel_taps(g2, p, d), phase0, step, n, p, d)
-    assert ck.bank_fused.launches == before + 1
+    assert trace.counter("launch.xlat_bank") == before + 1
     want = ck.bank_fused_plain(z2, g2, phase0, step, n, p, d)
     scale = max(float(w.abs().max()) for w in want)
     for g_, w_ in zip(got, want):
@@ -116,9 +117,9 @@ def test_bank_kernel_on_pipeline_operands(cuda_device, path):
     g2 = ck.tap_matrix(bank.device_taps(cuda_device), offs, bank.p, d,
                        torch.bfloat16)
     assert torch.equal(gk, ck.kernel_taps(g2, bank.p, d))
-    before = ck.bank_fused.launches
+    before = trace.counter("launch.xlat_bank")
     got = ck.bank_fused(z2, gk, st.phase, step, n, bank.p, d)
-    assert ck.bank_fused.launches == before + 1
+    assert trace.counter("launch.xlat_bank") == before + 1
     want = ck.bank_fused_plain(z2, g2, st.phase, step, n, bank.p, d)
     scale = max(float(w.abs().max()) for w in want)
     for g_, w_ in zip(got, want):
@@ -167,9 +168,9 @@ def test_operands_kernel_is_the_plain_version(cuda_device, bank, s, t, wire,
                             device=cuda_device))
     x2 = torch.randn((s, t, 2), generator=g, device=cuda_device).to(wire)
     offs = (torch.rand((s, c), generator=g, device=cuda_device) - 0.5) * 0.9
-    before = ck.bank_operands.launches
+    before = trace.counter("launch.bank_operands")
     z2, g2, step = bank.operands(st, x2, offs)
-    assert ck.bank_operands.launches == before + 1
+    assert trace.counter("launch.bank_operands") == before + 1
     pz2, pg2, pstep = bank.operands_plain(st, x2, offs)
     assert torch.equal(z2.view(torch.int16), pz2.view(torch.int16))
     diff = g2.view(torch.int16) != pg2.view(torch.int16)
@@ -193,9 +194,9 @@ def test_agc_kernel_within_bound(cuda_device, s, n, c):
     y_im = torch.randn((s, n, c), generator=g, device=cuda_device)
     y_re[0, :, 0] = 0.0
     y_im[0, :, 0] = 0.0
-    before = cqk.agc_scale_kernel.launches
+    before = trace.counter("launch.agc")
     got = cqk.agc_scale_kernel(y_re, y_im)
-    assert cqk.agc_scale_kernel.launches == before + 1
+    assert trace.counter("launch.agc") == before + 1
     want = CQ.agc_scale(y_re, y_im, dim=1)
     assert got.shape == (s, c) and got.dtype == torch.float32
     assert float(((got - want).abs() / want.abs()).max()) <= AGC_REL
@@ -264,7 +265,7 @@ def test_track_kernel_matches_plain(cuda_device, ctor, s, c, nb):
     st = [(fm.quad_demod_init((s, c), cuda_device),
            torch.zeros((s, c, len(prm.sym_taps) - 1), device=cuda_device),
            K.fsk4_init((s, c), cuda_device)) for _ in range(2)]
-    before = tk.track.launches
+    before = trace.counter("launch.fsk_track")
     for b in range(3):
         blk = lanes[:, b * nb:(b + 1) * nb]
         y_re = torch.as_tensor(blk.real.copy(), device=cuda_device)
@@ -280,7 +281,7 @@ def test_track_kernel_matches_plain(cuda_device, ctor, s, c, nb):
         assert torch.equal(got[1], want[1])
         for g_, w_ in zip(got[2], want[2]):
             assert float((g_ - w_).abs().max()) <= 1e-3
-    assert tk.track.launches == before + 3
+    assert trace.counter("launch.fsk_track") == before + 3
 
 
 @pytest.mark.cuda
@@ -371,9 +372,9 @@ def test_complex_bank_kernel_matches_plain(cuda_device, s, n, k, d, c, wire,
     rng = np.random.default_rng(n + c + s)
     x, hist, grev, phase0, step = _complex_operands(
         rng, s, n, k, d, c, wire, cuda_device, split2)
-    before = ck.bank_complex.launches
+    before = trace.counter("launch.xlat_complex")
     got = ck.bank_complex(x, hist, grev, phase0, step, d)
-    assert ck.bank_complex.launches == before + 1
+    assert trace.counter("launch.xlat_complex") == before + 1
     want = ck.bank_complex_plain(ck.complex_z(x, hist), grev, phase0, step,
                                  n, d)
     assert got.shape == (s, c, n) and got.dtype == torch.complex64
@@ -711,7 +712,7 @@ def test_voice_kernel_matches_plain(cuda_device, s, n, c):
     gain = 25000.0 / (2 * np.pi * 5000.0)
     st = [(fm.quad_demod_init((s, c), cuda_device),
            fm.deemph_init((s, c), cuda_device)) for _ in range(2)]
-    before = fk.voice_track.launches
+    before = trace.counter("launch.fm_voice")
     for b in range(2):
         blk = [torch.as_tensor(np.ascontiguousarray(p[:, b * n:(b + 1) * n]),
                                device=cuda_device) for p in (re, im)]
@@ -726,7 +727,7 @@ def test_voice_kernel_matches_plain(cuda_device, s, n, c):
                                    rtol=0, atol=VOICE_REL * scale)
         assert torch.equal(got[1].x_last, want[1].x_last)
         assert torch.equal(got[0].prev, want[0].prev)
-    assert fk.voice_track.launches == before + 2
+    assert trace.counter("launch.fm_voice") == before + 2
 
 
 @pytest.mark.cuda
@@ -855,9 +856,9 @@ def test_pfb_fine_stage_kernel_matches_plain(cuda_device, s, n):
     phase0 = torch.as_tensor(rng.integers(0, 2 ** 32, (s, 1)),
                              dtype=torch.int64, device=cuda_device)
     step = phase_step_u32(fine, d)
-    before = ck.bank_complex.launches
+    before = trace.counter("launch.xlat_complex")
     got = ck.bank_complex(x, hist, grev, phase0, step, d)
-    assert ck.bank_complex.launches == before + 1
+    assert trace.counter("launch.xlat_complex") == before + 1
     want = ck.bank_complex_plain(ck.complex_z(x, hist), grev, phase0, step,
                                  n, d)
     assert got.shape == (s, 1, n)
@@ -885,9 +886,9 @@ def test_complex_bank_row_index_matches_gathered(cuda_device, s, r, n, k, d,
     rows[1] = rows[0]
     _, hist, grev, phase0, step = _complex_operands(
         rng, s, n, k, d, c, "float32", cuda_device)
-    before = ck.bank_complex.launches
+    before = trace.counter("launch.xlat_complex")
     got = ck.bank_complex(x, hist, grev, phase0, step, d, rows)
-    assert ck.bank_complex.launches == before + 1
+    assert trace.counter("launch.xlat_complex") == before + 1
     gathered = ck.bank_complex(x[rows], hist, grev, phase0, step, d)
     from radiocapture_tpu_torch.tools import track_turns
     assert track_turns.identical_outputs(got, gathered) == s * c * n
@@ -976,10 +977,10 @@ def test_narrow_plan_matches_2cf31c4(cuda_device, s, r, n, k, c, wire):
         x = x[torch.as_tensor(rng.integers(0, s, r), device=cuda_device)]
         rows = torch.as_tensor(rng.integers(0, r, s), device=cuda_device)
         rows[1] = rows[0]
-    before = ck.bank_complex.launches
+    before = trace.counter("launch.xlat_complex")
     _poison((s, c, n), cuda_device)
     got = ck.bank_complex(x, hist, grev, phase0, step, d, rows)
-    assert ck.bank_complex.launches == before + 1
+    assert trace.counter("launch.xlat_complex") == before + 1
     old = _run_2cf31c4(x, hist, grev, phase0, step, d, rows)
     torch.cuda.synchronize()
     from radiocapture_tpu_torch.tools import track_turns
@@ -1066,9 +1067,9 @@ def test_pfb_bins_are_ifft_rot_transposed(cuda_device, fs, m, atten, wire,
          torch.view_as_complex(x) if wire == "complex64" else x)
     st = pfb.init(s, cuda_device)._replace(history=torch.as_tensor(
         _complex_normal(rng, (s, (pfb.p - 1) * m)), device=cuda_device))
-    before = pk.pfb_bins.launches
+    before = trace.counter("launch.pfb_bins")
     sb, yb = pfb.bins(st, x)
-    assert pk.pfb_bins.launches == before + 1
+    assert trace.counter("launch.pfb_bins") == before + 1
     sr, yr = pfb.rows(st, x)
     v, _ = pk.pfb_rows(st.history, x, pfb.device_hp2(cuda_device))
     rot = torch.as_tensor(pfb.rot, device=cuda_device)
@@ -1148,21 +1149,23 @@ def check_card_against_cpu(dev0, frontend, fs, fsk4_block=0):
     outs, chans = [], []
     for dev in (dev0, torch.device("cpu")):
         st = pipe.bank.init(1, dev)
-        before = ck.bank_complex.launches, pk.pfb_bins.launches
+        before = (trace.counter("launch.xlat_complex"),
+                  trace.counter("launch.pfb_bins"))
         _, y = pipe.bank(st, x[:, :bm].to(dev), offs.to(dev))
         if frontend == "pfb" and dev.type == "cuda":
-            assert (ck.bank_complex.launches,
-                    pk.pfb_bins.launches) == (before[0] + 1, before[1] + 1)
+            assert (trace.counter("launch.xlat_complex"),
+                    trace.counter("launch.pfb_bins")) == (before[0] + 1,
+                                                          before[1] + 1)
         chans.append(y.cpu())
         st = pipe.init(1, dev)
         got = []
-        tracks = tk.track.launches
+        tracks = trace.counter("launch.fsk_track")
         for b in range(0, n, bm):
             st, out = pipe.step(st, x[:, b:b + bm].to(dev), offs.to(dev))
             got.append([o.cpu() for o in out])
         if dev.type == "cuda":
-            assert tk.track.launches - tracks == (0 if fsk4_block else
-                                                  n // bm)
+            assert trace.counter("launch.fsk_track") - tracks == (
+                0 if fsk4_block else n // bm)
         outs.append([torch.cat([g[i] for g in got], -1) for i in range(3)])
     scale = float(chans[1].abs().max())
     err = float((chans[0] - chans[1]).abs().max())
@@ -1216,9 +1219,9 @@ def test_pfb_rows_kernel_matches_plain(cuda_device, case):
     order and its fma."""
     pfb, hist, x = _pfb_rows_inputs(cuda_device, case)
     hp2 = pfb.device_hp2(cuda_device)
-    before = pk.pfb_rows.launches
+    before = trace.counter("launch.pfb_rows")
     v, nh = pk.pfb_rows(hist, x, hp2)
-    assert pk.pfb_rows.launches == before + 1
+    assert trace.counter("launch.pfb_rows") == before + 1
     pv, pnh = pk.pfb_rows_plain(hist, x, hp2)
     assert v.shape == (x.shape[0], x.shape[1] // pfb.num_channels,
                        pfb.num_channels)
@@ -1257,9 +1260,9 @@ def test_pfb_bins_kernel_matches_plain(cuda_device, case):
         x = {8: torch.view_as_complex(x), 16: x, 100: x}.get(
             m, x.to(torch.bfloat16))
     hp2 = pfb.device_hp2(cuda_device)
-    before = pk.pfb_bins.launches
+    before = trace.counter("launch.pfb_bins")
     y, nh = pk.pfb_bins(hist, x, hp2)
-    assert pk.pfb_bins.launches == before + 1
+    assert trace.counter("launch.pfb_bins") == before + 1
     py, pnh = pk.pfb_bins_plain(hist, x, hp2)
     assert y.shape == py.shape and y.is_contiguous()
     scale = float(py.abs().max())
@@ -1311,11 +1314,12 @@ def test_trial_lock_on_card_matches_cpu(cuda_device, c):
     from radiocapture_tpu_torch.scan import trial_p25_lock
     site = streams.site_capture(SCAN_CC, SCAN_CENTER)
     cands = _trial_candidates(c)
-    before = (ck.bank_fused.launches, tk.track.launches)
+    before = (trace.counter("launch.xlat_bank"),
+              trace.counter("launch.fsk_track"))
     got = trial_p25_lock(site, 2.4e6, SCAN_CENTER, cands,
                          device=cuda_device)
-    assert ck.bank_fused.launches > before[0]
-    assert tk.track.launches > before[1]
+    assert trace.counter("launch.xlat_bank") > before[0]
+    assert trace.counter("launch.fsk_track") > before[1]
     want = trial_p25_lock(site, 2.4e6, SCAN_CENTER, cands, device="cpu")
     assert streams.same_trials(got, want)
     assert got[0].locked and abs(got[0].offset_hz - 200.0) < 1.0
@@ -1350,11 +1354,12 @@ def test_scanner_on_card_matches_cpu(cuda_device, c):
     from radiocapture_tpu_torch.scan import ScanChannel, ScanningReceiver
     freqs = [SCAN_CENTER + 100e3] + [SCAN_CENTER - 600e3 + k * 12.5e3
                                      for k in range(c - 1)]
-    before = (ck.bank_fused.launches, fk.voice_track.launches)
+    before = (trace.counter("launch.xlat_bank"),
+              trace.counter("launch.fm_voice"))
     got, opened = streams.squelch_cycle(ScanningReceiver, ScanChannel, freqs,
                                         SCAN_CENTER, device=cuda_device)
-    assert ck.bank_fused.launches > before[0]
-    assert fk.voice_track.launches > before[1]
+    assert trace.counter("launch.xlat_bank") > before[0]
+    assert trace.counter("launch.fm_voice") > before[1]
     want, _ = streams.squelch_cycle(ScanningReceiver, ScanChannel, freqs,
                                     SCAN_CENTER, device="cpu")
     assert got == want
@@ -1384,9 +1389,9 @@ def test_file_to_wav_on_card_matches_cpu(cuda_device, tmp_path):
     assert err <= WAV_REL, err
     assert abs(streams.tone_peak_hz(pcm["card"]) - 700.0) < 15.0
     ldu = streams.ldu_capture(100e3)
-    before = tk.track.launches
+    before = trace.counter("launch.fsk_track")
     _, got = decode_p25(ldu, 2.4e6, 100e3, device=cuda_device)
-    assert tk.track.launches > before
+    assert trace.counter("launch.fsk_track") > before
     _, want = decode_p25(ldu, 2.4e6, 100e3, device="cpu")
     assert got == want and got["imbe"] >= 18
 
@@ -1423,7 +1428,8 @@ def test_live_rtl_tcp_runtime_on_card_decodes_as_cpu(cuda_device, tmp_path):
     srv = FakeRtlTcpServer(streams.live_control(), samp_rate=10 * samp,
                            realtime=True)
     msgs, dtypes = {}, {}
-    before = (ck.bank_fused.launches, tk.track.launches)
+    before = (trace.counter("launch.xlat_bank"),
+              trace.counter("launch.fsk_track"))
     try:
         for name, dev in (("card", cuda_device), ("cpu", "cpu")):
             cfg = RcConfig(audio_dir=str(tmp_path / name))
@@ -1454,8 +1460,8 @@ def test_live_rtl_tcp_runtime_on_card_decodes_as_cpu(cuda_device, tmp_path):
                     s.stop()
     finally:
         srv.close()
-    assert ck.bank_fused.launches > before[0]
-    assert tk.track.launches > before[1]
+    assert trace.counter("launch.xlat_bank") > before[0]
+    assert trace.counter("launch.fsk_track") > before[1]
     assert dtypes["card"] == {np.dtype(np.uint16)}
     assert any(m.get("name") == "GRP_V_CH_GRANT" and m.get("crc") == 0
                and m["Group Address"] == 900 for m in msgs["card"])
@@ -1482,7 +1488,7 @@ def test_track_stream_kernel_matches_plain(cuda_device, ctor, s, c, nb):
                                    device=cuda_device))
     m = nb // prm.sym_decim
     st = [K.fsk4_init((s, c), cuda_device) for _ in range(2)]
-    before = tk.track_stream.launches
+    before = trace.counter("launch.fsk_track_stream")
     for b in range(3):
         x = trk[..., b * m:(b + 1) * m].contiguous()
         got = tk.track_stream(x, st[0], prm)
@@ -1494,7 +1500,7 @@ def test_track_stream_kernel_matches_plain(cuda_device, ctor, s, c, nb):
         assert float((got[1] - want[1]).abs().max()) <= 1e-3
         for g_, w_ in zip(got[0], want[0]):
             assert float((g_ - w_).abs().max()) <= 1e-3
-    assert tk.track_stream.launches == before + 3
+    assert trace.counter("launch.fsk_track_stream") == before + 3
     with pytest.raises(ValueError, match="contiguous float32"):
         tk.track_stream(trk[..., :m], st[0], prm)
 
