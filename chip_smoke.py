@@ -25,8 +25,11 @@ paths, the scan slice, live SDR ingest and the mesh steps.
    ``radiocapture_tpu_torch/tools/xlat_complex_54b2cf5.cu``; every output
    must be bit-identical), the CQPSK tracker in turns with the
    per-sample-loop kernel it replaced
-   (``radiocapture_tpu_torch/tools/cqpsk_track_54b2cf5.cu``; every lane's
-   outputs and state must be bit-identical) and its chain's floor
+   (``radiocapture_tpu_torch/tools/cqpsk_track_54b2cf5.cu``) and with the
+   symbol-major kernel that did all its work in the lane's own warp
+   (``radiocapture_tpu_torch/tools/cqpsk_track_b498eb2.cu``; against
+   each, every lane's outputs and state must be bit-identical) and its
+   chain's floor
    (``cqpsk_kernel.chain_probe``, as for the fsk tracker). Then the
    wire bank's operands kernel (``csrc/bank_operands.cu``) against
    ``XlatBank.operands_plain`` at the C4FM bench, the CQPSK bench (split2's
@@ -1472,19 +1475,23 @@ def phase_split2_bench(dev, sp) -> tuple[dict, float, float, float]:
         [o.cpu().numpy() for o in got[1:3]],
         [o.cpu().numpy() for o in want[1:3]],
         f"bench shape S={2 * s} C={SLOTS} N={y_re.shape[1]}")
-    turns = track_turns.cqpsk_turns(track_turns.EARLIER_CQPSK, y_re, y_im,
-                                    scale, lane_state, CHANNEL_FS, baud)
-    res["cqpsk_track_turns"] = turns
-    old = Path(turns["other"]).name
-    log("cqpsk kernel turns: " + json.dumps(turns))
-    log(f"cqpsk kernel turns: {old} {turns['other_ms'][0]:.4f}, kernel "
-        f"{turns['package_ms'][0]:.4f}, {turns['package_ms'][1]:.4f}, {old} "
-        f"{turns['other_ms'][1]:.4f} ms: {turns['speedup']:.2f}x; "
-        f"{turns['identical_lanes']} of {turns['lanes']} lanes "
-        f"bit-identical (3 outputs, 8 state tensors)")
-    if turns["identical_lanes"] != turns["lanes"]:
-        raise AssertionError("cqpsk kernel differs from the per-sample "
-                             "loop's")
+    for key, src in (("cqpsk_track_turns", track_turns.EARLIER_CQPSK),
+                     ("cqpsk_track_turns_symbol_major",
+                      track_turns.SYMBOL_MAJOR_CQPSK)):
+        turns = track_turns.cqpsk_turns(src, y_re, y_im, scale, lane_state,
+                                        CHANNEL_FS, baud)
+        res[key] = turns
+        old = Path(turns["other"]).name
+        log("cqpsk kernel turns: " + json.dumps(turns))
+        log(f"cqpsk kernel turns: {old} {turns['other_ms'][0]:.4f}, kernel "
+            f"{turns['package_ms'][0]:.4f}, {turns['package_ms'][1]:.4f}, "
+            f"{old} {turns['other_ms'][1]:.4f} ms: "
+            f"{turns['speedup']:.2f}x; {turns['identical_lanes']} of "
+            f"{turns['lanes']} lanes bit-identical (3 outputs, 8 state "
+            f"tensors)")
+        if turns["identical_lanes"] != turns["lanes"]:
+            raise AssertionError(f"cqpsk kernel differs from {old}'s")
+    turns = res["cqpsk_track_turns"]
     res.update(cqpsk_floor(y_re, y_im, scale, lane_state, baud))
     log("split2 bench: " + json.dumps({
         "phys_sources": s, "halves": 2 * s, "slots": SLOTS, "block": BLOCK,

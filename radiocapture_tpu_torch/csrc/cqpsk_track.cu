@@ -1,7 +1,8 @@
 // Per-lane CQPSK (P25 LSM) tracker for Hopper (sm_90a): feedforward AGC
 // gain -> carrier NCO -> Farrow interpolation -> Gardner timing -> diff
-// phase atan2/(pi/4) -> x4 power-law AFC -> slicer, one thread per
-// (source, slot) lane, the loop run symbol by symbol.
+// phase atan2/(pi/4) -> x4 power-law AFC -> slicer, for every (source,
+// slot) lane, the feedback loop in one consumer warp per 32-lane tile and
+// everything off the loop in producer warps beside it.
 //
 // Replaces the chain after the bank in
 // radiocapture_tpu/frontend/pipeline.py (CqpskControlPipeline._step_impl,
@@ -11,65 +12,80 @@
 // multiplies each sample as it is read, so no scaled copy of the planes
 // exists.
 //
-// Bound: latency. 16384 lanes are 512 warps, one per scheduler of the 132
-// SMs, so nothing hides a warp's stalls, and each lane is a serial
-// feedback chain. The 32 lanes of a warp are independent channels whose
-// symbol instants do not line up: at 25 kS/s and 4800 Bd a lane emits on
-// one sample in 5.21, so a loop over samples has some lane of the warp
-// emit on ~99.9% of them, and the warp runs the emit's work (a second
-// Farrow evaluation, the mid-symbol window, Gardner, atan2f and the AFC
-// division) on nearly every sample. This kernel is symbol-major instead.
-// Each pass of the outer loop is one symbol for every lane of the warp:
-// the inner loop takes the lane's own samples up to and including its next
-// emit (5-6 at 4800 Bd, 4-5 at 6000), each with the AGC gain, the NCO's
-// sine and cosine, the rotation, the history shift and t + 1. A sample
-// that emits nothing then interpolates the symbol value with taps held
-// for the launch (the Farrow polynomials at fraction 0, which is where the
-// scan evaluates them off a symbol instant) and forms z = y conj(prev);
-// the next sample's NCO (its phase through floor_mod, then sincosf) reads
-// only the phase and freq, which hold until an emit, so it is computed
-// beside that, which times faster on the H100 than the NCO at the head of
-// each sample (tools/cqpsk_variants.py nco_inline). The emit sample leaves
-// the inner loop, and after one __syncwarp the warp runs the emit step for
-// all its emitting lanes at once: Farrow at the emit's fraction, the
-// mid-symbol window at p_half = frac + 4 + omega/2 with the old omega, Gardner, the omega and
-// t updates, atan2f, err4, the AFC and prev. A lane that reaches N
-// mid-symbol stops with the state the per-sample loop leaves (t, phase and
-// history moved, nothing else), and the warp runs until every lane has
-// taken N samples. The mid-symbol window (n0 among cqpsk_params'
-// candidates, at most MAX_CAND) is one Horner evaluation and 8 samples
-// picked from the candidates' windows by predicated selects, not a
-// divergent switch: the kernel is instantiated per first candidate n0, so
-// history indices stay compile-time constants and the 48-float history
-// stays in registers.
+// Bound: latency. Each lane is a serial feedback chain, and 16384 lanes
+// are 512 tiles of 32: one consumer warp per scheduler of the 132 SMs, so
+// nothing hides a consumer's stalls, and whatever else runs in its warp
+// lengthens the chain's time. The 32 lanes of a tile are independent
+// channels whose symbol instants do not line up: at 25 kS/s and 4800 Bd a
+// lane emits on one sample in 5.21, so a loop over samples would have
+// some lane of the warp emit on ~99.9% of them. The consumer is therefore
+// symbol-major. Each pass of its outer loop is one symbol for every lane:
+// the inner loop takes the lane's own samples up to and including its
+// next emit (5-6 at 4800 Bd, 4-5 at 6000), each with the AGC gain, the
+// NCO's sine and cosine, the rotation, the history shift and t + 1, and
+// writes the rotated sample to the tile's ring in shared memory; the next
+// sample's NCO (its phase through floor_mod, then sincosf) reads only the
+// phase and freq, which hold until an emit, so it is computed after the
+// sample (tools/cqpsk_variants.py nco_inline times it at the head). The
+// emit sample leaves the inner loop, and after one __syncwarp the warp
+// runs the emit step for all its emitting lanes at once: Farrow at the
+// emit's fraction, the mid-symbol window at p_half = frac + 4 + omega/2
+// with the old omega, Gardner, the omega and t updates, atan2f, err4, the
+// AFC and prev; the consumer writes the symbol's value y (the new prev)
+// beside its rotated sample. A lane that reaches N mid-symbol stops with
+// the state the per-sample loop leaves (t, phase and history moved,
+// nothing else), and the warp runs until every lane has taken N samples.
+// The mid-symbol window (n0 among cqpsk_params' candidates, at most
+// MAX_CAND) is one Horner evaluation and 8 samples picked from the
+// candidates' windows by predicated selects, not a divergent switch: the
+// kernel is instantiated per first candidate n0, so history indices stay
+// compile-time constants and the 48-float history stays in registers.
 //
-// Memory: the lanes of a warp sit at different sample indices (locked
-// lanes a few samples apart; noise lanes free-run within the +/-2% omega
-// clamp and drift tens of samples apart over a 2500-sample block), so a
-// warp's direct load or store of the time-major [S, N, C] planes touches
-// up to 32 rows: 32 sectors and 32 L1 wavefronts where a row takes 4.
-// Each warp therefore stages its planes through a ring of RING rows x 32
-// lanes in shared memory (RingIo). Lane c reads and writes only column c
-// of a row, which is bank c whatever row it is at: no bank conflicts, and
-// no lane reads what another wrote. A sample's slot takes its z once the
-// lane has read it. Once per symbol the warp takes the slowest lane's
-// row: the rows before it are complete, and every lane turns the z of its
-// column of each into the symbol (atan2f, the division by pi/4, the
-// dibit; two rows at a time, so that two atan2f chains overlap) and
-// stores it, valid and dibit, one coalesced row at a time. The slots they
-// free are refilled with the rows RING ahead by cp.async, one commit group
-// per symbol, and a lane reads only rows whose group has landed (a lane
-// that far ahead of the slowest waits, mid-symbol if need be, which leaves
-// its state as the per-sample loop would). 64-thread blocks: 256 blocks
-// spread the 512 warps over all 132 SMs. tools/cqpsk_variants.py times
-// other block sizes and ring depths against these.
+// Producer warps of the tile do the rest, lane for lane with its
+// consumer. The tile's ring holds RING rows of 32 lanes in STAGES stages:
+// each row the planes' two samples (then the rotated sample, written over
+// them, then z) and the emit's y (kNoEmit where the lane emitted
+// nothing): 16 bytes a lane, so four tiles' rings of 96 rows fill an SM's
+// shared memory. Lane c reads and writes only column c of a row, which
+// is bank c whatever the row: no bank conflicts. Three mbarriers a stage
+// hand it on. SYMBOL_WARPS symbol warps fill a stage by cp.async, GROUP
+// rows in turn each (their y reset), and the copies arrive on the
+// stage's `full` barrier as they land; the consumer waits there for the
+// stage its slowest lane is in, tests the ones after it, and a lane
+// stops, mid-symbol if need be, at the rows that have not landed (which
+// leaves its state as the per-sample loop would). Once its slowest lane
+// has passed a stage the consumer arrives on its `handed` barrier. The
+// interpolation warp then takes the stage's rows in order: where a row
+// emits nothing, the value interpolation over the 8 rotated samples
+// before it (a window it carries in registers, from the lane's history
+// at the start) with the taps held for the launch, where it emits the
+// consumer's y; and z = y conj(prev) with the prev in force at that row
+// (the carried prev, then each emit's y), written over the row's sample;
+// then it arrives on `interpolated`. The symbol warps take their rows'
+// z: atan2f and the division by pi/4 of GROUP rows side by side, and the
+// symbol, valid flag and dibit stored one coalesced row at a time; then
+// they refill their rows' slots with the rows STAGES stages ahead.
+// atan2f and the IEEE division branch, so a warp runs them one row after
+// another on their latency: one producer warp doing all of this took as
+// long as the consumer alone (tools/cqpsk_variants.py prices the parts).
+// The consumer runs nothing of it: per sample its warp reads two floats
+// from shared memory and writes two, per symbol two more, and per pass
+// the barrier checks.
 //
-// What stays for the next stage: the non-emit samples' interpolation and
-// z, the symbols' atan2f and stores, and the ring's loads still run in the
-// lane's own warp, between its symbols; moving them into other warps (the
-// rotated samples handed over through shared memory) leaves the chain with
-// the NCO and one emit per symbol, which cqpsk_chain_probe below measures
-// alone.
+// Grid: blocks of up to MAX_TILES tiles, the consumer warps first (warp w
+// of a block is issued by scheduler w % 4, so one block of four tiles
+// puts its four consumers on four schedulers), then the interpolation
+// warps, then the symbol warps; as many tiles a block as spread them over
+// the SMs, so 512 tiles are 128 blocks of 4.
+//
+// What bounds it now: the consumer's own chain, the per-sample NCO
+// (floor_mod, sincosf), rotation and 46-register history shift with the
+// emit step once a symbol, which cqpsk_chain_probe below runs alone at
+// 535 cycles a sample; beside it the consumer's reads, writes and barrier
+// checks (the consumer with idle producers runs 1.23x the probe), and
+// the producer warps' instructions, which take issue slots from the
+// consumer on its scheduler (the whole kernel runs 1.14x the consumer
+// alone).
 //
 // Arithmetic follows the JAX scan step for step, and the outputs and
 // carried state are bit-identical to the per-sample-loop kernel this
@@ -78,10 +94,13 @@
 // fminf/fmaxf, jnp.mod is fmod (exact; fmod_pos) plus the sign fix,
 // arg*pi - pi + pi is evaluated as written, the held taps are the same
 // Horner steps on the same values, the emit's fraction is (frac + 4) - 4
-// as the scan writes it, and the window's 8 products are summed in index
-// order. Built without fast math: the loop feeds its own rounding back.
+// as the scan writes it, the interpolation warp's window sums are the
+// consumer's on the same values, and the window's 8 products are summed
+// in index order. Built without fast math: the loop feeds its own
+// rounding back.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -92,12 +111,18 @@ constexpr int N0_MIN = 3;          // window start HIST-5-n0 in [0, HIST-8]
 constexpr int N0_MAX = HIST - 5;
 constexpr int MAX_CAND = 3;        // mid-symbol candidates (cqpsk_params)
 constexpr int S_VAL = HIST - 5 - 4;  // symbol-value window (n0 = delay 4)
-constexpr int THREADS = 64;
-constexpr int RING = 64;           // staged rows per warp
-static_assert(THREADS % 32 == 0, "whole warps: the loop votes per warp");
-static_assert(RING >= 16 && RING <= 64 && (RING & (RING - 1)) == 0,
-              "the ring holds a power of two of rows, a symbol's and more, "
-              "and a lane keeps a bit per row in 64");
+constexpr int TILE = 32;           // lanes of a consumer warp
+constexpr int MAX_TILES = 4;       // tiles a block: a consumer a scheduler
+constexpr int STAGE = 24;          // rows a stage
+constexpr int STAGES = 4;
+constexpr int RING = STAGE * STAGES;  // as many as four tiles' rings hold
+constexpr int GROUP = 4;           // rows a producer warp takes at once
+constexpr int SYMBOL_WARPS = 2;    // a tile's warps for atan2f and stores
+constexpr int WARPS = 2 + SYMBOL_WARPS;  // a tile's: consumer, interpolation
+static_assert(STAGES >= 2, "a stage being turned while one is read");
+static_assert(STAGE % (GROUP * SYMBOL_WARPS) == 0,
+              "every stage splits its groups alike, and only the block's "
+              "last group is partial");
 constexpr int PROBE_ROWS = 64;     // samples the chain probe replays
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float kPi = 3.14159265358979323846f;        // float32(pi)
@@ -105,6 +130,9 @@ constexpr float kTwoPi = 6.28318530717958647692f;     // float32(2*pi)
 constexpr float kQuarterPi = 0.78539816339744830962f; // float32(pi/4)
 constexpr float kFracMax = 0.999f;
 constexpr float kDelay = 4.0f;
+// A row's y_r where the lane emitted nothing: a NaN no arithmetic gives
+// (an operation on a NaN gives the canonical 0x7fffffff).
+constexpr unsigned kNoEmit = 0xffffffffu;
 
 struct CqpskConsts {
   float farrow[DEG1 * NTAP];       // [5, 8] value taps, highest power first
@@ -119,6 +147,17 @@ struct LoopConsts {
 struct Lane {
   float t, omega, freq, phase, pr, pi;
   float hr[HIST], hi[HIST];
+};
+
+// A tile's ring and the barriers that hand its stages over.
+struct __align__(16) TileSmem {
+  float xr[RING][TILE];     // the planes' sample, the rotated one, then z
+  float xi[RING][TILE];
+  float yr[RING][TILE];     // the emit's symbol value, else kNoEmit's bits
+  float yi[RING][TILE];
+  uint64_t full[STAGES];    // the stage's rows have landed
+  uint64_t handed[STAGES];  // every lane of the tile has taken them
+  uint64_t interpolated[STAGES];  // their z are in the ring
 };
 
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
@@ -203,8 +242,8 @@ __device__ __forceinline__ void pick(const Lane& L, int k, float (&wr)[NTAP],
 
 // The carrier NCO's phase for the lane's next sample, and its sine and
 // cosine. It reads only the phase and freq, and freq moves only at a
-// symbol instant, so after a sample that emits nothing it runs beside that
-// sample's outputs.
+// symbol instant, so after a sample that emits nothing it runs before the
+// next one is read.
 struct Nco {
   float phase, sn, cs;
 };
@@ -257,10 +296,10 @@ __device__ __forceinline__ int dibit_of(float arg) {
 
 // The symbol instant: Gardner timing error Re{(y_k - y_{k-1}) conj(y_mid)}
 // and the x4 power-law AFC, with the candidates' windows N0F, N0F+1, ...
-// Returns the symbol's z.
+// The symbol's value y becomes prev.
 template <int N0F>
-__device__ __forceinline__ Z emit_step(Lane& L, const CqpskConsts& kc,
-                                       const LoopConsts& lc) {
+__device__ __forceinline__ void emit_step(Lane& L, const CqpskConsts& kc,
+                                          const LoopConsts& lc) {
   const float frac_late = __fsub_rn(L.t, L.omega);
   const float p_sym = __fadd_rn(frac_late, kDelay);
   const float p_half = __fadd_rn(p_sym, __fmul_rn(L.omega, 0.5f));
@@ -291,8 +330,7 @@ __device__ __forceinline__ Z emit_step(Lane& L, const CqpskConsts& kc,
                    lc.omega_hi);
   L.t = __fadd_rn(frac_late, __fmul_rn(lc.k_mu, e_t));
 
-  const Z z = diff_z(y_r, y_i, L.pr, L.pi);
-  const float arg = arg_of(z);
+  const float arg = arg_of(diff_z(y_r, y_i, L.pr, L.pi));
   const float err4 = __fsub_rn(
       floor_mod(__fadd_rn(__fsub_rn(__fmul_rn(arg, kPi), kPi), kPi), kTwoPi),
       kPi);
@@ -302,7 +340,6 @@ __device__ __forceinline__ Z emit_step(Lane& L, const CqpskConsts& kc,
                   -lc.fmax, lc.fmax);
   L.pr = y_r;
   L.pi = y_i;
-  return z;
 }
 
 __device__ __forceinline__ void load_lane(Lane& L, long long li,
@@ -344,106 +381,277 @@ __device__ __forceinline__ void store_lane(const Lane& L, long long li,
   }
 }
 
-extern __shared__ float ring[];  // [warps][2][RING][32], RingIo's
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// The planes staged through this warp's ring of RING rows: ring[a + ...]
-// holds each row's real part until the lane has read it, then z's;
-// ring[b + ...] the imaginary parts; bit r % RING of `emits` whether row r
-// was a symbol. (Offsets into the shared array, not pointers: a generic
-// pointer would make every access convert its address.)
-struct RingIo {
-  const float* xr;
-  const float* xi;
-  float* syms;
-  int* valid;
-  int* dibits;
-  int a, b;
-  long long in0;
-  int C, N, lane;
-  bool active;
-  int filled = 0, flushed = 0;  // rows copied in, rows stored out
-  float nre = 0.0f, nim = 0.0f; // the next sample, read one ahead
-  unsigned long long emits = 0;
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
 
-  __device__ int slot(int r) const { return (r & (RING - 1)) * 32 + lane; }
-  __device__ Z z_at(int r) const {
-    return Z{ring[a + slot(r)], ring[b + slot(r)]};
-  }
-  __device__ void fill_to(int hi) {
-    if (active)
-      for (int r = filled; r < hi; ++r) {
-        cp_async4(&ring[a + slot(r)], xr + in0 + (long long)r * C);
-        cp_async4(&ring[b + slot(r)], xi + in0 + (long long)r * C);
-      }
-    filled = max(filled, hi);
-    asm volatile("cp.async.commit_group;\n" ::);
-  }
-  __device__ void store_row(int r, float arg) {
-    const long long o = in0 + (long long)r * C;
-    syms[o] = arg;
-    valid[o] = (int)(emits >> (r & (RING - 1))) & 1;
-    dibits[o] = dibit_of(arg);
-  }
-  // the rows every lane has passed: their symbols, two rows at a time so
-  // that two atan2f chains run side by side
-  __device__ void flush_to(int hi) {
-    if (active) {
-      int r = flushed;
-      for (; r + 1 < hi; r += 2) {
-        const float a0 = arg_of(z_at(r));
-        const float a1 = arg_of(z_at(r + 1));
-        store_row(r, a0);
-        store_row(r + 1, a1);
-      }
-      if (r < hi) store_row(r, arg_of(z_at(r)));
+// Release-arrive: this thread's shared-memory writes before it are
+// visible to a thread whose wait sees the phase complete.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// The phase stays open until this thread's cp.async copies issued before
+// it have landed (the arrival itself is the thread's mbar_arrive).
+__device__ __forceinline__ void mbar_track_copies(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Wait for the completion of the barrier's phase of this parity.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// Whether that phase has completed, without waiting.
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ uint32_t parity_of(int stage) {
+  return (uint32_t)(stage / STAGES) & 1u;
+}
+
+// The consumer: the lane's feedback loop over its N samples (n = 0 for a
+// lane past S*C), symbol by symbol, every rotated sample and each emit's
+// symbol value written to the tile's ring.
+template <int N0F>
+__device__ __forceinline__ void consume(TileSmem& sm, Lane& L, float gain,
+                                        int n, int N, const CqpskConsts& kc,
+                                        const LoopConsts& lc, int lane) {
+  const int stages = (N + STAGE - 1) / STAGE;
+  int landed = 0;   // stages this warp has seen land
+  int handed = 0;   // stages handed to the producer
+  int i = 0;
+  for (;;) {
+    const int lo = __reduce_min_sync(FULL, i < n ? i : N);
+    while (handed < stages && min(N, (handed + 1) * STAGE) <= lo) {
+      mbar_arrive(&sm.handed[handed % STAGES]);
+      ++handed;
     }
-    flushed = hi;
+    if (lo >= N) break;
+    for (; landed <= lo / STAGE; ++landed)   // the slowest lane's stage
+      mbar_wait(&sm.full[landed % STAGES], parity_of(landed));
+    // and those after it that have landed (lane 0's test for the warp;
+    // the wait then gives every lane the stage's rows)
+    while (landed < stages && landed <= handed + STAGES - 1 &&
+           __shfl_sync(FULL, (int)mbar_test(&sm.full[landed % STAGES],
+                                            parity_of(landed)), 0)) {
+      mbar_wait(&sm.full[landed % STAGES], parity_of(landed));
+      ++landed;
+    }
+    const int lim = min(n, landed * STAGE);
+    bool emit = false;
+    int r = i % RING;
+    if (i < lim) {                        // the lane's samples to its emit
+      float nre = sm.xr[r][lane], nim = sm.xi[r][lane];
+      Nco q = next_nco(L);
+      for (;;) {
+        const float are = nre, aim = nim;
+        const int rn = r + 1 < RING ? r + 1 : 0;
+        nre = sm.xr[rn][lane];            // read ahead; a row that has not
+        nim = sm.xi[rn][lane];            // landed is read again next pass
+        emit = take_sample(L, q, __fmul_rn(are, gain), __fmul_rn(aim, gain));
+        sm.xr[r][lane] = L.hr[HIST - 1];
+        sm.xi[r][lane] = L.hi[HIST - 1];
+        if (emit) break;
+        q = next_nco(L);
+        if (++i >= lim) break;
+        r = rn;
+      }
+    }
+    __syncwarp();
+    if (emit) {                           // once per symbol, lanes together
+      emit_step<N0F>(L, kc, lc);
+      sm.yr[r][lane] = L.pr;
+      sm.yi[r][lane] = L.pi;
+      ++i;
+    }
   }
-  __device__ void begin() {
-    fill_to(min(N, RING));
-    asm volatile("cp.async.wait_group 0;\n" ::);
-  }
-  __device__ int advance(int lo) {
-    flush_to(lo);
-    const int ready = filled;  // rows of the groups before this one
-    fill_to(min(N, lo + RING));
-    asm volatile("cp.async.wait_group 1;\n" ::);
-    return active ? ready : 0;
-  }
-  // where a lane takes up its samples again: its next row
-  __device__ void resume(int i) {
-    nre = ring[a + slot(i)];
-    nim = ring[b + slot(i)];
-  }
-  // the row after i is read ahead whether or not it has landed: a lane
-  // that stops before it takes it up again through resume()
-  __device__ void sample(int i, float& re, float& im) {
-    re = nre;
-    im = nim;
-    nre = ring[a + slot(i + 1)];
-    nim = ring[b + slot(i + 1)];
-  }
-  __device__ void put(int i, Z z, int v) {
-    ring[a + slot(i)] = z.r;
-    ring[b + slot(i)] = z.i;
-    const unsigned long long bit = 1ull << (i & (RING - 1));
-    emits = v ? emits | bit : emits & ~bit;
-  }
-  // the last rows out; no copy left in flight into the block's ring
-  __device__ void finish() {
-    flush_to(N);
-    asm volatile("cp.async.wait_group 0;\n" ::);
-  }
+}
+
+// Symbol warp sw's copies of its rows of stage k (GROUP rows in turn to
+// each symbol warp) into their slots, their y_r reset to kNoEmit; the
+// stage's `full` phase completes when every symbol warp's copies have
+// landed.
+__device__ __forceinline__ void fill_rows(TileSmem& sm, int k, int sw,
+                                          const float* xr, const float* xi,
+                                          long long in0, int C, int N,
+                                          bool active, int lane) {
+  const int r0 = k * STAGE, base = (k % STAGES) * STAGE;
+  const int cnt = min(N - r0, STAGE);
+  for (int j = sw * GROUP; j < cnt; j += SYMBOL_WARPS * GROUP)
+#pragma unroll
+    for (int g = 0; g < GROUP; ++g)
+      if (j + g < cnt) {
+        const int s = base + j + g;
+        if (active) {
+          const long long o = in0 + (long long)(r0 + j + g) * C;
+          cp_async4(&sm.xr[s][lane], xr + o);
+          cp_async4(&sm.xi[s][lane], xi + o);
+        }
+        sm.yr[s][lane] = __uint_as_float(kNoEmit);
+      }
+  mbar_track_copies(&sm.full[k % STAGES]);
+  mbar_arrive(&sm.full[k % STAGES]);
+}
+
+__device__ __forceinline__ bool emitted(float yr) {
+  return __float_as_uint(yr) != kNoEmit;
+}
+
+// The interpolation warp's lane state: the 8 rotated samples before the
+// next row (oldest first) and the prev in force there.
+struct Interp {
+  float wr[NTAP + GROUP], wi[NTAP + GROUP];
+  float pr, pi;
 };
 
+// The cnt rows of stage q of the lane, handed over by the consumer: each
+// row's symbol value (off a symbol instant the value interpolation with
+// the held taps, at one the consumer's y) and z = y conj(prev) in row
+// order, the prev moving at each emit; z is written over the rotated
+// sample, which the window holds.
+__device__ __forceinline__ void interpolate_rows(TileSmem& sm, Interp& W,
+                                                 int q, int cnt,
+                                                 const float (&vt)[NTAP],
+                                                 int lane) {
+  const int base = (q % STAGES) * STAGE;
+  for (int j = 0; j < cnt; j += GROUP) {
+    float yr[GROUP], yi[GROUP];
+#pragma unroll
+    for (int g = 0; g < GROUP; ++g) {     // past cnt: rows of no one's
+      const int s = base + j + g;
+      W.wr[NTAP + g] = sm.xr[s][lane];
+      W.wi[NTAP + g] = sm.xi[s][lane];
+      yr[g] = sm.yr[s][lane];
+      yi[g] = sm.yi[s][lane];
+    }
+#pragma unroll
+    for (int g = 0; g < GROUP; ++g) {
+      float wr[NTAP], wi[NTAP], y_r, y_i;
+#pragma unroll
+      for (int k = 0; k < NTAP; ++k) {
+        wr[k] = W.wr[g + k];
+        wi[k] = W.wi[g + k];
+      }
+      window_sum(wr, wi, vt, y_r, y_i);
+      const bool emit = emitted(yr[g]);
+      y_r = emit ? yr[g] : y_r;
+      y_i = emit ? yi[g] : y_i;
+      const Z z = diff_z(y_r, y_i, W.pr, W.pi);
+      W.pr = emit ? y_r : W.pr;
+      W.pi = emit ? y_i : W.pi;
+      if (j + g < cnt) {
+        sm.xr[base + j + g][lane] = z.r;
+        sm.xi[base + j + g][lane] = z.i;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < NTAP; ++k) {
+      W.wr[k] = W.wr[k + GROUP];
+      W.wi[k] = W.wi[k + GROUP];
+    }
+  }
+}
+
+// Symbol warp sw's rows of the cnt of stage q, their z in the ring:
+// atan2f and the division by pi/4 of GROUP rows side by side, then the
+// symbol, valid flag and dibit of each, stored one coalesced row at a
+// time.
+__device__ __forceinline__ void store_symbols(const TileSmem& sm, int q,
+                                              int cnt, int sw, float* syms,
+                                              int* valid, int* dibits,
+                                              long long in0, int C,
+                                              int lane) {
+  const int base = (q % STAGES) * STAGE;
+  for (int j = sw * GROUP; j < cnt; j += SYMBOL_WARPS * GROUP) {
+    float arg[GROUP];
+    int v[GROUP];
+#pragma unroll
+    for (int g = 0; g < GROUP; ++g) {
+      const int s = base + j + g;
+      arg[g] = arg_of(Z{sm.xr[s][lane], sm.xi[s][lane]});
+      v[g] = emitted(sm.yr[s][lane]) ? 1 : 0;
+    }
+#pragma unroll
+    for (int g = 0; g < GROUP; ++g)
+      if (j + g < cnt) {
+        const long long o = in0 + (long long)(q * STAGE + j + g) * C;
+        syms[o] = arg[g];
+        valid[o] = v[g];
+        dibits[o] = dibit_of(arg[g]);
+      }
+  }
+}
+
+// The interpolation warp: for each stage the consumer hands over, its z.
+__device__ __forceinline__ void interpolate(TileSmem& sm, Interp& W, int N,
+                                            bool active,
+                                            const float (&vt)[NTAP],
+                                            int lane) {
+  const int stages = (N + STAGE - 1) / STAGE;
+  for (int q = 0; q < stages; ++q) {
+    mbar_wait(&sm.handed[q % STAGES], parity_of(q));
+    if (active)
+      interpolate_rows(sm, W, q, min(N - q * STAGE, STAGE), vt, lane);
+    mbar_arrive(&sm.interpolated[q % STAGES]);
+  }
+}
+
+// Symbol warp sw: its rows of the first STAGES stages' copies, then for
+// each stage whose z are in, its rows' symbols and the copies of its rows
+// of the stage STAGES on into their slots.
+__device__ __forceinline__ void symbols(TileSmem& sm, int sw,
+                                        const float* xr, const float* xi,
+                                        long long in0, int C, int N,
+                                        bool active, float* syms,
+                                        int* valid, int* dibits, int lane) {
+  const int stages = (N + STAGE - 1) / STAGE;
+  for (int k = 0; k < min(stages, STAGES); ++k)
+    fill_rows(sm, k, sw, xr, xi, in0, C, N, active, lane);
+  for (int q = 0; q < stages; ++q) {
+    mbar_wait(&sm.interpolated[q % STAGES], parity_of(q));
+    if (active)
+      store_symbols(sm, q, min(N - q * STAGE, STAGE), sw, syms, valid,
+                    dibits, in0, C, lane);
+    if (q + STAGES < stages)
+      fill_rows(sm, q + STAGES, sw, xr, xi, in0, C, N, active, lane);
+  }
+}
+
+extern __shared__ TileSmem tile_smem[];  // a block's tiles
+
 template <int N0F>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(TILE * MAX_TILES * WARPS)
 cqpsk_track_kernel(const float* __restrict__ y_re,
                    const float* __restrict__ y_im,
                    const float* __restrict__ scale, float* __restrict__ t_io,
@@ -456,61 +664,62 @@ cqpsk_track_kernel(const float* __restrict__ y_re,
                    int* __restrict__ valid, int* __restrict__ dibits,
                    const CqpskConsts kc, const LoopConsts lc, int S, int N,
                    int C) {
-  // Lanes past S*C take no samples but stay in the loop: it votes per warp.
-  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = lane < (long long)S * C;
-  const long long li = active ? lane : 0;
-  const int s = (int)(li / C);
-  const int c = (int)(li % C);
-  const int n = active ? N : 0;
-  const long long in0 = (long long)s * N * C + c;
+  // Warps [0, tiles) are the block's consumers, [tiles, 2 tiles) their
+  // interpolation warps, then SYMBOL_WARPS rounds of their symbol warps.
+  // Lanes past S*C take no samples but stay in the loop: it votes per
+  // warp.
+  const int tiles = blockDim.x / (TILE * WARPS);
+  const int warp = threadIdx.x / TILE;
+  const int lane = threadIdx.x % TILE;
+  const int w = warp % tiles;
+  const int role = warp / tiles;       // 0 consumer, 1 interpolation, ...
+  TileSmem& sm = tile_smem[w];
+  const long long first = ((long long)blockIdx.x * tiles + w) * TILE;
+  const long long li_raw = first + lane;
+  const bool active = li_raw < (long long)S * C;
+  const long long li = active ? li_raw : 0;
+  const long long in0 = (li / C) * N * C + li % C;
 
-  Lane L;
-  load_lane(L, li, t_io, omega_io, freq_io, phase_io, hist_re_io, hist_im_io,
-            prev_re_io, prev_im_io);
-  const float gain = scale[li];
-  // off a symbol instant the scan evaluates the value taps at
-  // clip((0 + 4) - 4) = 0: held for the launch
-  float vt[NTAP];
-  horner(kc, clampf(__fsub_rn(__fadd_rn(0.0f, kDelay), kDelay), 0.0f,
-                    kFracMax), vt);
-
-  const int mine = (threadIdx.x / 32) * 2 * RING * 32;
-  RingIo io{y_re, y_im, syms, valid, dibits, mine, mine + RING * 32, in0,
-            C, N, (int)(threadIdx.x % 32), active};
-  io.begin();
-  int i = 0;
-  for (;;) {
-    const int lo = __reduce_min_sync(FULL, i < n ? i : N);
-    if (lo >= N) break;
-    const int lim = io.advance(lo);
-    bool emit = false;
-    if (i < lim) {                        // the lane's samples to its emit
-      io.resume(i);
-      Nco q = next_nco(L);
-      for (;;) {
-        float xr, xi;
-        io.sample(i, xr, xi);
-        if (take_sample(L, q, __fmul_rn(xr, gain), __fmul_rn(xi, gain))) {
-          emit = true;
-          break;
-        }
-        q = next_nco(L);                  // beside this sample's outputs
-        float wr[NTAP], wi[NTAP], y_r, y_i;
-        window<S_VAL>(L, wr, wi);
-        window_sum(wr, wi, vt, y_r, y_i);
-        io.put(i, diff_z(y_r, y_i, L.pr, L.pi), 0);
-        if (++i >= lim) break;
-      }
-    }
-    __syncwarp();
-    if (emit) {                           // once per symbol, lanes together
-      io.put(i, emit_step<N0F>(L, kc, lc), 1);
-      ++i;
+  if (lane == 0 && role == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(&sm.full[st], TILE * SYMBOL_WARPS);
+      mbar_init(&sm.handed[st], TILE);
+      mbar_init(&sm.interpolated[st], TILE);
     }
   }
-  io.finish();
+  // each role reads its part of the carried state before any writes it
+  Lane L;
+  Interp W;
+  if (role == 0) {
+    load_lane(L, li, t_io, omega_io, freq_io, phase_io, hist_re_io,
+              hist_im_io, prev_re_io, prev_im_io);
+  } else if (role == 1) {
+    W.pr = prev_re_io[li];
+    W.pi = prev_im_io[li];
+#pragma unroll
+    for (int j = 0; j < NTAP; ++j) {
+      W.wr[j] = hist_re_io[li * HIST + HIST - NTAP + j];
+      W.wi[j] = hist_im_io[li * HIST + HIST - NTAP + j];
+    }
+  }
+  __syncthreads();
+  if (first >= (long long)S * C) return;  // a tile past the lanes
 
+  if (role == 1) {
+    // off a symbol instant the scan evaluates the value taps at
+    // clip((0 + 4) - 4) = 0: held for the launch
+    float vt[NTAP];
+    horner(kc, clampf(__fsub_rn(__fadd_rn(0.0f, kDelay), kDelay), 0.0f,
+                      kFracMax), vt);
+    interpolate(sm, W, N, active, vt, lane);
+    return;
+  }
+  if (role > 1) {
+    symbols(sm, role - 2, y_re, y_im, in0, C, N, active, syms, valid,
+            dibits, lane);
+    return;
+  }
+  consume<N0F>(sm, L, scale[li], active ? N : 0, N, kc, lc, lane);
   if (active)
     store_lane(L, li, t_io, omega_io, freq_io, phase_io, hist_re_io,
                hist_im_io, prev_re_io, prev_im_io);
@@ -584,6 +793,23 @@ CqpskConsts read_consts(const void* host_consts) {
   return kc;
 }
 
+// Tiles a block: as few as spread the tiles over the card's SMs, at most
+// MAX_TILES (one block of four on an SM gives each scheduler a consumer).
+int tiles_per_block(long long tiles, int* out) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0, n = 0;
+    if (cudaError_t e = cudaGetDevice(&dev)) return (int)e;
+    if (cudaError_t e = cudaDeviceGetAttribute(
+            &n, cudaDevAttrMultiProcessorCount, dev))
+      return (int)e;
+    sms = n;
+  }
+  const long long spread = (tiles + sms - 1) / sms;
+  *out = spread < MAX_TILES ? (int)spread : MAX_TILES;
+  return (int)cudaSuccess;
+}
+
 }  // namespace
 
 // One instantiation per first candidate n0 in [N0_MIN, N0_MAX].
@@ -603,17 +829,25 @@ extern "C" int cqpsk_track_launch(
   if (lanes <= 0 || N <= 0) return (int)cudaSuccess;
   const CqpskConsts kc = read_consts(host_consts);
   const LoopConsts lc{omega_lo, omega_hi, fmax, k_mu, k_om, k_f, n0_count};
-  const unsigned blocks = (unsigned)((lanes + THREADS - 1) / THREADS);
-  constexpr int smem = THREADS * 2 * RING * (int)sizeof(float);
+  const long long tiles = (lanes + TILE - 1) / TILE;
+  int per_block = 1;
+  if (int err = tiles_per_block(tiles, &per_block)) return err;
+  const unsigned blocks = (unsigned)((tiles + per_block - 1) / per_block);
+  const int threads = TILE * WARPS * per_block;
+  const int smem = per_block * (int)sizeof(TileSmem);
+  constexpr int smem_max = MAX_TILES * (int)sizeof(TileSmem);
+  static bool sized[N0_MAX + 1] = {};
   cudaStream_t st = (cudaStream_t)stream;
 #define RC_TRACK_CASE(N0F)                                                 \
   case N0F:                                                                \
-    if (smem > 48 * 1024)                                                  \
+    if (!sized[N0F]) {                                                     \
       if (cudaError_t e = cudaFuncSetAttribute(                            \
               cqpsk_track_kernel<N0F>,                                     \
-              cudaFuncAttributeMaxDynamicSharedMemorySize, smem))          \
+              cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max))      \
         return (int)e;                                                     \
-    cqpsk_track_kernel<N0F><<<blocks, THREADS, smem, st>>>(                \
+      sized[N0F] = true;                                                   \
+    }                                                                      \
+    cqpsk_track_kernel<N0F><<<blocks, threads, smem, st>>>(                \
         (const float*)y_re, (const float*)y_im, (const float*)scale,       \
         (float*)t, (float*)omega, (float*)freq, (float*)phase,             \
         (float*)hist_re, (float*)hist_im, (float*)prev_re,                 \

@@ -8,9 +8,10 @@ pipeline.CqpskControlPipeline._step_impl`` (pipeline.py:340-350): the
 per-lane gain of ``cqpsk.block_agc`` applied as samples are read; the
 gain itself is one reduction over the planes (``agc_scale_kernel``,
 ``csrc/agc.cu``). In eager PyTorch the scan would launch ~110 tiny
-kernels per sample; the CUDA kernel (``csrc/cqpsk_track.cu``) runs one
-thread per lane with the lane's whole state in registers, symbol by
-symbol, and reads the time-major bank planes once.
+kernels per sample; the CUDA kernel (``csrc/cqpsk_track.cu``) runs each
+lane's loop in one thread with the lane's whole state in registers,
+symbol by symbol, with the rest of the work in other warps, and reads
+the time-major bank planes once.
 """
 
 from __future__ import annotations
@@ -141,20 +142,21 @@ def track_cqpsk(y_re: torch.Tensor, y_im: torch.Tensor, scale: torch.Tensor,
     line up, so a loop over samples would run the symbol instant's work
     (a second Farrow evaluation, the mid-symbol window, Gardner, atan2,
     the AFC division) on nearly every sample for some lane of the warp.
-    The kernel runs the loop symbol by symbol instead: each lane takes its
-    own samples up to its next symbol instant (NCO, rotation, history
-    shift, and for a sample that emits nothing the value interpolation
-    with taps held for the launch and y·conj(prev)), then the warp runs
-    the emit step for all its lanes at once. The mid-symbol window is
-    picked by selects among at most ``MAX_CANDIDATES`` windows, not by a
-    divergent switch. Lanes drift apart in sample index, so each warp
-    stages the planes through a shared-memory ring (filled by cp.async,
-    each lane in its own column) and, once per symbol, turns the rows all
-    its lanes have passed into symbols (atan2, dibit) and stores them
-    coalesced. Outputs and lane state are bit-identical to the per-sample
-    loop's. The next stage moves the non-emit samples' interpolation, the
-    symbols' atan2 and stores, and the loads, out of the lane's warp into
-    other warps; what the chain alone takes is ``chain_probe``'s count."""
+    The kernel runs the loop symbol by symbol instead, in one consumer
+    warp per 32-lane tile: each lane takes its own samples up to its next
+    symbol instant (NCO, rotation, history shift), then the warp runs the
+    emit step for all its lanes at once. The mid-symbol window is picked
+    by selects among at most ``MAX_CANDIDATES`` windows, not by a
+    divergent switch. Everything off the loop runs in producer warps of
+    the same block, behind mbarriers, through a shared-memory ring each
+    lane reads and writes in its own column: symbol warps fill it with the
+    planes by cp.async; the consumer writes each rotated sample and each
+    emit's symbol value back; an interpolation warp forms every sample's
+    value interpolation (taps held for the launch) and y·conj(prev) with
+    the prev in force; the symbol warps turn those into symbols (atan2,
+    dibit) and store them coalesced. Outputs and lane state are
+    bit-identical to the per-sample loop's. What the chain alone takes is
+    ``chain_probe``'s count."""
     if y_re.device.type == "cpu":
         return track_cqpsk_plain(y_re, y_im, scale, state, samp_rate,
                                  symbol_rate)

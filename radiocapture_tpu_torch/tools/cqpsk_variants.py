@@ -1,22 +1,35 @@
 """Time builds of the CQPSK tracker kernel (``csrc/cqpsk_track.cu``) with
-another launch shape, ring depth or part of the chain changed against the
+another block shape, ring or part of the work changed against the
 package's build, on one CUDA card at the split2 → CQPSK bench shape (256
 halves × 64 slots × 2500 samples of the CQPSK bank's output, mid-stream
 after three steps, as ``track_turns.cqpsk_bench_planes`` makes them).
 
 Each variant rewrites a copy of the source:
 
-- ``threads=N``: N-thread blocks (the package's are 64);
-- ``ring=N``: a ring of N rows per warp (16, 32 or 64; the package's 64);
-- ``flush1``, ``flush4``: the ring's flush turns one or four rows at a
-  time into symbols (the package's two);
+- ``tiles=N``: at most N 32-lane tiles a block (the package's 4);
+- ``stage=N``: stages of N rows (the package's 24);
+- ``stages=N``: N stages in a tile's ring (the package's 4);
+- ``group=N``: the producer warps take N rows at a time (the package's
+  4);
+- ``symbol_warps=N``: N warps a tile for the symbols' atan2f and stores
+  (the package's 2);
 - ``libm_fmod``: ``fmodf`` for every ``floor_mod``, without the exact
   fast path;
 - ``nco_inline``: each sample's NCO at the head of ``take_sample``, not
-  the next sample's beside this one's outputs;
+  the next sample's after this one;
 
-and, each wrong on purpose, to show what one part of the chain costs:
+and, each wrong on purpose, to show what one part of the work costs:
 
+- ``consumer_alone``: the producer warps fill the ring and turn no rows
+  into symbols: the feedback loop, its hand-over and the copies (no
+  outputs are written, so its count of identical lanes says nothing);
+- ``producers_alone``: the consumers hand each stage over as it lands,
+  with no feedback loop (the producer warps turn the planes' samples,
+  with no emits): the copies, interpolation, atan2f and stores;
+- ``probe_store``: the chain probe with the consumer's two shared-memory
+  stores a sample (the probe's cycles are the ones that change);
+- ``no_gain``: the consumer takes the planes' samples without the AGC
+  gain;
 - ``no_sincos``: the NCO's ``sincosf`` replaced by two cheap operations;
 - ``no_atan``: ``atan2f`` replaced by a subtraction (symbols and AFC);
 - ``no_div``: the two IEEE divisions (by pi/4 and by omega) replaced by
@@ -26,7 +39,7 @@ and, each wrong on purpose, to show what one part of the chain costs:
 ::
 
     python3 -m radiocapture_tpu_torch.tools.cqpsk_variants \\
-        threads=32 threads=128 ring=32 flush1 no_sincos no_atan
+        consumer_alone producers_alone probe_store tiles=1 group=2
 
 Every variant is built with the package's flags (all at once, one nvcc
 process each) into ``_build/variants/``; for each its ptxas line (the
@@ -59,22 +72,6 @@ from radiocapture_tpu_torch.tools.track_turns import (card_line,
 ITERS = 10
 ROUNDS = 4
 
-FLUSH2 = """      for (; r + 1 < hi; r += 2) {
-        const float a0 = arg_of(z_at(r));
-        const float a1 = arg_of(z_at(r + 1));
-        store_row(r, a0);
-        store_row(r + 1, a1);
-      }
-      if (r < hi) store_row(r, arg_of(z_at(r)));"""
-FLUSH1 = "      for (; r < hi; ++r) store_row(r, arg_of(z_at(r)));"
-FLUSH4 = """      for (; r + 3 < hi; r += 4) {
-        float g[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) g[k] = arg_of(z_at(r + k));
-#pragma unroll
-        for (int k = 0; k < 4; ++k) store_row(r + k, g[k]);
-      }
-      for (; r < hi; ++r) store_row(r, arg_of(z_at(r)));"""
 SHIFT = """#pragma unroll
   for (int j = 0; j < HIST - 1; ++j) {
     L.hr[j] = L.hr[j + 1];
@@ -84,11 +81,26 @@ SHIFT = """#pragma unroll
   L.hi[HIST - 1] = xi;"""
 NO_SHIFT = """  L.hr[HIST - 1] = __fadd_rn(L.hr[HIST - 1], xr);
   L.hi[HIST - 1] = __fadd_rn(L.hi[HIST - 1], xi);"""
+CONSUME = ("  consume<N0F>(sm, L, scale[li], active ? N : 0, N, kc, lc, "
+           "lane);\n")
+# every stage handed over as it lands, no loop
+PASS_THROUGH = """  for (int k = 0; k < (N + STAGE - 1) / STAGE; ++k) {
+    mbar_wait(&sm.full[k % STAGES], parity_of(k));
+    mbar_arrive(&sm.handed[k % STAGES]);
+  }
+"""
+PROBE_TAKE = ("      if (take_sample(L, q, rows_re[r][lane], "
+              "rows_im[r][lane])) {")
+PROBE_TAKE_STORE = """      const bool e =
+          take_sample(L, q, rows_re[r][lane], rows_im[r][lane]);
+      sink_re[r][lane] = L.hr[HIST - 1];
+      sink_im[r][lane] = L.hi[HIST - 1];
+      if (e) {"""
+PROBE_ROWS_DECL = ("  __shared__ float rows_re[PROBE_ROWS][32], "
+                   "rows_im[PROBE_ROWS][32];\n")
 
 # name -> [(text of the source, its replacement)]
 EDITS = {
-    "flush1": [(FLUSH2, FLUSH1)],
-    "flush4": [(FLUSH2, FLUSH4)],
     "libm_fmod": [("  const float ax = fabsf(x);\n",
                    "  return fmodf(x, y);\n  const float ax = fabsf(x);\n")],
     "no_sincos": [("  sincosf(q.phase, &q.sn, &q.cs);",
@@ -106,14 +118,29 @@ EDITS = {
          "  const float sn = own.sn, cs = own.cs;\n"),
         ("      Nco q = next_nco(L);\n      for (;;) {",
          "      const Nco q{};\n      for (;;) {"),
-        ("        q = next_nco(L);                  // beside this sample's "
-         "outputs\n", ""),
+        ("        q = next_nco(L);\n        if (++i >= lim) break;",
+         "        if (++i >= lim) break;"),
         ("    Nco q = next_nco(L);\n    while (i < steps) {",
          "    const Nco q{};\n    while (i < steps) {"),
         ("      q = next_nco(L);\n      ++i;", "      ++i;")],
+    "consumer_alone": [("    if (active)\n      interpolate_rows(",
+                        "    if (false)\n      interpolate_rows("),
+                       ("    if (active)\n      store_symbols(",
+                        "    if (false)\n      store_symbols(")],
+    "producers_alone": [(CONSUME, PASS_THROUGH)],
+    "no_gain": [("take_sample(L, q, __fmul_rn(are, gain), __fmul_rn(aim, "
+                 "gain))", "take_sample(L, q, are, aim)")],
+    "probe_store": [(PROBE_TAKE, PROBE_TAKE_STORE),
+                    (PROBE_ROWS_DECL, PROBE_ROWS_DECL.replace(
+                        ";", ",\n      sink_re[PROBE_ROWS][32], "
+                        "sink_im[PROBE_ROWS][32];"))],
 }
-SIZED = {"threads": "constexpr int THREADS = {};",
-         "ring": "constexpr int RING = {};"}
+# name -> (the constant's line, the package's value)
+SIZED = {"tiles": ("constexpr int MAX_TILES = {};", 4),
+         "stage": ("constexpr int STAGE = {};", 24),
+         "stages": ("constexpr int STAGES = {};", 4),
+         "group": ("constexpr int GROUP = {};", 4),
+         "symbol_warps": ("constexpr int SYMBOL_WARPS = {};", 2)}
 
 
 def variant_source(src: str, name: str) -> str:
@@ -121,7 +148,8 @@ def variant_source(src: str, name: str) -> str:
     text must occur once."""
     key, _, size = name.partition("=")
     if key in SIZED and size.isdigit():
-        edits = [(SIZED[key].format(64), SIZED[key].format(int(size)))]
+        line, value = SIZED[key]
+        edits = [(line.format(value), line.format(int(size)))]
     elif name in EDITS:
         edits = EDITS[name]
     else:

@@ -28,11 +28,13 @@ bit-identical and the largest relative power difference::
 ``--kernel cqpsk_track``: the other source must export
 ``cqpsk_track_launch`` with the package's C signature;
 ``cqpsk_track_54b2cf5.cu`` beside this module is the per-sample-loop
-kernel as commit 54b2cf5 had it. The tool counts the lanes whose three
-outputs and eight state tensors are bit-identical::
+kernel as commit 54b2cf5 had it, and ``cqpsk_track_b498eb2.cu`` the
+symbol-major kernel with one thread a lane doing all the work, as commit
+b498eb2 had it, before the producer warps. The tool counts the lanes
+whose three outputs and eight state tensors are bit-identical::
 
     python3 -m radiocapture_tpu_torch.tools.track_turns --kernel \
-        cqpsk_track radiocapture_tpu_torch/tools/cqpsk_track_54b2cf5.cu
+        cqpsk_track radiocapture_tpu_torch/tools/cqpsk_track_b498eb2.cu
 
 ``--kernel xlat_complex``: the other source must export
 ``xlat_complex_launch`` with the signature of the kernel the package's
@@ -133,6 +135,7 @@ SOURCES, SLOTS, BLOCK, SAMP_RATE = 128, 64, 240_000, 2.4e6
 ITERS = 10
 EARLIER_VOICE = Path(__file__).with_name("fm_voice_334afe8.cu")
 EARLIER_CQPSK = Path(__file__).with_name("cqpsk_track_54b2cf5.cu")
+SYMBOL_MAJOR_CQPSK = Path(__file__).with_name("cqpsk_track_b498eb2.cu")
 EARLIER_COMPLEX = Path(__file__).with_name("xlat_complex_54b2cf5.cu")
 EARLIER_FSK = Path(__file__).with_name("fsk_track_3e03d30.cu")
 EARLIER_BINS = Path(__file__).with_name("pfb_rows_ef6af1a.cu")

@@ -585,16 +585,51 @@ def test_cqpsk_track_kernel_matches_plain(cuda_device, baud):
 
 
 @functools.cache
-def _per_sample_cqpsk():
-    """The per-sample-loop CQPSK kernel the symbol-major one replaced
-    (``tools/cqpsk_track_54b2cf5.cu``), built with the package's flags."""
+def _earlier_cqpsk(name):
+    """An earlier CQPSK tracker kernel beside ``tools/track_turns.py``,
+    built with the package's flags: ``EARLIER_CQPSK``, the per-sample
+    loop (``cqpsk_track_54b2cf5.cu``), or ``SYMBOL_MAJOR_CQPSK``, the
+    symbol-major kernel that did all its work in the lane's own warp
+    (``cqpsk_track_b498eb2.cu``)."""
     from radiocapture_tpu_torch.tools import track_turns
-    return track_turns.build_other(track_turns.EARLIER_CQPSK,
+    return track_turns.build_other(getattr(track_turns, name),
                                    "cqpsk_track_launch")
 
 
 def _bits(t):
     return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _cqpsk_edge_lanes(dev, baud, s, n, c):
+    """Two blocks of n samples on [S, C] lanes in turn: noise, silence,
+    and CQPSK streams 5% fast and 5% slow whose omega starts at the low
+    and the high clamp ([S, 2n, C] complex64); and a function that gives
+    a fresh lane state with those omegas on ``dev``."""
+    fs = 25000.0
+    prm = CQ.cqpsk_params(fs, baud)
+    rng = np.random.default_rng(n + c)
+    lanes = _complex_normal(rng, (s, 2 * n, c)).astype(np.complex64)
+    kinds = np.arange(s * c).reshape(s, c) % 4
+    by_lane = lanes.transpose(0, 2, 1)                  # a view, [S, C, n]
+    by_lane[kinds == 1] = 0.0
+    nsym = int(2 * n * 1.05 * baud / fs) + 16
+    for kind, rate in ((2, 1.05), (3, 0.95)):
+        by_lane[kinds == kind] = M.cqpsk_modulate(
+            rng.integers(0, 4, nsym), fs=fs, symbol_rate=baud * rate)[:2 * n]
+    omega0 = np.where(kinds == 2, prm.omega_lo, np.where(
+        kinds == 3, prm.omega_hi, fs / baud)).astype(np.float32)
+
+    def fresh():
+        return CQ.cqpsk_init(fs, baud, (s, c), dev)._replace(
+            omega=torch.as_tensor(omega0, device=dev))
+    return lanes, fresh
+
+
+def _cqpsk_block(lanes, b, n, dev):
+    """Block b of the lanes as [S, n, C] float32 planes on ``dev``."""
+    return tuple(torch.as_tensor(np.ascontiguousarray(
+        p(lanes[:, b * n:(b + 1) * n])), device=dev)
+        for p in (np.real, np.imag))
 
 
 @pytest.mark.cuda
@@ -613,35 +648,18 @@ def test_cqpsk_track_kernel_edges(cuda_device, baud, s, n, c):
     state tensors bit for bit. C = 40 and 33 leave part of a warp idle;
     N = 37 and 1 end blocks mid-symbol."""
     fs = 25000.0
-    prm = CQ.cqpsk_params(fs, baud)
-    rng = np.random.default_rng(n + c)
-    lanes = _complex_normal(rng, (s, 2 * n, c)).astype(np.complex64)
-    kinds = np.arange(s * c).reshape(s, c) % 4
-    by_lane = lanes.transpose(0, 2, 1)                  # a view, [S, C, n]
-    by_lane[kinds == 1] = 0.0
-    nsym = int(2 * n * 1.05 * baud / fs) + 16
-    for kind, rate in ((2, 1.05), (3, 0.95)):
-        by_lane[kinds == kind] = M.cqpsk_modulate(
-            rng.integers(0, 4, nsym), fs=fs, symbol_rate=baud * rate)[:2 * n]
-    omega0 = np.where(kinds == 2, prm.omega_lo, np.where(
-        kinds == 3, prm.omega_hi, fs / baud)).astype(np.float32)
-
-    def fresh():
-        return CQ.cqpsk_init(fs, baud, (s, c), cuda_device)._replace(
-            omega=torch.as_tensor(omega0, device=cuda_device))
-
+    lanes, fresh = _cqpsk_edge_lanes(cuda_device, baud, s, n, c)
     st = {"kernel": fresh(), "earlier": fresh(), "plain": fresh()}
     outs = {k: [] for k in st}
     for b in range(2):
-        y_re, y_im = (torch.as_tensor(np.ascontiguousarray(
-            p(lanes[:, b * n:(b + 1) * n])), device=cuda_device)
-            for p in (np.real, np.imag))
+        y_re, y_im = _cqpsk_block(lanes, b, n, cuda_device)
         scale = CQ.agc_scale(y_re, y_im, dim=1)
         outs["kernel"].append(cqk.track_cqpsk(y_re, y_im, scale,
                                               st["kernel"], fs, baud)[1:])
         args, old = cqk.kernel_args(y_re, y_im, scale, st["earlier"], fs,
                                     baud)
-        kernels.check(_per_sample_cqpsk()(*args), "cqpsk_track")
+        kernels.check(_earlier_cqpsk("EARLIER_CQPSK")(*args),
+                      "cqpsk_track")
         outs["earlier"].append([o.transpose(1, 2) for o in old])
         want = cqk.track_cqpsk_plain(y_re, y_im, scale, st["plain"], fs,
                                      baud)
@@ -658,6 +676,43 @@ def test_cqpsk_track_kernel_edges(cuda_device, baud, s, n, c):
     assert np.mean(valid[0] == valid[1]) >= CQPSK_NOISE_AGREE
     d = (got["kernel"][0] - got["plain"][0])[..., :CQPSK_SYM_N].cpu().numpy()
     assert float(np.abs((d + 4.0) % 8.0 - 4.0).max()) <= CQPSK_SYM_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("baud,s,n,c", [
+    (4800.0, 256, 2500, 64), (6000.0, 150, 100, 64), (4800.0, 80, 200, 64),
+    (6000.0, 3, 2500, 64), (4800.0, 2, 2500, 20), (6000.0, 3, 37, 11),
+    (4800.0, 1, 1, 45)])
+def test_cqpsk_track_kernel_matches_b498eb2(cuda_device, baud, s, n, c):
+    """The warp-specialised tracker against the kernel it replaced, on
+    the edge lanes (noise, silence, streams pinned at both omega clamps)
+    in two blocks with the state carried in place: outputs and all eight
+    state tensors bit for bit. 16384 lanes (the split2 bench: 512 tiles,
+    four a block), 9600 and 5120 (three and two a block), a runtime
+    group of 3 sources × 64 slots, 40 and 33 lanes (a last tile of 8 and
+    of one lane), N = 37 and 1 ending blocks mid-symbol."""
+    fs = 25000.0
+    lanes, fresh = _cqpsk_edge_lanes(cuda_device, baud, s, n, c)
+    st = {"kernel": fresh(), "earlier": fresh()}
+    outs = {k: [] for k in st}
+    for b in range(2):
+        y_re, y_im = _cqpsk_block(lanes, b, n, cuda_device)
+        scale = CQ.agc_scale(y_re, y_im, dim=1)
+        before = trace.counter("launch.cqpsk_track")
+        outs["kernel"].append(cqk.track_cqpsk(y_re, y_im, scale,
+                                              st["kernel"], fs, baud)[1:])
+        assert trace.counter("launch.cqpsk_track") == before + 1
+        args, old = cqk.kernel_args(y_re, y_im, scale, st["earlier"], fs,
+                                    baud)
+        kernels.check(_earlier_cqpsk("SYMBOL_MAJOR_CQPSK")(*args),
+                      "cqpsk_track")
+        outs["earlier"].append([o.transpose(1, 2) for o in old])
+    torch.cuda.synchronize()
+    for got, want in zip(outs["kernel"], outs["earlier"]):
+        for a, w in zip(got, want):
+            assert torch.equal(_bits(a), _bits(w))
+    for a, w in zip(st["kernel"], st["earlier"]):
+        assert torch.equal(_bits(a), _bits(w))
 
 
 @pytest.mark.cuda

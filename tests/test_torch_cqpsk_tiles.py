@@ -1,24 +1,28 @@
 """The CQPSK tracker kernel's plan (``csrc/cqpsk_track.cu``), emulated on
-the CPU against the plain tracker: symbol-major, each lane with its own
-sample pointer. An inner loop takes every lane's samples up to and
-including its next symbol instant (NCO, rotation, history shift, t + 1);
-a sample that emits nothing interpolates the symbol value with the taps
-held for the launch (Horner at fraction 0) and stores its differential
-phase and dibit; then the emit step runs for every emitting lane at once,
-with the mid-symbol window picked by selects among the candidates after
-one Horner evaluation. Lanes that reach N mid-symbol stop there, and so
-do lanes that reach the rows their warp's shared-memory ring has not
-filled yet (RING rows past the warp's slowest lane, filled once per
-symbol and read a symbol later); they take up their symbol again on the
-next pass. (The kernel takes a sample's atan2 when its warp stores the
-row, from the y·conj(prev) stashed at the sample: the same operations on
-the same values, so the emulation takes it at the sample.) The CUDA
-kernel cannot run here; this holds the plan it shares with the emulation
-to ``track_cqpsk_plain`` bit for bit (``torch.equal``), as the kernel is
-held to the per-sample loop's kernel on the card. Each step works on the
-whole [S, C] lane tensors with masks, as the plain version's steps do, so
-every element takes the same code path in both (a vectorized transcend-
-ental may round otherwise than its scalar tail)."""
+the CPU against the plain tracker. The consumer is symbol-major, each lane
+with its own sample pointer: an inner loop takes every lane's samples up
+to and including its next symbol instant (NCO, rotation, history shift,
+t + 1) and records each rotated sample in its tile's ring; then the emit
+step runs for every emitting lane at once, with the mid-symbol window
+picked by selects among the candidates after one Horner evaluation, and
+records the symbol's value y. Lanes that reach N mid-symbol stop
+there, and so do lanes that reach rows their tile's ring has not filled
+(STAGES stages of STAGE rows past the last stage the tile's slowest lane
+has handed over); they take up their symbol again on the next pass. The
+producer warps turn the handed-over rows into outputs from those
+records alone: per row the value interpolation over the 8 rotated
+samples before it (the carried history's last 8 at the start) with the
+taps held for the launch off a symbol and the recorded y on one, z =
+y·conj(prev) with the prev in force at the row (the carried prev, then
+each emit's y), and its atan2. The emulation checks the
+hand-over: a tile hands a stage over only once its every lane has
+recorded the stage's rows. The CUDA kernel cannot run here; this holds
+the plan it shares with the emulation to ``track_cqpsk_plain`` bit for
+bit (``torch.equal``), as the kernel is held to the kernel it replaced on
+the card. Each step works on the whole [S, C] lane tensors with masks,
+as the plain version's steps do, so every element takes the same code
+path in both (a vectorized transcendental may round otherwise than its
+scalar tail)."""
 
 import re
 
@@ -39,9 +43,14 @@ S_VAL = CQ.HIST_C - 5 - int(CQ._DELAY)    # the symbol value's window
 HEAD = 64                                  # plain samples before the blocks
 CF = torch.as_tensor(CQ._VAL_FARROW)
 SRC = (kernels.CSRC / "cqpsk_track.cu").read_text()
-RING = int(re.search(r"constexpr int RING = (\d+);", SRC).group(1))
-WARP = 32
 
+
+def _const(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", SRC).group(1))
+
+
+STAGE, STAGES = _const("STAGE"), _const("STAGES")
+WARP = 32
 
 def _horner(frac):
     """Farrow taps [..., 8] at ``frac`` [...], the scan's Horner steps."""
@@ -87,42 +96,57 @@ def _dibit(arg):
 
 def _plan(y_re, y_im, scale, state, baud):
     """The kernel's plan over one block; returns what
-    ``track_cqpsk_plain`` returns, how often each output sample was
-    written, and how many times a lane waited for its warp's ring."""
+    ``track_cqpsk_plain`` returns, how often each row of each lane was
+    recorded, and how many times a lane waited for its tile's ring."""
     prm = CQ.cqpsk_params(FS, baud)
     s_n, n, c_n = y_re.shape
     g = scale[:, None, :]
     x = torch.complex(y_re * g, y_im * g).transpose(1, 2)   # [S, C, N]
     x_re, x_im = x.real, x.imag
     t, omega, freq, phase, h_re, h_im, p_re, p_im = state
-    held = _horner(torch.zeros(()))          # value taps at fraction 0
-    out = torch.zeros((s_n, c_n, n))
-    valid = torch.zeros((s_n, c_n, n), dtype=torch.int32)
+    carried = (h_re, h_im, p_re, p_im)       # what the producer starts from
+    # the consumer's records: rotated samples, each emit's y, the pass
+    rot_re = torch.zeros((s_n, c_n, n))      # each row was recorded at
+    rot_im = torch.zeros((s_n, c_n, n))
+    sym_re = torch.zeros((s_n, c_n, n))
+    sym_im = torch.zeros((s_n, c_n, n))
+    emits = torch.zeros((s_n, c_n, n), dtype=torch.bool)
     writes = torch.zeros((s_n, c_n, n), dtype=torch.int64)
+    taken = torch.zeros((s_n, c_n, n), dtype=torch.int64)
     i = torch.zeros((s_n, c_n), dtype=torch.int64)   # each lane's sample
-    warp = (torch.arange(s_n * c_n) // WARP).reshape(s_n, c_n)
-    filled = torch.full((int(warp.max()) + 1,), min(n, RING))
+    tile = (torch.arange(s_n * c_n) // WARP).reshape(s_n, c_n)
+    tiles = int(tile.max()) + 1
+    stages = -(-n // STAGE)
+    handed = [0] * tiles                     # stages each tile handed over
+    handed_at = torch.full((tiles, stages), -1)   # and the pass of each
     waits = 0
+    lane = (torch.arange(s_n)[:, None], torch.arange(c_n)[None, :])
 
-    def put(mask, arg, v):
+    def record(mask, pas):
         s, c = mask.nonzero(as_tuple=True)
-        out[s, c, i[s, c]] = arg[s, c]
-        valid[s, c, i[s, c]] = v
         writes[s, c, i[s, c]] += 1
+        taken[s, c, i[s, c]] = pas
 
-    while bool((i < n).any()):               # one symbol of every lane
-        # each warp at its slowest lane: rows up to where the ring had
-        # been filled are there to read, and the ring fills RING past it
-        lo = torch.full_like(filled, n).scatter_reduce(
-            0, warp.reshape(-1), i.reshape(-1), "amin")
-        lim = filled[warp]
-        filled = torch.maximum(filled, torch.clamp(lo + RING, max=n))
+    for pas in range(n + 1):                 # one symbol of every lane
+        # each tile at its slowest lane hands over the stages its lanes
+        # have all passed; the producer refills each slot it has turned
+        # with the stage STAGES on
+        lo = torch.full((tiles,), n).scatter_reduce(
+            0, tile.reshape(-1), i.reshape(-1), "amin")
+        for w in range(tiles):
+            while (handed[w] < stages
+                   and min(n, (handed[w] + 1) * STAGE) <= int(lo[w])):
+                handed_at[w, handed[w]] = pas
+                handed[w] += 1
+        if bool((i >= n).all()):
+            break
+        lim = torch.clamp(torch.tensor(handed) + STAGES, max=stages)[tile]
+        lim = torch.clamp(lim * STAGE, max=n)
         emit = torch.zeros((s_n, c_n), dtype=torch.bool)
         take = i < lim
         while bool(take.any()):              # samples up to the emit
-            k = i.clamp(max=n - 1)[..., None]
-            xr_n = torch.gather(x_re, -1, k)[..., 0]
-            xi_n = torch.gather(x_im, -1, k)[..., 0]
+            k = i.clamp(max=n - 1)
+            xr_n, xi_n = x_re[lane + (k,)], x_im[lane + (k,)]
             ph = torch.remainder(phase + freq + CQ.TWO_PI, CQ.TWO_PI)
             co, si = torch.cos(ph), torch.sin(ph)
             xr = xr_n * co + xi_n * si
@@ -132,13 +156,13 @@ def _plan(y_re, y_im, scale, state, baud):
                 [h_re[..., 1:], xr[..., None]], -1), h_re)
             h_im = torch.where(take[..., None], torch.cat(
                 [h_im[..., 1:], xi[..., None]], -1), h_im)
+            rot_re[lane + (k,)] = torch.where(take, xr, rot_re[lane + (k,)])
+            rot_im[lane + (k,)] = torch.where(take, xi, rot_im[lane + (k,)])
+            record(take, pas)
             t = torch.where(take, t + 1.0, t)
             hit = take & (t >= omega)
             emit |= hit
             quiet = take & ~hit
-            y_r, y_i = _window_sum(h_re[..., S_VAL:S_VAL + 8],
-                                   h_im[..., S_VAL:S_VAL + 8], held)
-            put(quiet, _arg(y_r, y_i, p_re, p_im), 0)
             i = torch.where(quiet, i + 1, i)
             take = quiet & (i < lim)
         waits += int(((i == lim) & (i < n) & ~emit).sum())
@@ -164,10 +188,43 @@ def _plan(y_re, y_im, scale, state, baud):
                                              -prm.fmax, prm.fmax), freq)
         p_re = torch.where(emit, y_r, p_re)
         p_im = torch.where(emit, y_i, p_im)
-        put(emit, arg, 1)
+        k = lane + (i.clamp(max=n - 1),)
+        sym_re[k] = torch.where(emit, y_r, sym_re[k])
+        sym_im[k] = torch.where(emit, y_i, sym_im[k])
+        emits[k] |= emit
         i = torch.where(emit, i + 1, i)
+    # the hand-over: every stage handed over, after the pass that
+    # recorded the last of its rows in each lane of the tile
+    assert bool((handed_at >= 0).all())
+    rows = torch.arange(n) // STAGE
+    assert bool((taken < handed_at[tile][..., rows]).all())
+    out, valid = _produce(rot_re, rot_im, emits, sym_re, sym_im, *carried)
     new = CQ.CqpskState(t, omega, freq, phase, h_re, h_im, p_re, p_im)
     return (new, out, valid, _dibit(out)), writes, waits
+
+
+def _produce(rot_re, rot_im, emits, sym_re, sym_im, h_re, h_im, p_re,
+             p_im):
+    """The producer warps, from the consumer's records and the carried
+    history and prev: (syms, valid) [S, C, N]. The interpolation warp's
+    window is the history's value window, as the consumer's at the same
+    row."""
+    held = _horner(torch.zeros(()))          # value taps at fraction 0
+    out = torch.zeros(rot_re.shape)
+    valid = torch.zeros(rot_re.shape, dtype=torch.int32)
+    for r in range(rot_re.shape[-1]):
+        h_re = torch.cat([h_re[..., 1:], rot_re[..., r, None]], -1)
+        h_im = torch.cat([h_im[..., 1:], rot_im[..., r, None]], -1)
+        emit = emits[..., r]
+        y_r, y_i = _window_sum(h_re[..., S_VAL:S_VAL + 8],
+                               h_im[..., S_VAL:S_VAL + 8], held)
+        y_r = torch.where(emit, sym_re[..., r], y_r)
+        y_i = torch.where(emit, sym_im[..., r], y_i)
+        out[..., r] = _arg(y_r, y_i, p_re, p_im)
+        valid[..., r] = emit.to(torch.int32)
+        p_re = torch.where(emit, y_r, p_re)
+        p_im = torch.where(emit, y_i, p_im)
+    return out, valid
 
 
 def _lanes(baud, s, c, n, rng):
@@ -213,14 +270,19 @@ def _planes(lanes):
     (4800.0, 1, 2500, 64), (6000.0, 1, 2500, 40), (4800.0, 2, 1001, 33),
     (6000.0, 1, 1001, 64), (4800.0, 2, 37, 40), (6000.0, 2, 37, 33),
     (4800.0, 2, 5, 64), (6000.0, 2, 5, 40), (4800.0, 2, 1, 33),
-    (6000.0, 2, 1, 64)])
+    (6000.0, 2, 1, 64), (4800.0, 1, 2500, 45), (6000.0, 1, 2500, 45),
+    (4800.0, 3, 100, 11), (6000.0, 3, 100, 11)])
 def test_symbol_major_plan_matches_plain(baud, s, n, c):
     """Two blocks in a row from a mid-stream start (HEAD samples through
     the plain version): outputs and all eight state tensors of the plan
-    equal the plain tracker's bit for bit, and every output sample is
-    written once. N a whole 100 ms block (2500), off it (1001), a few
-    symbols (37), about one (5) and one sample (1); C = 64, 40, 33. Over
-    a whole block the pinned lanes drift past the ring, and wait."""
+    equal the plain tracker's bit for bit, every row of every lane is
+    recorded once, and a tile hands each stage over after its lanes
+    have recorded it. N a whole 100 ms block (2500), off it (1001), a
+    few symbols (37), about one (5), one sample (1) and a block whose
+    last stage is partial (100: lanes end mid-symbol and mid-stage); C =
+    64, 40, 33, and S·C = 45 and 33, whose last tile holds 13 lanes and
+    one. Over a whole block the pinned lanes drift past the ring, and
+    wait."""
     rng = np.random.default_rng(int(baud) + n + c)
     lanes, omega0 = _lanes(baud, s, c, HEAD + 2 * n, rng)
     st0 = CQ.cqpsk_init(FS, baud, (s, c))._replace(omega=omega0)
@@ -305,7 +367,7 @@ def test_kernel_constants_and_args(monkeypatch):
     any launch."""
     assert f"constexpr int MAX_CAND = {cqk.MAX_CANDIDATES};" in SRC
     assert f"constexpr int PROBE_ROWS = {cqk.PROBE_ROWS};" in SRC
-    assert RING >= 16 and RING & (RING - 1) == 0
+    assert STAGES >= 2 and STAGE >= 8
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device: type("S", (), {"cuda_stream": 0}))
     y = torch.zeros((1, 4, 2))
@@ -320,18 +382,23 @@ def test_kernel_constants_and_args(monkeypatch):
         cqk._loop_args(prm)
 
 
-@pytest.mark.parametrize("name", ["threads=32", "threads=128", "ring=32",
-                                  "flush1", "flush4", "libm_fmod",
-                                  "no_sincos", "no_atan", "no_div",
-                                  "no_shift", "nco_inline"])
+@pytest.mark.parametrize("name", ["tiles=1", "tiles=2", "stage=16",
+                                  "stages=2", "group=1", "group=2",
+                                  "libm_fmod", "no_sincos", "no_atan",
+                                  "no_div", "no_shift", "nco_inline",
+                                  "consumer_alone", "producers_alone",
+                                  "probe_store", "symbol_warps=1",
+                                  "symbol_warps=4", "no_gain"])
 def test_variant_builds_change_what_they_name(name):
     """``tools/cqpsk_variants.py`` rewrites a copy of the kernel: every
     text a variant edits is in the source once, so no variant silently
-    times the package's kernel, and a sized variant sets its constant."""
+    times the package's kernel, and a sized variant sets its constant
+    from the package's value."""
     from radiocapture_tpu_torch.tools import cqpsk_variants as cv
     out = cv.variant_source(SRC, name)
     assert out != SRC
     key, _, size = name.partition("=")
     if size:
-        assert cv.SIZED[key].format(size) in out
-        assert cv.SIZED[key].format(64) in SRC
+        line, value = cv.SIZED[key]
+        assert line.format(size) in out and line.format(value) in SRC
+        assert _const({"tiles": "MAX_TILES"}.get(key, key.upper())) == value
