@@ -17,7 +17,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from benchmark.tests.tiny import WORKLOADS, cell
 from radiocapture_tpu_torch import kernels
-from radiocapture_tpu_torch.frontend.pipeline import (ControlPipeline,
+from radiocapture_tpu_torch.frontend.pipeline import (AnalogVoicePipeline,
+                                                      ControlPipeline,
                                                       CqpskControlPipeline,
                                                       SpectrumSplit2,
                                                       split2_sources)
@@ -29,6 +30,9 @@ ROOT = Path(__file__).resolve().parent.parent
 RATE = 2.4e6
 CPU = torch.device("cpu")
 STEP_SPANS = ("pipeline.step", "channelize", "demod")
+# the tiny runs' cells: tiny.py's, and the cells of the analog voice
+# deployment and of the RTL-SDR pfb site
+CELLS = WORKLOADS + ("analog_voice.rtl_2m4", "p25_c4fm.rtl_2m4_pfb")
 
 
 @pytest.fixture(autouse=True)
@@ -44,6 +48,16 @@ def c4fm_step():
     """One CPU step of a 2-slot P25 C4FM pipeline on one source."""
     pipe = ControlPipeline.p25_c4fm(num_slots=2, samp_rate=RATE)
     rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal(
+        (1, pipe.block_multiple * 4, 2)).astype(np.float32))
+    offs = torch.tensor([[-0.01, 0.02]])
+    pipe.step(pipe.init(1, CPU), x, offs)
+
+
+def voice_step():
+    """One CPU step of a 2-slot analog voice pipeline on one source."""
+    pipe = AnalogVoicePipeline(num_slots=2, samp_rate=RATE)
+    rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.standard_normal(
         (1, pipe.block_multiple * 4, 2)).astype(np.float32))
     offs = torch.tensor([[-0.01, 0.02]])
@@ -84,9 +98,9 @@ def test_off_records_no_span_and_still_counts():
     assert "setup.design_s" in trace.summary()["counters"]
 
 
-def test_enabled_c4fm_step_nests_its_spans():
-    trace.enable()
-    c4fm_step()
+def nested_step_spans():
+    """The one recorded request: ``pipeline.step`` around ``channelize``
+    then ``demod``."""
     (step,) = records("pipeline.step")
     (chan,) = records("channelize")
     (demod,) = records("demod")
@@ -95,6 +109,12 @@ def test_enabled_c4fm_step_nests_its_spans():
         assert child.parent == step.id and child.root == step.id
         assert step.t0 <= child.t0 <= child.t1 <= step.t1
     assert chan.t1 <= demod.t0
+
+
+def test_enabled_c4fm_step_nests_its_spans():
+    trace.enable()
+    c4fm_step()
+    nested_step_spans()
     s = trace.summary()
     assert s["roots"] == {"pipeline.step": 1}
     assert {n: v["n"] for n, v in s["spans"].items()} == dict.fromkeys(
@@ -106,6 +126,17 @@ def test_enabled_c4fm_step_nests_its_spans():
     assert spans["demod"]["self_host_s"] == pytest.approx(
         spans["demod"]["host_s"], abs=1e-9)
     assert all(v["device_s"] is None for v in spans.values())
+
+
+def test_enabled_voice_step_nests_its_spans():
+    trace.enable()
+    voice_step()
+    nested_step_spans()
+    s = trace.summary()
+    assert s["roots"] == {"pipeline.step": 1}
+    assert {n: v["n"] for n, v in s["spans"].items()} == dict.fromkeys(
+        STEP_SPANS, 1)
+    assert all(v["device_s"] is None for v in s["spans"].values())
 
 
 def test_enabled_split2_and_cqpsk_are_two_requests():
@@ -261,18 +292,21 @@ def test_glue_metric_takes_each_roots_least_timed_request(monkeypatch):
 
 
 # the tiny runs go in a process of their own: the benchmark's import fence
-# refuses the JAX that tests/conftest.py loads
+# refuses the JAX that tests/conftest.py loads. Their window is 2 s: a
+# window that closes before the first block's step returns keeps no window
+# pair, and a run judged on its start pair alone reads incorrect; a tiny
+# LSM step takes 0.14 s alone and over 0.3 s on a loaded machine
 TINY_RUNS = """
 import json, sys, time
 import torch
 torch.set_num_threads(1)
 from benchmark.core.harness import run_cell
-from benchmark.tests.tiny import WORKLOADS, cell
+from benchmark.tests.tiny import cell
 from radiocapture_tpu_torch.utils import trace
 out = {}
-for w in WORKLOADS:
+for w in sys.argv[1:]:
     trace.reset()
-    res = run_cell(cell(w), 2 ** 31 + 17, 0.3, True, torch.device("cpu"),
+    res = run_cell(cell(w), 2 ** 31 + 17, 2.0, True, torch.device("cpu"),
                    time.perf_counter(), log=lambda *a: None)
     out[w] = {"correct": res["correct"],
               "metrics": {k: v["value"] for k, v in res["metrics"].items()},
@@ -283,13 +317,13 @@ print(json.dumps(out))
 
 @pytest.fixture(scope="module")
 def tiny_runs():
-    done = subprocess.run([sys.executable, "-c", TINY_RUNS], cwd=ROOT,
-                          capture_output=True, text=True, timeout=600,
-                          check=True)
+    done = subprocess.run([sys.executable, "-c", TINY_RUNS, *CELLS],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=600, check=True)
     return json.loads(done.stdout.splitlines()[-1])
 
 
-@pytest.mark.parametrize("workload", WORKLOADS)
+@pytest.mark.parametrize("workload", CELLS)
 def test_metrics_read_the_tracer_on_a_tiny_cpu_run(tiny_runs, workload):
     run = tiny_runs[workload]
     assert run["correct"]
