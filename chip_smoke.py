@@ -41,8 +41,8 @@ paths, the scan slice, live SDR ingest and the mesh steps.
    sin/cos/complex multiplies, the AGC's hypot/pow/mean).
    Then the ``pfb`` and ``fft`` frontend modes: a P25 grant through
    ``ControlPipeline.p25_c4fm(64, 2.4e6, frontend=...)`` for each (pfb
-   launching ``pfb_bins`` once a step, as often as ``xlat_complex``, and
-   ``pfb_rows`` no time), the pfb combiner's time-major entry
+   launching ``pfb_bins`` once a step, as often as ``pfb_fine``, and
+   ``pfb_rows`` and ``xlat_complex`` no time), the pfb combiner's time-major entry
    (``csrc/pfb_rows.cu``'s ``pfb_rows``) against its eager plain version at
    the bench shape on bf16 and float32 wires, complex64 at M = 8 and 16,
    and a block shorter than (P-1)·M, every output and the new history
@@ -58,18 +58,22 @@ paths, the scan slice, live SDR ingest and the mesh steps.
    bytes bound and one ``torch.fft.ifft`` of the rows (``pfb bins
    kernel:``), and with its plan in turns with commit ef6af1a's kernel,
    the direct [M, M] table (``tools/pfb_rows_ef6af1a.cu``; ``pfb bins
-   turns:``); the pfb fine stage (``PfbXlatBank``: one K2 = 467-tap filter per slot on
-   the complex bank kernel's general path, its narrow plan, each row
-   reading its slot's bin in place from the bin-major bins through a row
-   index) against its plain version on the gathered rows, with the bins
-   within ``BINS_REL`` of the time-major rows transposed (``pfb bins:``), timed
-   at 8192 rows beside its bound and a grouped ``conv1d`` (``pfb fine
-   bank:``), in turns with the gathered form the step ran before
-   (``pfb fine turns:``; every output and the new fine history must be
-   bit-identical) and with the general path it replaced (``complex
-   general turns: pfb fine``; every output must be bit-identical to
-   ``tools/xlat_complex_54b2cf5.cu``'s) and with the narrow plan it
-   replaced (``pfb fine narrow turns:``, ``tools/xlat_complex_2cf31c4.cu``
+   turns:``); the pfb fine stage (``PfbXlatBank``: ``csrc/pfb_fine.cu``,
+   each slot's bin mixed to its offset and filtered by the one real
+   K2 = 467-tap prototype, each row reading its slot's bin in place from
+   the bin-major bins through a row index) against ``pfb_fine_plain``
+   within ``FINE_REL`` and against the complex bank's narrow plan on the
+   modulated taps within COMPLEX_REL_TOL (``pfb fine kernel:``), with the
+   bins within ``BINS_REL`` of the time-major rows transposed (``pfb
+   bins:``), timed at 8192 rows beside its bound and a grouped
+   ``conv1d`` (``pfb fine bank:``) and in turns with the narrow plan at
+   8192, 256 and 64 rows (``pfb fine turns:``); the narrow plan, kept as
+   its yardstick, in turns with the gathered form
+   (``pfb narrow turns:``; every output and the new
+   fine history must be bit-identical), with the general path it
+   replaced (``complex general turns: pfb fine``; bit-identical to
+   ``tools/xlat_complex_54b2cf5.cu``'s) and with the plan before its
+   redesign (``pfb fine narrow turns:``, ``tools/xlat_complex_2cf31c4.cu``
    in turns, every output and the new fine history bit-identical), both
    modes' step at 128 sources (``bench pfb:``, ``bench fft:``; fft's
    block is 390336 samples, 162.6 ms; the pfb profile may run no
@@ -352,7 +356,7 @@ def grid_offsets(n_sources: int, dev,
 # ``csrc/fsk_track.cu``), each counted in ``launch.<name>``
 KERNELS = ("bank_operands", "xlat_bank", "fsk_track", "xlat_complex", "agc",
            "cqpsk_track", "fm_voice", "fsk_track_stream", "pfb_rows",
-           "pfb_bins")
+           "pfb_bins", "pfb_fine")
 
 
 def kernel_counts() -> dict:
@@ -519,12 +523,13 @@ def frontend_block(pipe, samp_rate: float = SAMP_RATE) -> int:
 
 
 def phase_decode(dev, pipe, what: str = "decode",
-                 need=("bank_operands", "xlat_bank", "fsk_track")) -> dict:
+                 need=("bank_operands", "xlat_bank", "fsk_track"),
+                 keep: dict | None = None) -> dict:
     """The port's main path: 4 sources × 64 slots at 2.4 MS/s, bf16 wire
     blocks, P25 control channel at +50 kHz on source 0 and −300 kHz on
     source 3, through ``pipe`` (its frontend's bank). Fails unless every
     kernel in ``need`` ran. Returns the kernels' launch counts of this
-    run."""
+    run; ``keep`` takes the fixture slots' dibits and valid flags."""
     from radiocapture_tpu_torch.device import complex_to_wire
     from radiocapture_tpu_torch.testing import modulators as M
     from radiocapture_tpu_torch.testing import streams
@@ -560,6 +565,8 @@ def phase_decode(dev, pipe, what: str = "decode",
     dib, val = np.concatenate(dib, -1), np.concatenate(val, -1)
     if dib.shape != (n_src, SLOTS, n // (pipe.decim * pipe.sym_decim)):
         raise AssertionError(f"output shape {dib.shape}")
+    if keep is not None:
+        keep.update({(i, c): (dib[i, c], val[i, c]) for i, c in slot.items()})
     for i, c in slot.items():
         g = streams.grants(dib[i, c][val[i, c].astype(bool)])
         if len(g) < 4 or not all(e in expected for e in g):
@@ -1776,7 +1783,7 @@ def phase_runtime_decode(dev, frontend: str = "xlat") -> dict:
         f"groups {sorted(str(k) for k in rt.groups)} in {dt:.3f} s; "
         f"launches {launches}")
     need = {"xlat": ("bank_operands", "xlat_bank"),
-            "pfb": ("pfb_bins", "xlat_complex")}[frontend] + ("fsk_track",
+            "pfb": ("pfb_bins", "pfb_fine")}[frontend] + ("fsk_track",
                                                             "fm_voice")
     if min(launches[k] for k in need) < 1:
         raise AssertionError(f"a kernel of the path never ran: {launches}")
@@ -1915,12 +1922,12 @@ def pfb_bins_check(pfb, state, x) -> dict:
 
 
 def pfb_fine_turns(xb, rows, hist, grev, phase0, step, d) -> dict:
-    """``pfb fine turns:`` the fine stage as the step ran it before the row
-    index (the bins gathered into an [S·C, T/M, 2] block, the kernel on
-    it, the new history from it) in turns with the step's in-place form
-    (the kernel through the row index, ``row_history``): gathered, in
-    place, in place, gathered; fails unless every output and every new
-    fine history sample are bit-identical."""
+    """``pfb narrow turns:`` the narrow plan at the fine stage's shape as
+    the step ran it before the row index (the bins gathered into an
+    [S·C, T/M, 2] block, the kernel on it, the new history from it) in
+    turns with the in-place form (the kernel through the row index,
+    ``row_history``): gathered, in place, in place, gathered; fails unless
+    every output and every new fine history sample are bit-identical."""
     from radiocapture_tpu_torch.ops import channelizer as chz
     from radiocapture_tpu_torch.ops import channelizer_kernel as ck
     from radiocapture_tpu_torch.tools.track_turns import identical_outputs
@@ -1948,7 +1955,7 @@ def pfb_fine_turns(xb, rows, hist, grev, phase0, step, d) -> dict:
                 "history": hi.numel()})
     ok = (res["identical_outputs"] == res["outputs"]
           and res["identical_history"] == res["history"])
-    log(f"pfb fine turns: {rows.numel()} rows over {xb.shape[0]} bin rows: "
+    log(f"pfb narrow turns: {rows.numel()} rows over {xb.shape[0]} bin rows: "
         f"gathered {res['plain_turns_ms'][0]:.4f}, in place "
         f"{res['kernel_turns_ms'][0]:.4f}, {res['kernel_turns_ms'][1]:.4f}, "
         f"gathered {res['plain_turns_ms'][1]:.4f} ms ({res['speedup']:.2f}x), "
@@ -1958,7 +1965,7 @@ def pfb_fine_turns(xb, rows, hist, grev, phase0, step, d) -> dict:
         f"{res['outputs']}, new fine history {res['identical_history']} of "
         f"{res['history']} {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("pfb fine turns: the in-place fine stage "
+        raise AssertionError("pfb narrow turns: the in-place narrow plan "
                              "differs from the gathered one")
     return res
 
@@ -2007,130 +2014,190 @@ def pfb_fine_narrow_turns(xb, rows, hist, grev, phase0, step, d) -> dict:
     return res
 
 
+def fine_check(got, want, what: str, rel: float) -> float:
+    """The fine stage's outputs against ``want`` within rel·max|want|;
+    returns max |err| over max|want|."""
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max()) / scale
+    ok = err <= rel and bool(torch.isfinite(torch.view_as_real(got)).all())
+    log(f"{what}: max |err| {err:.3e} of max|y| (bound {rel:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: outside its bound")
+    return err
+
+
 def phase_pfb_fine(dev) -> tuple[dict, float]:
-    """The pfb frontend's fine stage on the complex bank kernel's general
-    path (one slot per row, K2 = 467 taps, D = 16), each row reading its
-    slot's bin in place through the row index: small and ragged cases
-    (the index permuted and repeated) against the plain version on the
-    gathered rows and bit for bit against the kernel on them; then at a
+    """The pfb frontend's fine stage, ``pfb_fine`` (``csrc/pfb_fine.cu``:
+    each row's bin mixed to its slot's offset, one real prototype filter,
+    K2 = 467 taps, D = 16), each row reading its slot's bin in place
+    through the row index: small and ragged cases (the index permuted and
+    repeated, f at ±0.5 and 0) at one and three rows a block against
+    ``pfb_fine_plain``
+    within ``FINE_REL`` and against the complex bank on the modulated
+    taps (the form it replaced) within COMPLEX_REL_TOL; then at a
     bench-shape step (128 sources × 64 slots = 8192 rows over 768 bin
-    rows of 40000 samples, a 100 ms block, ``PfbXlatBank.fine_operands``
-    from a mid-stream state): the bins (``pfb_bins_check``), the kernel
-    on all rows held to the plain version on the first PFB_ROWS (all 8192
-    would need a 77 GB window matrix), its ms, bound and the library
-    yardstick, one grouped ``conv1d`` (groups = 8192, no rotation) over
-    the gathered rows and taps; the gathered form in turns
-    (``pfb_fine_turns``), the kernel the general path replaced in turns
-    (``general_turns``) and the narrow plan this one replaced
-    (``pfb_fine_narrow_turns``).
-    Returns (numbers, max |err|)."""
-    from radiocapture_tpu_torch.frontend.pipeline import ControlPipeline
+    rows of 40000 samples, ``track_turns.fine_bench_operands``): the bins
+    (``pfb_bins_check``), the kernel on all rows held to the narrow plan
+    and on the first PFB_ROWS to the plain version, its ms, its bound
+    (the filter's 4 FLOP a tap and the mixing's 8 a sample), the plain
+    version's ms on PFB_ROWS rows and one grouped ``conv1d`` yardstick
+    (groups = 8192, the modulated taps, no rotation), and the kernel in
+    turns with the narrow plan at 8192, 256 and 64 rows (``pfb fine
+    turns:``). Then the narrow plan, the yardstick, as before: in turns
+    with the gathered form (``pfb narrow turns:``), with the general path
+    it replaced (``general_turns``) and with the narrow plan before its
+    redesign (``pfb fine narrow turns:``). Returns (numbers, max |err|
+    over max|y| against the plain version)."""
     from radiocapture_tpu_torch.ops import channelizer as chz
     from radiocapture_tpu_torch.ops import channelizer_kernel as ck
+    from radiocapture_tpu_torch.ops import pfb_kernel as pk
     from radiocapture_tpu_torch.ops.fir import phase_step_u32
-    from radiocapture_tpu_torch.tools.track_turns import identical_outputs
-    bank = ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE, frontend="pfb").bank
+    from radiocapture_tpu_torch.tools import track_turns
+    bank = chz.PfbXlatBank(SLOTS, SAMP_RATE, 12500.0)
     k, d = bank.ntaps2, bank.decim2
-    taps = torch.as_tensor(bank.fine_taps, device=dev)
+    taps = bank.device_taps(dev)
     rng = np.random.default_rng(12)
     worst = 0.0
-    for s, r, n in ((3, 2, 37), (5, 4, 1001),
-                    (PFB_ROWS, 24, BLOCK // bank.decim)):
+    for s, r, n, fine in ((3, 2, 37, None), (5, 4, 1001, None),
+                          (3, 2, 5, None), (3, 2, 300, [0.4999, -0.5, 0.5]),
+                          (2, 1, 300, [0.0, 1e-7]),
+                          (PFB_ROWS, 24, BLOCK // bank.decim, None)):
         x = torch.as_tensor(rng.standard_normal((r, n * d, 2)).astype(
             np.float32), device=dev)
         rows = torch.as_tensor(rng.integers(0, r, s), device=dev)
         hist = torch.as_tensor((rng.standard_normal((s, k - 1))
                                 + 1j * rng.standard_normal((s, k - 1))
                                 ).astype(np.complex64), device=dev)
-        fine = torch.as_tensor(rng.uniform(-0.5, 0.5, (s, 1)).astype(
+        fine = torch.as_tensor(np.asarray(
+            rng.uniform(-0.5, 0.5, s) if fine is None else fine,
             np.float32), device=dev)
-        grev = chz.modulated_taps(taps, fine)
-        phase0 = torch.as_tensor(rng.integers(0, 2 ** 32, (s, 1)),
+        phase0 = torch.as_tensor(rng.integers(0, 2 ** 32, s),
                                  dtype=torch.int64, device=dev)
         step = phase_step_u32(fine, d)
-        got = ck.bank_complex(x, hist, grev, phase0, step, d, rows)
-        gathered = ck.bank_complex(x[rows], hist, grev, phase0, step, d)
-        what = (f"pfb fine stage S'={s} over {r} rows N={n} K={k} D={d} C=1 "
-                f"float32, in place")
-        worst = max(worst, check_complex_bank(
-            got, ck.bank_complex_plain(ck.complex_z(x[rows], hist), grev,
-                                       phase0, step, n, d), what))
-        if identical_outputs(got, gathered) != got.numel():
-            raise AssertionError(f"{what}: differs from the kernel on the "
-                                 f"gathered rows")
+        ops = (x, rows, hist, taps, fine, phase0, step)
+        want = pk.pfb_fine_plain(*ops, d)
+        old = ck.bank_complex(x, hist, chz.modulated_taps(taps, fine[:, None]),
+                              phase0[:, None], step[:, None], d, rows)[:, 0]
+        for rb in (1, 3):
+            args, got = pk.pfb_fine_args(*ops, d, rb=rb)
+            got.fill_(float("nan"))
+            kernels_check(args)
+            what = (f"pfb fine kernel: S'={s} over {r} rows N={n} K={k} "
+                    f"D={d} rb={rb}")
+            worst = max(worst, fine_check(got, want, what + " vs plain",
+                                          pk.FINE_REL))
+            fine_check(got, old, what + " vs the narrow plan",
+                       COMPLEX_REL_TOL)
 
-    s = BENCH_SOURCES
-    gen = torch.Generator(device=dev).manual_seed(3)
-    x = torch.randn((s, BLOCK, 2), generator=gen, device=dev).to(
-        torch.bfloat16)
-    offs = grid_offsets(s, dev)
-    state = bank.init(s, dev)
-    for _ in range(2):
-        state, _ = bank(state, x, offs)
-    res = {"pfb_bins": pfb_bins_check(bank.pfb, state.pfb, x)}
-    _, xb, rows, hist, grev, phase0, step = bank.fine_operands(
-        state, x, offs)
+    xb, rows, hist, taps, fine, phase0, step, d = \
+        track_turns.fine_bench_operands(dev)
     nrows, n = rows.numel(), xb.shape[1] // d
-    res["pfb_fine_ms"] = cuda_ms(
-        lambda: ck.bank_complex(xb, hist, grev, phase0, step, d, rows), 5)
-    y = ck.bank_complex(xb, hist, grev, phase0, step, d, rows)
+    rb = pk.fine_plan(nrows, n, k, torch.cuda.get_device_properties(dev)
+                      .multi_processor_count)
+    res = {"rb": rb}
+    ops = (xb, rows, hist, taps, fine, phase0, step)
+    res["pfb_fine_ms"] = cuda_ms(lambda: pk.pfb_fine(*ops, d), 10)
+    res["pfb_fine_ms_rb1"] = cuda_ms(lambda: kernels_check(
+        pk.pfb_fine_args(*ops, d, rb=1)[0]), 10)
+    y = pk.pfb_fine(*ops, d)
+    grev = chz.modulated_taps(taps, fine[:, None])
+    old = ck.bank_complex(xb, hist, grev, phase0[:, None], step[:, None], d,
+                          rows)[:, 0]
+    fine_check(y, old, f"pfb fine kernel, bench operands, {nrows} rows, vs "
+               f"the narrow plan", COMPLEX_REL_TOL)
     sub = slice(0, PFB_ROWS)
-    xs = xb[rows[sub]]
-    res["pfb_fine_plain_ms_rows"] = cuda_ms(lambda: ck.bank_complex_plain(
-        ck.complex_z(xs, hist[sub]), grev[sub], phase0[sub], step[sub],
-        n, d), 3)
-    worst = max(worst, check_complex_bank(
-        y[sub], ck.bank_complex_plain(ck.complex_z(xs, hist[sub]),
-                                      grev[sub], phase0[sub], step[sub], n,
-                                      d),
-        f"pfb fine stage, bench operands, rows 0-{PFB_ROWS - 1} of {nrows} "
-        f"N={n}, in place"))
-    if not bool(torch.isfinite(torch.view_as_real(y)).all()):
-        raise AssertionError("non-finite pfb fine-stage outputs")
-    flops = 8.0 * nrows * n * k
-    # the bins read once: 768 bin rows, each read by its slots
-    res["pfb_fine_bytes"] = tensor_bytes(xb, rows, hist, grev, phase0, step,
-                                         y)
+    sub_ops = (xb, rows[sub], hist[sub], taps, fine[sub], phase0[sub],
+               step[sub])
+    res["pfb_fine_plain_ms_rows"] = cuda_ms(
+        lambda: pk.pfb_fine_plain(*sub_ops, d), 3)
+    worst = max(worst, fine_check(
+        y[sub], pk.pfb_fine_plain(*sub_ops, d),
+        f"pfb fine kernel, bench operands, rows 0-{PFB_ROWS - 1} vs plain",
+        pk.FINE_REL))
+    # the bound: the filter's 2 FMAs a tap and part, the mixing's complex
+    # multiply (6 FLOP) and phasor product (6) a staged sample
+    flops = 4.0 * nrows * n * k + 12.0 * nrows * (n * d + k - 1)
+    res["pfb_fine_flop"] = flops
+    res["pfb_fine_bytes"] = tensor_bytes(xb, rows, hist, taps, fine, phase0,
+                                         step, y)
     res["pfb_fine_bound_ms"], res["pfb_fine_bound_by"] = bound(
         flops, F32_PEAK, res["pfb_fine_bytes"])
-    # the yardstick: re/im as the two channels of each row's group,
-    # weights [[g_re, -g_im], [g_im, g_re]] per row: the correlation
-    # without the rotation, so |y| must match
+    # the yardstick: the modulated taps' correlation, re/im the two
+    # channels of each row's group, no rotation, so |y| must match
     z = torch.view_as_real(ck.complex_z(xb[rows], hist))    # [S', L, 2]
     inp = z.permute(0, 2, 1).reshape(1, 2 * nrows, -1).contiguous()
     del z
-    g = grev[:, 0]
-    w = torch.stack([torch.stack([g.real, -g.imag], 1),
-                     torch.stack([g.imag, g.real], 1)], 1).reshape(
+    w = torch.stack([torch.stack([grev.real, -grev.imag], 1),
+                     torch.stack([grev.imag, grev.real], 1)], 1).reshape(
         2 * nrows, 2, k)
     conv = torch.nn.functional.conv1d
     res["pfb_fine_library_ms"] = cuda_ms(
         lambda: conv(inp, w, stride=d, groups=nrows), 3)
     out = conv(inp, w, stride=d, groups=nrows)[0].view(nrows, 2, -1)[..., :n]
     del inp
-    mag_err = float((torch.hypot(out[:, 0], out[:, 1])
-                     - y[:, 0].abs()).abs().max())
+    mag_err = float((torch.hypot(out[:, 0], out[:, 1]) - y.abs()).abs().max())
     scale = float(y.abs().max())
     if mag_err > 10 * COMPLEX_REL_TOL * scale:     # cuDNN picks its algorithm
         raise AssertionError(f"conv1d yardstick computes another function: "
                              f"|y| differs by {mag_err}")
-    log(f"pfb fine bank: {nrows} rows (S={s} x C={SLOTS}) x N={n}, K={k}, "
-        f"D={d}, bins read in place ({xb.shape[0]} bin rows): kernel "
-        f"{res['pfb_fine_ms']:.4f} ms, bound "
-        f"{res['pfb_fine_bound_ms']:.4f} ms ({res['pfb_fine_bound_by']}, "
-        f"{flops:.4g} FLOP, {res['pfb_fine_bytes'] / 1e9:.3f} GB), share of "
-        f"bound {res['pfb_fine_bound_ms'] / res['pfb_fine_ms']:.3f}; "
-        f"library (grouped conv1d, groups={nrows}, no rotation) "
+    del out, y, old
+    log(f"pfb fine bank: {nrows} rows (S={BENCH_SOURCES} x C={SLOTS}) x "
+        f"N={n}, K={k}, D={d}, bins read in place ({xb.shape[0]} bin rows), "
+        f"{rb} rows a block: kernel {res['pfb_fine_ms']:.4f} ms (one row a "
+        f"block {res['pfb_fine_ms_rb1']:.4f}), bound "
+        f"{res['pfb_fine_bound_ms']:.4f} ms "
+        f"({res['pfb_fine_bound_by']}, {flops:.4g} FLOP, "
+        f"{res['pfb_fine_bytes'] / 1e9:.3f} GB), share of bound "
+        f"{res['pfb_fine_bound_ms'] / res['pfb_fine_ms']:.3f}; library "
+        f"(grouped conv1d, groups={nrows}, modulated taps, no rotation) "
         f"{res['pfb_fine_library_ms']:.4f} ms, |y| within {mag_err:.3e}; "
         f"plain on {PFB_ROWS} rows {res['pfb_fine_plain_ms_rows']:.3f} ms")
-    del out, y
-    res["pfb_fine_in_place_turns"] = pfb_fine_turns(xb, rows, hist, grev,
-                                                    phase0, step, d)
-    res["pfb_fine_turns"] = general_turns("pfb fine", xb, hist, grev, phase0,
-                                          step, d, rows)
+    res["pfb_fine_turns"] = {}
+    for nr in (nrows, 256, 64):
+        t = track_turns.fine_turns(xb, rows[:nr], hist[:nr], taps, fine[:nr],
+                                   phase0[:nr], step[:nr], d,
+                                   iters=5 if nr > 256 else 20)
+        ok = t["max_rel_diff"] <= COMPLEX_REL_TOL
+        log(f"pfb fine turns: {nr} rows over {xb.shape[0]} bin rows: narrow "
+            f"plan {t['narrow_ms'][0]:.4f}, pfb_fine {t['fine_ms'][0]:.4f}, "
+            f"{t['fine_ms'][1]:.4f}, narrow {t['narrow_ms'][1]:.4f} ms "
+            f"({t['speedup']:.2f}x); max |diff| {t['max_rel_diff']:.3e} of "
+            f"max|y| {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("pfb fine turns: the kernels disagree")
+        res["pfb_fine_turns"][nr] = t
+    p1, s1 = phase0[:, None], step[:, None]
+    res["pfb_bins"] = pfb_bins_check_bench(dev)
+    res["pfb_narrow_in_place_turns"] = pfb_fine_turns(xb, rows, hist, grev,
+                                                      p1, s1, d)
+    res["pfb_narrow_general_turns"] = general_turns(
+        "pfb fine", xb, hist, grev, p1, s1, d, rows)
     res["pfb_fine_narrow_turns"] = pfb_fine_narrow_turns(
-        xb, rows, hist, grev, phase0, step, d)
+        xb, rows, hist, grev, p1, s1, d)
     return res, worst
+
+
+def kernels_check(args) -> None:
+    """One launch of ``pfb_fine_launch`` with ``args`` (``pfb_fine_args``'),
+    raising on a CUDA error."""
+    from radiocapture_tpu_torch import kernels
+    kernels.check(kernels.load().pfb_fine_launch(*args), "pfb_fine")
+
+
+def pfb_bins_check_bench(dev) -> dict:
+    """``pfb_bins_check`` on a bench-shape pfb state (128 sources, two
+    steps of a random-normal bf16 block), as the fine stage reads them."""
+    from radiocapture_tpu_torch.frontend.pipeline import ControlPipeline
+    bank = ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE, frontend="pfb").bank
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((BENCH_SOURCES, BLOCK, 2), generator=gen, device=dev).to(
+        torch.bfloat16)
+    offs = grid_offsets(BENCH_SOURCES, dev)
+    state = bank.init(BENCH_SOURCES, dev)
+    for _ in range(2):
+        state, _ = bank(state, x, offs)
+    return pfb_bins_check(bank.pfb, state.pfb, x)
 
 
 def pfb_rows_case(pfb, hist, x, what: str, timed: bool = False) -> dict:
@@ -2369,15 +2436,53 @@ def phase_pfb_bins(dev) -> dict:
     return res
 
 
+def phase_decode_pfb(dev) -> tuple[dict, dict]:
+    """``decode pfb:`` the grant through the pfb step as it runs
+    (``pfb_fine``), then ``decode pfb narrow:`` the same stream with the
+    fine stage swapped for the form it replaced (the complex bank's
+    narrow plan on the modulated taps): the fixture slots' dibits and
+    valid flags must be identical. Returns both runs' launch counts."""
+    from radiocapture_tpu_torch.frontend.pipeline import ControlPipeline
+    from radiocapture_tpu_torch.ops import channelizer as chz
+    from radiocapture_tpu_torch.ops import channelizer_kernel as ck
+    got, old = {}, {}
+    launches = phase_decode(
+        dev, ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE, frontend="pfb"),
+        "decode pfb", ("pfb_bins", "pfb_fine", "fsk_track"), keep=got)
+
+    def narrow(xb, rows, hist, taps, fine, phase0, step, d):
+        return ck.bank_complex(xb, hist, chz.modulated_taps(taps, fine[:, None]),
+                               phase0[:, None], step[:, None], d, rows)[:, 0]
+
+    mixer, chz.pfb_fine = chz.pfb_fine, narrow
+    try:
+        narrow_launches = phase_decode(
+            dev, ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE, frontend="pfb"),
+            "decode pfb narrow", ("pfb_bins", "xlat_complex", "fsk_track"),
+            keep=old)
+    finally:
+        chz.pfb_fine = mixer
+    for key, (dib, val) in got.items():
+        same = (np.array_equal(dib[val.astype(bool)],
+                               old[key][0][old[key][1].astype(bool)])
+                and np.array_equal(val, old[key][1]))
+        log(f"decode pfb: source {key[0]} slot {key[1]}: dibits and valid "
+            f"flags against the narrow plan's: {int(val.sum())} valid "
+            f"{'identical' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError("decode pfb: the mixer's dibits differ")
+    return launches, narrow_launches
+
+
 def pfb_launches_match(what: str, launches: dict) -> None:
-    """The pfb path's coarse PFB ran once a pipeline step: as many
-    ``pfb_bins`` launches as fine-stage ``xlat_complex`` ones, and no
-    ``pfb_rows``."""
-    ok = (launches["pfb_bins"] == launches["xlat_complex"] > 0
-          and launches["pfb_rows"] == 0)
-    log(f"{what}: pfb_bins {launches['pfb_bins']} launches, xlat_complex "
-        f"{launches['xlat_complex']}, pfb_rows {launches['pfb_rows']}: "
-        f"{'ok' if ok else 'FAIL'}")
+    """The pfb path's coarse PFB and fine stage ran once a pipeline step:
+    as many ``pfb_bins`` launches as ``pfb_fine`` ones, and no
+    ``pfb_rows`` or ``xlat_complex``."""
+    ok = (launches["pfb_bins"] == launches["pfb_fine"] > 0
+          and launches["pfb_rows"] == launches["xlat_complex"] == 0)
+    log(f"{what}: pfb_bins {launches['pfb_bins']} launches, pfb_fine "
+        f"{launches['pfb_fine']}, xlat_complex {launches['xlat_complex']}, "
+        f"pfb_rows {launches['pfb_rows']}: {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{what}: pfb_bins not once a step")
 
@@ -3853,9 +3958,7 @@ def main() -> None:
 
     # the pfb and fft frontend modes: a P25 grant through each, the pfb
     # fine stage on the complex bank's general path, both at 128 sources
-    launches_pfb = phase_decode(
-        dev, ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE, frontend="pfb"),
-        "decode pfb", ("pfb_bins", "xlat_complex", "fsk_track"))
+    launches_pfb, _ = phase_decode_pfb(dev)
     pfb_launches_match("decode pfb", launches_pfb)
     launches_fft = phase_decode(
         dev, ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE, frontend="fft"),
@@ -4016,6 +4119,23 @@ def main() -> None:
          "bound_by": res["track_bound_by"], "library_ms": None,
          "floor_ms": res["track_floor_ms"],
          "floor_how": res["track_floor_how"]},
+        {"name": "pfb_fine", "route": "cuda",
+         "source": "radiocapture_tpu_torch/csrc/pfb_fine.cu",
+         "replaces": "radiocapture_tpu/ops/channelizer.py:351",
+         "replaces_what": "PfbXlatBank.__call__'s fine stage, "
+                          "vmap(freq_xlating_fir) under jit (:351-366), "
+                          "not a Pallas kernel",
+         "launches": launches_pfb["pfb_fine"],
+         "runtime_launches": launches_rt_pfb["pfb_fine"],
+         "max_rel_err": fine_err, "rb": res_fine["rb"],
+         "ms": res_fine["pfb_fine_ms"],
+         "ms_rb1": res_fine["pfb_fine_ms_rb1"],
+         "plain_ms_64_rows": res_fine["pfb_fine_plain_ms_rows"],
+         "bound_ms": res_fine["pfb_fine_bound_ms"],
+         "bound_by": res_fine["pfb_fine_bound_by"],
+         "library_ms": res_fine["pfb_fine_library_ms"],
+         "turns": res_fine["pfb_fine_turns"],
+         "pfb_bins": res_fine["pfb_bins"]},
         {"name": "xlat_complex", "route": "cuda",
          "source": "radiocapture_tpu_torch/csrc/xlat_complex.cu",
          "replaces": "radiocapture_tpu/ops/pallas_channelizer.py:73",
@@ -4026,16 +4146,9 @@ def main() -> None:
          "bound_by": res2["xlat_complex_bound_by"],
          "library_ms": res2["xlat_complex_library_ms"],
          "pfb_fine_launches": launches_pfb["xlat_complex"],
-         "pfb_fine_max_abs_err": fine_err,
-         "pfb_fine_ms": res_fine["pfb_fine_ms"],
-         "pfb_fine_plain_ms_64_rows": res_fine["pfb_fine_plain_ms_rows"],
-         "pfb_fine_bound_ms": res_fine["pfb_fine_bound_ms"],
-         "pfb_fine_bound_by": res_fine["pfb_fine_bound_by"],
-         "pfb_fine_library_ms": res_fine["pfb_fine_library_ms"],
-         "pfb_fine_turns": res_fine["pfb_fine_turns"],
-         "pfb_fine_in_place_turns": res_fine["pfb_fine_in_place_turns"],
-         "pfb_fine_narrow_turns": res_fine["pfb_fine_narrow_turns"],
-         "pfb_bins": res_fine["pfb_bins"],
+         "pfb_narrow_in_place_turns": res_fine["pfb_narrow_in_place_turns"],
+         "pfb_narrow_general_turns": res_fine["pfb_narrow_general_turns"],
+         "pfb_narrow_2cf31c4_turns": res_fine["pfb_fine_narrow_turns"],
          "mesh_c4fm_launches": mesh["launches"]["xlat_complex"],
          "mesh_c4fm_max_abs_err": bench_mesh["complex_bank_err"],
          "mesh_c4fm_ms": mbank["ms"], "mesh_c4fm_plain_ms": mbank["plain_ms"],

@@ -14,8 +14,8 @@ JAX ``__call__`` does.
 Also the ``pfb`` frontend mode: ``PfbChannelizer`` (the coarse polyphase
 FFT channelizer, its bins one launch of ``csrc/pfb_rows.cu``'s
 ``pfb_bins`` kernel) and
-``PfbXlatBank`` (its bins, then a fine xlat filter per slot on the
-complex bank kernel).
+``PfbXlatBank`` (its bins, then each slot's bin mixed to the slot's
+offset and filtered by the one real prototype, ``csrc/pfb_fine.cu``).
 """
 
 from __future__ import annotations
@@ -30,7 +30,8 @@ from radiocapture_tpu_torch.ops.channelizer_kernel import (
     bank_complex, bank_fused, bank_operands, bank_operands_plain, tap_matrix,
     wire_z2)
 from radiocapture_tpu_torch.ops.fir import U32_MASK, XlatState, phase_step_u32
-from radiocapture_tpu_torch.ops.pfb_kernel import pfb_bins, pfb_rows, rotation
+from radiocapture_tpu_torch.ops.pfb_kernel import (pfb_bins, pfb_fine,
+                                                   pfb_rows, rotation)
 from radiocapture_tpu_torch.utils import trace
 
 
@@ -393,16 +394,22 @@ class PfbXlatBank:
     242-261, 343-423). The ``XlatBank`` contract; the slot → bin routing
     is computed from ``offsets_norm`` every step.
 
-    The fine stage is the complex bank kernel (``bank_complex``,
-    ``csrc/xlat_complex.cu``) with each slot as a one-slot source: S·C
-    rows, one K2-tap filter each, decimating by ``decim2``; one slot a
-    row takes the kernel's narrow plan (a bin's span staged once for the
-    rows reading it, 5 consecutive outputs a lane). That is what the JAX
-    ``vmap(freq_xlating_fir)`` computes (ops/fir.py:117-143: the same tap
-    modulation, correlation order and uint32 ramp). Each row reads its
-    slot's bin in place from the PFB's bin-major bins by a row index, as
-    the JAX step's ``bins[chan]`` gather (channelizer.py:362) selects it;
-    no gathered [S·C, T/M] block is built."""
+    The fine stage is ``pfb_fine`` (``csrc/pfb_fine.cu``), each slot a
+    row: S·C rows of the K2-tap prototype ``fine_taps``, decimating by
+    ``decim2``. The JAX ``vmap(freq_xlating_fir)`` (ops/fir.py:117-143)
+    modulates the prototype to each slot's fine offset and correlates;
+    since every slot's taps are that one real prototype, the kernel mixes
+    each bin sample to the slot's offset by the phasor of an exact uint32
+    ramp, filters with the real taps (2 FMAs a tap, not 4) and folds the
+    per-output factor into the rotation: the same function up to the
+    rounding of the modulation's angle. On the CPU the fine stage is the
+    JAX form itself (``modulated_taps`` on ``bank_complex``'s plain
+    version), which the parity tests hold to JAX's float32 arithmetic:
+    the port's chaotic noise lanes agree with JAX's only where the
+    channels round as JAX's do. Each row reads its slot's bin in place
+    from the PFB's bin-major bins by a row index, as the JAX step's
+    ``bins[chan]`` gather (channelizer.py:362) selects it; no gathered
+    [S·C, T/M] block is built."""
 
     def __init__(self, num_slots: int, samp_rate: float,
                  channel_rate: float, bin_rate: float = 400e3,
@@ -445,25 +452,28 @@ class PfbXlatBank:
         chan = torch.round(cyc)
         return torch.remainder(chan.to(torch.int64), self.m), cyc - chan
 
+    def device_taps(self, device) -> torch.Tensor:
+        """The fine stage's prototype ``fine_taps`` [K2] float32 on
+        ``device``, copied there once (``device_const``)."""
+        return device_const(self._consts, "taps", self.fine_taps, device)
+
     def fine_operands(self, state: PfbXlatBankState, x: torch.Tensor,
                       offsets_norm: torch.Tensor) -> tuple:
-        """The coarse PFB step, then the fine stage's ``bank_complex``
-        operands, each slot a one-slot source: (PFB state, the bins
+        """The coarse PFB step, then the fine stage's ``pfb_fine``
+        operands but the taps, each slot a row: (PFB state, the bins
         [S·M, T/M, 2] float32, a view of ``PfbChannelizer.bins``, the row
-        index [S·C] int64 ``s·M + bin[s, c]``, history [S·C, K2-1], grev
-        [S·C, 1, K2], phase0 and step [S·C, 1])."""
+        index [S·C] int64 ``s·M + bin[s, c]``, history [S·C, K2-1], the
+        fine offsets [S·C] float32, phase0 and step [S·C])."""
         ps, bins = self.pfb.bins(state.pfb, x)               # [S, M, T/M]
         chan, fine = self.route(offsets_norm)
         s, m, n = bins.shape
         rows = (torch.arange(s, device=chan.device)[:, None] * m
                 + chan).reshape(-1)
-        h = device_const(self._consts, "taps", self.fine_taps, bins.device)
         c = chan.shape[1]
         return (ps, torch.view_as_real(bins).view(s * m, n, 2), rows,
-                state.fine.history.reshape(s * c, -1),
-                modulated_taps(h, fine.reshape(s * c, 1)),
-                state.fine.phase.reshape(s * c, 1),
-                phase_step_u32(fine, self.decim2).reshape(s * c, 1))
+                state.fine.history.reshape(s * c, -1), fine.reshape(-1),
+                state.fine.phase.reshape(-1),
+                phase_step_u32(fine, self.decim2).reshape(-1))
 
     def __call__(self, state: PfbXlatBankState, x: torch.Tensor,
                  offsets_norm: torch.Tensor
@@ -471,9 +481,16 @@ class PfbXlatBank:
         """x [S, T] complex64 (or an [S, T, 2] wire block), T % decim ==
         0; offsets_norm [S, C] cycles/input sample → channels [S, C,
         T//decim] complex64."""
-        ps, xb, rows, hist, grev, phase0, step = self.fine_operands(
+        ps, xb, rows, hist, fine, phase0, step = self.fine_operands(
             state, x, offsets_norm)
-        y = bank_complex(xb, hist, grev, phase0, step, self.decim2, rows)
+        taps = self.device_taps(xb.device)
+        if xb.device.type == "cpu":    # the JAX form, the parity reference
+            y = bank_complex(xb, hist, modulated_taps(taps, fine[:, None]),
+                             phase0[:, None], step[:, None], self.decim2,
+                             rows)
+        else:
+            y = pfb_fine(xb, rows, hist, taps, fine, phase0, step,
+                         self.decim2)
         s, c = state.fine.phase.shape
         n = y.shape[-1]
         fs = XlatState(history=row_history(hist, xb, rows).view(s, c, -1),

@@ -32,8 +32,9 @@ after it in ``XlatBank.__call__``: the same correlation on history ++
 block, in float32 throughout, with outputs ``[S, C, N]`` complex64. The
 kernel reads the wire block (bf16 or float32) and the complex64 history
 where they lie; with a row index each bank row reads its samples from a
-row of a shared block (the pfb fine stage: each slot's bin of the PFB's
-bins), in place of the JAX step's gather.
+row of a shared block (each slot's bin of the PFB's bins, as the pfb
+fine stage ran on it before ``pfb_kernel.pfb_fine``), in place of the
+JAX step's gather.
 """
 
 from __future__ import annotations
@@ -427,8 +428,10 @@ def bank_complex(x: torch.Tensor, history: torch.Tensor, grev: torch.Tensor,
 
     ``rows`` [S] int64: bank row s reads its samples from row ``rows[s]``
     of x = [R, T, 2], its history, taps, phase and outputs staying row
-    s's; the pfb fine stage reads each slot's bin of the PFB's bin-major
-    bins this way, in place. The kernel takes one more address a row and
+    s's; the pfb fine stage's form on modulated taps reads each slot's
+    bin of the PFB's bin-major bins this way, in place (``PfbXlatBank``
+    on the CPU; ``pfb_fine``'s yardstick on the card). The kernel takes
+    one more address a row and
     gathers nothing, on the general path only (split2's shape raises).
     The index's values are not checked, which would sync with the host
     every step: the caller keeps them in [0, R) (``PfbXlatBank.route``
@@ -443,8 +446,9 @@ def bank_complex(x: torch.Tensor, history: torch.Tensor, grev: torch.Tensor,
     its outputs' span as polyphase planes; with 8 slots or more (the
     time-sharded mesh step, C=64) each thread holds 4 outputs × 8 slots
     and the taps stream through shared memory, with fewer (the pfb fine
-    stage, C=1) a block stages each x row's span once for the bank rows
-    that read it and each lane holds 5 consecutive outputs of a slot.
+    stage's shape, C=1: the narrow plan) a block stages each x row's span
+    once for the bank rows that read it and each lane holds 5
+    consecutive outputs of a slot.
     Every output is one ``fmaf`` chain in k order, the same bits on
     every path."""
     if x.device.type == "cpu":

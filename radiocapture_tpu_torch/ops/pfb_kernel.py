@@ -19,6 +19,12 @@ constants) or, where the plan does not factor M, through one folded
 [M, M] table (``bins_table``). Its plain version, ``pfb_bins_plain``, is
 the chain the pfb step ran before it: ``pfb_rows_plain``,
 ``torch.fft.ifft``, the rotation, bin-major.
+
+``pfb_fine`` is the fine stage after it (``csrc/pfb_fine.cu``): each
+slot's row of bin samples mixed to the slot's offset by the phasor of an
+exact uint32 ramp, one real prototype filter for every slot, and the
+rotation. Its plain version, ``pfb_fine_plain``, is the same float32
+arithmetic in eager PyTorch.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ import functools
 import numpy as np
 import torch
 
+from radiocapture_tpu_torch.ops.channelizer_kernel import complex_z
+from radiocapture_tpu_torch.ops.fir import U32_MASK, rotate
 from radiocapture_tpu_torch.utils import trace
 
 # csrc/pfb_rows.cu's constants that pfb_bins' plan depends on
@@ -368,3 +376,176 @@ def pfb_bins(history: torch.Tensor, x: torch.Tensor, hp2: torch.Tensor
     args, outs = pfb_bins_args(history, x, hp2)
     kernels.launch("pfb_bins", *args)
     return outs
+
+
+# ---- the fine stage: csrc/pfb_fine.cu
+
+# csrc/pfb_fine.cu's constants that the fine stage's plan depends on
+FINE_D = 16          # the decimation it is built for: samples a row
+FINE_O = 15          # outputs a lane group
+FINE_LANES = 4       # lanes a group: each takes 4 of a row's 16 samples
+FINE_WP = 2          # warps a part (real or imaginary) a block
+FINE_MIX = 8         # threads a row in the mixing pass
+FINE_BLOCKS = 3      # blocks an SM holds (its __launch_bounds__)
+FINE_NB = FINE_WP * 32 // FINE_LANES * FINE_O   # outputs a tile
+FINE_RB_MAX = 16     # slot rows a block at most
+# pfb_fine (the kernel, and its plan emulated on the CPU) against
+# pfb_fine_plain and the float64 function, × max|y|: both mix by phasors
+# of float32 angles (float(u)·2π/2^32) and sum in float32 in other orders
+# (5.8e-7 measured against float64 on the CPU)
+FINE_REL = 2e-6
+
+
+def mixer_sigma(fine: torch.Tensor) -> torch.Tensor:
+    """The mixer's uint32 step σ = round(f·2^32) mod 2^32 of each fine
+    offset f (float32, cycles per bin sample), as int64: f·2^32 is exact
+    in float64 and rounds half to even, as the kernel's
+    ``__double2ll_rn`` does."""
+    return torch.round(fine.to(torch.float64) * 4294967296.0).to(
+        torch.int64) & U32_MASK
+
+
+def pfb_fine_plain(x: torch.Tensor, rows: torch.Tensor,
+                   history: torch.Tensor, taps: torch.Tensor,
+                   fine: torch.Tensor, phase0: torch.Tensor,
+                   step: torch.Tensor, d: int) -> torch.Tensor:
+    """Plain PyTorch version of the fine stage, float32.
+
+    x [R, T, 2] the bins (float32, or a bf16 wire: bf16 → float32 is
+    exact), T % d == 0; rows [S] int64, row s's bin; history [S, K-1]
+    complex64; taps [K] float32, the real prototype h; fine [S] float32,
+    each row's offset f; phase0, step [S] int64 uint32 values. Returns y
+    [S, T//d] complex64 with, over z = history ++ x[rows[s]], σ =
+    ``mixer_sigma(f)`` and ``rotate``'s phasors:
+
+        w[m] = z[m] · e^{iα(-σ·m)}
+        y[n] = e^{iα(v)} Σ_k h[K-1-k] · w[n·d + k],
+        v = phase0 + step·n + σ·(n·d + K-1)   (mod 2^32)
+
+    which is ``bank_complex`` of the taps modulated to f (``modulated_
+    taps``) up to the rounding of the modulation's angle: the per-output
+    factor e^{i2πf(n·d + K-1)} folds into the rotation."""
+    k = taps.shape[0]
+    z = complex_z(x[rows], history)                       # [S, L]
+    n = x.shape[1] // d
+    sig = mixer_sigma(fine)[:, None]
+    m = torch.arange(z.shape[1], device=z.device)
+    w = rotate(z, (-sig * m) & U32_MASK)
+    hr = taps.to(torch.float32).flip(0)
+    acc = []
+    for part in (w.real.contiguous(), w.imag.contiguous()):
+        win = part.as_strided((part.shape[0], n, k), (part.stride(0), d, 1))
+        acc.append(torch.matmul(win, hr))                 # [S, n]
+    nn = torch.arange(n, device=z.device)
+    v = (phase0[:, None] + step[:, None] * nn + sig * (nn * d + k - 1)
+         ) & U32_MASK
+    return rotate(torch.complex(*acc), v)
+
+
+def fine_bytes(k: int) -> int:
+    """A block's shared memory at K taps, as ``csrc/pfb_fine.cu``'s
+    ``fine_bytes``, with the Q = ⌈K/D⌉ tap rows rounded up to QP, whole
+    groups of FINE_O: the raw span and the mixed rows (NB + QP - 1 rows of
+    128 bytes each), the QP·D taps, the mixer's row steps and the two
+    parts' sums."""
+    qp = -(-(-(-k // FINE_D)) // FINE_O) * FINE_O
+    rows, rstride = FINE_NB + qp - 1, FINE_WP * 64 // FINE_MIX
+    return (2 * 128 * rows + 4 * qp * FINE_D + 8 * -(-rows // rstride)
+            + 8 * FINE_NB)
+
+
+@functools.cache
+def fine_plan(rows: int, n: int, k: int, sms: int) -> int:
+    """The fine stage's slot rows a block for ``rows`` rows of N outputs
+    at K taps on a card of ``sms`` SMs. A block takes one tile of FINE_NB
+    outputs of rb consecutive rows, one after another, staging a bin's
+    span once for the rows that read it; rb is the most (up to
+    FINE_RB_MAX) that leaves four waves of blocks on the card, so that the
+    runtime's groups of 64 to 256 rows take one row a block and fill it
+    (on an H100 at 256 rows one row a block took 0.0540 ms, three 0.0556;
+    at 8192, 16 rows 1.4196, 8 rows 1.4199, one 1.5599). Raises
+    ValueError where a block's shared memory passes what one can use."""
+    if fine_bytes(k) > SMEM_MAX:
+        raise ValueError(f"pfb_fine: K={k} taps need more shared memory "
+                         f"than a block can use ({SMEM_MAX} bytes)")
+    blocks = rows * -(-n // FINE_NB)
+    return max(1, min(FINE_RB_MAX, blocks // (4 * sms * FINE_BLOCKS)))
+
+
+@functools.cache
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def pfb_fine_args(x: torch.Tensor, rows: torch.Tensor,
+                  history: torch.Tensor, taps: torch.Tensor,
+                  fine: torch.Tensor, phase0: torch.Tensor,
+                  step: torch.Tensor, d: int, rb: int | None = None):
+    """Validate the fine-stage kernel's inputs, plan its launch
+    (``fine_plan``, or ``rb`` rows a block) and allocate its output: (the
+    arguments of the C entry point ``pfb_fine_launch``, y [S, T//d]
+    complex64). Raises ValueError on what the kernel does not take:
+    another dtype or shape, d ≠ FINE_D, an even tap count, a
+    non-contiguous or misaligned tensor (the bulk copies read whole
+    16-byte spans of history and bins), tensors on different devices, or
+    tensors off the card. The values of ``rows`` are not checked: that
+    would sync with the host."""
+    if (x.dtype != torch.float32 or x.dim() != 3 or x.shape[-1] != 2
+            or not x.is_contiguous() or x.data_ptr() % 16):
+        raise ValueError(f"pfb_fine: x must be contiguous 16-byte aligned "
+                         f"[R, T, 2] float32 bins, got {x.dtype} "
+                         f"{tuple(x.shape)} (contiguous: "
+                         f"{x.is_contiguous()})")
+    t = x.shape[1]
+    k = taps.shape[0] if taps.dim() == 1 else -1
+    if d != FINE_D or t % d or k % 2 == 0:
+        raise ValueError(f"pfb_fine: the kernel takes D = {FINE_D}, T % D "
+                         f"== 0 and an odd tap count, got D = {d}, T = {t}, "
+                         f"K = {k}")
+    s = rows.shape[0] if rows.dim() == 1 else -1
+    for name, v, dt, shape in (
+            ("rows", rows, torch.int64, (s,)),
+            ("history", history, torch.complex64, (s, k - 1)),
+            ("taps", taps, torch.float32, (k,)),
+            ("fine", fine, torch.float32, (s,)),
+            ("phase0", phase0, torch.int64, (s,)),
+            ("step", step, torch.int64, (s,))):
+        if (v.device != x.device or v.dtype != dt
+                or tuple(v.shape) != shape or not v.is_contiguous()):
+            raise ValueError(f"pfb_fine: {name} must be a contiguous {dt} "
+                             f"tensor of shape {shape} on {x.device}, got "
+                             f"{v.dtype} {tuple(v.shape)} on {v.device}")
+    if history.data_ptr() % 16:
+        raise ValueError("pfb_fine: history must be 16-byte aligned")
+    if x.device.type != "cuda":
+        raise ValueError(f"pfb_fine: the kernel takes CUDA tensors, got "
+                         f"{x.device}")
+    n = t // d
+    rb = rb or fine_plan(s, n, k, _sms(x.device))
+    y = torch.empty((s, n), dtype=torch.complex64, device=x.device)
+    args = (x.data_ptr(), rows.data_ptr(), history.data_ptr(),
+            taps.data_ptr(), fine.data_ptr(), phase0.data_ptr(),
+            step.data_ptr(), y.data_ptr(), s, t, n, k, rb,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    return args, y
+
+
+def pfb_fine(x: torch.Tensor, rows: torch.Tensor, history: torch.Tensor,
+             taps: torch.Tensor, fine: torch.Tensor, phase0: torch.Tensor,
+             step: torch.Tensor, d: int) -> torch.Tensor:
+    """The pfb fine stage on one block: ``pfb_fine_plain`` on CPU tensors,
+    one launch of the CUDA kernel ``csrc/pfb_fine.cu`` on CUDA tensors,
+    which reads the bins (through ``rows``) and the history in place;
+    what it does not take raises (``pfb_fine_args``). Returns y [S, T//d]
+    complex64 (the operands as ``pfb_fine_plain`` takes them).
+
+    Bound by float32 FMAs: the real-tap filter's 2 FMAs a tap for each
+    output and part, 3.83e10 FLOP at the bench shape (8192 rows × 2500
+    outputs × 467 taps, 0.571 ms at 67 TFLOP/s), where the modulated
+    taps took 4; the mixing about 8 FLOP a staged sample more."""
+    if x.device.type == "cpu":
+        return pfb_fine_plain(x, rows, history, taps, fine, phase0, step, d)
+    from radiocapture_tpu_torch import kernels
+    args, y = pfb_fine_args(x, rows, history, taps, fine, phase0, step, d)
+    kernels.launch("pfb_fine", *args)
+    return y

@@ -77,6 +77,18 @@ pfb``'s), and counts the outputs that are bit-identical::
         xlat_complex_narrow \
         radiocapture_tpu_torch/tools/xlat_complex_2cf31c4.cu
 
+``--kernel pfb_fine`` (no source): the pfb fine stage as the step runs
+it, ``pfb_fine`` (``csrc/pfb_fine.cu``: the mixer and the real-tap
+filter), in turns with the form it replaced, the complex bank's narrow
+plan (``bank_complex`` of the modulated taps, built once outside the
+timing) on the same operands (``fine_bench_operands``), both reading the
+bins in place through the row index, at all 8192 rows and at the first
+256 and 64 (the runtime's groups); gives the largest difference between
+their outputs over max|y| (not bit for bit: the modulation rounds
+apart)::
+
+    python3 -m radiocapture_tpu_torch.tools.track_turns --kernel pfb_fine
+
 ``--kernel pfb_bins``: the other source must export ``pfb_bins_launch``
 with the signature of commit ef6af1a (the direct [M, M] table, no
 factors: ``BINS_DIRECT_SIGNATURE``), driven with the direct table's plan;
@@ -129,6 +141,7 @@ from radiocapture_tpu_torch.ops import channelizer_kernel as ck
 from radiocapture_tpu_torch.ops import fm
 from radiocapture_tpu_torch.ops import fm_kernel as fk
 from radiocapture_tpu_torch.ops import pfb_kernel as pk
+from radiocapture_tpu_torch.ops.channelizer import modulated_taps
 from radiocapture_tpu_torch.ops.fir import phase_step_u32
 
 SOURCES, SLOTS, BLOCK, SAMP_RATE = 128, 64, 240_000, 2.4e6
@@ -531,21 +544,14 @@ def complex_general_operands(dev, shape: str):
     (128 sources × 64 slots, K = 1440, D = 96, the 100 ms block and the
     sym-filter halo before it, a random-normal float32 block and history,
     random phases) or ``pfb``, the pfb fine stage's 8192 one-slot rows
-    from ``PfbXlatBank.fine_operands`` after two steps of a random-normal
-    bf16 block: the 768 bin rows and the row index. Returns (x, history,
+    (``fine_bench_operands``), each slot's prototype modulated to its
+    offset: the 768 bin rows and the row index. Returns (x, history,
     grev, phase0, step, D, rows), rows None at ``mesh``."""
     if shape == "pfb":
-        bank = ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE, frontend="pfb").bank
-        gen = torch.Generator(device=dev).manual_seed(3)
-        x = torch.randn((SOURCES, BLOCK, 2), generator=gen, device=dev).to(
-            torch.bfloat16)
-        offs = grid_offsets(SOURCES, dev)
-        state = bank.init(SOURCES, dev)
-        for _ in range(2):
-            state, _ = bank(state, x, offs)
-        _, xb, rows, hist, grev, phase0, step = bank.fine_operands(
-            state, x, offs)
-        return xb, hist, grev, phase0, step, bank.decim2, rows
+        xb, rows, hist, taps, fine, phase0, step, d = fine_bench_operands(
+            dev)
+        return (xb, hist, modulated_taps(taps, fine[:, None]),
+                phase0[:, None], step[:, None], d, rows)
     if shape != "mesh":
         raise ValueError(f"unknown shape {shape!r}: mesh or pfb")
     pipe = ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE)
@@ -561,6 +567,68 @@ def complex_general_operands(dev, shape: str):
                            device=dev, dtype=torch.int64)
     return (x, hist, bank.modulated_taps(offs).contiguous(), phase0,
             phase_step_u32(offs, d), d, None)
+
+
+def fine_bench_operands(dev):
+    """The pfb fine stage's operands at the bench shape: 128 sources × 64
+    slots = 8192 rows over the 768 bin rows of one 100 ms block, from
+    ``PfbXlatBank.fine_operands`` after two steps of a random-normal bf16
+    block, and the prototype: (bins [768, 40000, 2], rows, history,
+    taps, fine, phase0, step, D)."""
+    bank = ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE, frontend="pfb").bank
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((SOURCES, BLOCK, 2), generator=gen, device=dev).to(
+        torch.bfloat16)
+    offs = grid_offsets(SOURCES, dev)
+    state = bank.init(SOURCES, dev)
+    for _ in range(2):
+        state, _ = bank(state, x, offs)
+    _, xb, rows, hist, fine, phase0, step = bank.fine_operands(state, x,
+                                                               offs)
+    return (xb, rows, hist, bank.device_taps(dev), fine, phase0, step,
+            bank.decim2)
+
+
+def fine_turns(xb: torch.Tensor, rows: torch.Tensor, hist: torch.Tensor,
+               taps: torch.Tensor, fine: torch.Tensor,
+               phase0: torch.Tensor, step: torch.Tensor, d: int,
+               iters: int = ITERS) -> dict:
+    """``pfb_fine`` in turns with the complex bank's narrow plan on the
+    modulated taps (``bank_complex``, the taps built once, untimed) on the
+    same CUDA operands: narrow, fine, fine, narrow after one untimed run
+    of each; the ms, the speedup and the largest difference between their
+    outputs over max|y|."""
+    grev = modulated_taps(taps, fine[:, None])
+    p1, s1 = phase0[:, None], step[:, None]
+
+    def narrow():
+        return ck.bank_complex(xb, hist, grev, p1, s1, d, rows)[:, 0]
+
+    def mixer():
+        return pk.pfb_fine(xb, rows, hist, taps, fine, phase0, step, d)
+
+    for fn in (narrow, mixer):                # the card's clocks up
+        cuda_ms(fn, iters)
+    ms = {"narrow": [], "fine": []}
+    for who, fn in (("narrow", narrow), ("fine", mixer), ("fine", mixer),
+                    ("narrow", narrow)):
+        ms[who].append(cuda_ms(fn, iters))
+    yn, yf = narrow(), mixer()
+    return {"rows": rows.numel(), "outputs": yf.numel(),
+            "narrow_ms": ms["narrow"], "fine_ms": ms["fine"],
+            "speedup": sum(ms["narrow"]) / sum(ms["fine"]),
+            "max_rel_diff": float((yf - yn).abs().max()
+                                  / yn.abs().max())}
+
+
+def main_fine() -> None:
+    xb, rows, hist, taps, fine, phase0, step, d = fine_bench_operands(
+        require_cuda())
+    res = {n: fine_turns(xb, rows[:n], hist[:n], taps, fine[:n],
+                         phase0[:n], step[:n], d)
+           for n in (rows.numel(), 256, 64)}
+    print(card_line())
+    print(json.dumps(res))
 
 
 def grid_offsets(n_sources: int, dev) -> torch.Tensor:
@@ -715,6 +783,8 @@ def main_bins(src: str) -> None:
 
 
 def main(argv: list[str]) -> None:
+    if argv == ["--kernel", "pfb_fine"]:
+        return main_fine()
     if argv[:1] == ["--kernel"] and len(argv) >= 3 and argv[1] in (
             "fsk_track", "fm_voice", "cqpsk_track", "xlat_complex",
             "xlat_complex_narrow", "pfb_bins"):

@@ -1042,20 +1042,17 @@ def test_narrow_plan_matches_2cf31c4(cuda_device, s, r, n, k, c, wire):
     assert track_turns.identical_outputs(got, old) == s * c * n
 
 
-def _bench_pfb_operands(dev, steps: int = 2):
-    """``PfbXlatBank.fine_operands`` at the bench shape (128 sources × 64
-    slots on the 25 kHz grid, one random-normal bf16 100 ms block) after
-    ``steps`` steps, and the bank."""
-    bank = ControlPipeline.p25_c4fm(64, 2.4e6, frontend="pfb").bank
-    gen = torch.Generator(device=dev).manual_seed(3)
-    x = torch.randn((128, 240000, 2), generator=gen, device=dev).to(
-        torch.bfloat16)
-    offs = ((torch.arange(64, device=dev) - 32) * 25e3 / 2.4e6).expand(
-        128, 64).contiguous()
-    state = bank.init(128, dev)
-    for _ in range(steps):
-        state, _ = bank(state, x, offs)
-    return bank, state, x, bank.fine_operands(state, x, offs)
+def _bench_pfb_operands(dev):
+    """The pfb fine stage's operands at the bench shape (128 sources × 64
+    slots on the 25 kHz grid, one random-normal bf16 100 ms block, after
+    two steps; ``track_turns.fine_bench_operands``) as the complex bank
+    takes them: (bins, rows, history, the modulated taps, phase0, step,
+    D)."""
+    from radiocapture_tpu_torch.tools import track_turns
+    xb, rows, hist, taps, fine, phase0, step, d = \
+        track_turns.fine_bench_operands(dev)
+    return (xb, rows, hist, TCH.modulated_taps(taps, fine[:, None]),
+            phase0[:, None], step[:, None], d)
 
 
 @pytest.mark.cuda
@@ -1065,10 +1062,8 @@ def test_pfb_fine_stage_in_place_at_bench_shape(cuda_device):
     the new fine history bit for bit the gathered form's (the bins
     gathered, the kernel and ``complex_history`` on them)."""
     from radiocapture_tpu_torch.tools import track_turns
-    bank, _, _, (_, xb, rows, hist, grev, phase0, step) = \
-        _bench_pfb_operands(cuda_device)
+    xb, rows, hist, grev, phase0, step, d = _bench_pfb_operands(cuda_device)
     assert xb.shape == (768, 40000, 2) and rows.shape == (8192,)
-    d = bank.decim2
     got = ck.bank_complex(xb, hist, grev, phase0, step, d, rows)
     xg = xb[rows]
     want = ck.bank_complex(xg, hist, grev, phase0, step, d)
@@ -1087,9 +1082,7 @@ def test_pfb_fine_narrow_matches_2cf31c4_at_bench_shape(cuda_device):
     fine history through ``row_history`` bit-identical to the gathered
     rows' ``complex_history``."""
     from radiocapture_tpu_torch.tools import track_turns
-    bank, _, _, (_, xb, rows, hist, grev, phase0, step) = \
-        _bench_pfb_operands(cuda_device)
-    d = bank.decim2
+    xb, rows, hist, grev, phase0, step, d = _bench_pfb_operands(cuda_device)
     _poison(grev.shape[:2] + (xb.shape[1] // d,), cuda_device)
     got = ck.bank_complex(xb, hist, grev, phase0, step, d, rows)
     old = _run_2cf31c4(xb, hist, grev, phase0, step, d, rows)
@@ -1097,6 +1090,115 @@ def test_pfb_fine_narrow_matches_2cf31c4_at_bench_shape(cuda_device):
     assert torch.equal(
         torch.view_as_real(TCH.row_history(hist, xb, rows)),
         torch.view_as_real(TCH.complex_history(hist, xb[rows])))
+
+
+def _fine_operands(rng, s, r, n, k, dev, fine=None):
+    """The fine stage's operands on ``dev``: bins x [R, N·16, 2] float32,
+    the row index (the first two rows on one bin), history, the pfb
+    bank's prototype (or random taps at another K), fine offsets (uniform
+    in [-0.5, 0.5] unless given), phase0 and step."""
+    x = torch.as_tensor(rng.standard_normal((r, n * 16, 2)).astype(
+        np.float32), device=dev)
+    rows = torch.as_tensor(rng.integers(0, r, s), device=dev)
+    rows[1] = rows[0]
+    hist = torch.as_tensor(_complex_normal(rng, (s, k - 1)), device=dev)
+    bank = TCH.PfbXlatBank(4, 2.4e6, 12500.0)
+    taps = torch.as_tensor(bank.fine_taps if k == bank.ntaps2 else
+                           (rng.standard_normal(k) / k).astype(np.float32),
+                           device=dev)
+    fine = torch.as_tensor(np.asarray(
+        rng.uniform(-0.5, 0.5, s) if fine is None else fine, np.float32),
+        device=dev)
+    phase0 = torch.as_tensor(rng.integers(0, 2 ** 32, s), device=dev)
+    return x, rows, hist, taps, fine, phase0, phase_step_u32(fine, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rb", [None, 1, 3])
+@pytest.mark.parametrize("s,r,n,k,fine", [
+    (3, 2, 37, 467, None), (5, 4, 1001, 467, None), (3, 2, 5, 467, None),
+    (3, 2, 300, 467, [0.4999, -0.5, 0.5]), (2, 1, 300, 467, [0.0, 1e-7]),
+    (64, 24, 2500, 467, None), (4, 3, 613, 33, None),
+    (3, 2, 700, 401, None)])
+def test_pfb_fine_kernel_matches_plain(cuda_device, s, r, n, k, fine, rb):
+    """``pfb_fine`` on the card (one launch) at the launcher's plan and at
+    one and three rows a block: ragged N, N = 5 < K-1, f at ±0.5 and 0, 64
+    rows of a 100 ms block over 24 bin rows, K = 33 (every tap row in the
+    last group) and 401: within FINE_REL·max|y| of ``pfb_fine_plain``,
+    and within 1e-4·max|y| of the complex bank on the modulated taps (the
+    form it replaced, whose float32 angles round up to 4.9e-5·max|y|
+    apart)."""
+    rng = np.random.default_rng(s + n + k)
+    ops = _fine_operands(rng, s, r, n, k, cuda_device, fine)
+    x, rows, hist, taps, fine, phase0, step = ops
+    before = trace.counter("launch.pfb_fine")
+    if rb is None:
+        got = pk.pfb_fine(*ops, 16)
+        assert trace.counter("launch.pfb_fine") == before + 1
+    else:
+        args, got = pk.pfb_fine_args(*ops, 16, rb=rb)
+        got.fill_(float("nan"))       # an output the kernel skips stays NaN
+        kernels.check(kernels.load().pfb_fine_launch(*args), "pfb_fine")
+    want = pk.pfb_fine_plain(*ops, 16)
+    assert got.shape == (s, n)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= pk.FINE_REL * scale
+    old = ck.bank_complex(x, hist, TCH.modulated_taps(taps, fine[:, None]),
+                          phase0[:, None], step[:, None], 16, rows)[:, 0]
+    assert float((got - old).abs().max()) <= COMPLEX_REL * scale
+
+
+@pytest.mark.cuda
+def test_pfb_fine_at_bench_shape(cuda_device):
+    """The fine stage at 128 × 64 rows of one 100 ms block over the 768
+    bin rows (``track_turns.fine_bench_operands``), at the plan's 16 rows a
+    block and at one: every output finite, within 1e-4·max|y| of the
+    narrow plan on the modulated
+    taps, and the first 64 rows within FINE_REL·max|y| of
+    ``pfb_fine_plain`` (all 8192 would need 38 GB of windows)."""
+    from radiocapture_tpu_torch.tools import track_turns
+    xb, rows, hist, taps, fine, phase0, step, d = \
+        track_turns.fine_bench_operands(cuda_device)
+    old = ck.bank_complex(xb, hist, TCH.modulated_taps(taps, fine[:, None]),
+                          phase0[:, None], step[:, None], d, rows)[:, 0]
+    scale = float(old.abs().max())
+    sub = slice(0, 64)
+    want = pk.pfb_fine_plain(xb, rows[sub], hist[sub], taps, fine[sub],
+                             phase0[sub], step[sub], d)
+    for rb in (None, 1):
+        args, got = pk.pfb_fine_args(xb, rows, hist, taps, fine, phase0,
+                                     step, d, rb=rb)
+        got.fill_(float("nan"))
+        kernels.check(kernels.load().pfb_fine_launch(*args), "pfb_fine")
+        assert bool(torch.isfinite(torch.view_as_real(got)).all())
+        assert float((got - old).abs().max()) <= COMPLEX_REL * scale
+        assert float((got[sub] - want).abs().max()) <= pk.FINE_REL * float(
+            want.abs().max())
+
+
+@pytest.mark.cuda
+def test_pfb_step_launches_the_mixer(cuda_device):
+    """One ``PfbXlatBank`` step on the card launches ``pfb_bins`` and
+    ``pfb_fine`` once each and the complex bank not at all, and
+    ``pfb_fine`` refuses bins it cannot read whole (bf16, off 16 bytes)
+    and operands off the card."""
+    bank = TCH.PfbXlatBank(4, 2.4e6, 12500.0)
+    st = bank.init(2, cuda_device)
+    x = torch.zeros((2, 16 * bank.decim, 2), device=cuda_device)
+    offs = torch.full((2, 4), 0.01, device=cuda_device)
+    names = ("pfb_bins", "pfb_fine", "xlat_complex")
+    before = [trace.counter(f"launch.{k}") for k in names]
+    bank(st, x, offs)
+    assert [trace.counter(f"launch.{k}") - b
+            for k, b in zip(names, before)] == [1, 1, 0]
+    rng = np.random.default_rng(7)
+    ops = _fine_operands(rng, 3, 2, 10, 47, cuda_device)
+    with pytest.raises(ValueError, match="float32 bins"):
+        pk.pfb_fine(ops[0].bfloat16(), *ops[1:], 16)
+    with pytest.raises(ValueError, match="float32 bins"):
+        pk.pfb_fine(ops[0].view(-1)[2:-2].view(2, 159, 2), *ops[1:], 16)
+    with pytest.raises(ValueError, match="rows must be"):
+        pk.pfb_fine(ops[0], ops[1].cpu(), *ops[2:], 16)
 
 
 @pytest.mark.cuda
@@ -1144,8 +1246,10 @@ def test_pfb_bank_routing_on_card_matches_cpu(cuda_device):
     256 < K2-1 and 1024 bin samples) through the routing cases of
     ``tests/test_torch_pfb_bins.py``: bins 5, 5, 0, 2 and all on bin 1,
     two slots retuned to other bins before the last block. The channels
-    within 1e-4·max|y|, the phase equal, the fine history within 1e-5 of
-    the CPU's (cuFFT and the CPU's FFT round the bins apart)."""
+    within 1e-4·max|y| (the card's fine stage the mixer kernel, the CPU's
+    the modulated taps, whose float32 angles round up to 4.9e-5·max|y|
+    apart from it), the phase equal, the fine history within 1e-5 of the
+    CPU's (the kernel's bins and the CPU's FFT round apart)."""
     bank = TCH.PfbXlatBank(4, 2.4e6, 12500.0)
     offs = (np.array([[-410e3, -395e3, 12.5e3, 790e3],
                       [400e3, 390e3, 410e3, 450e3]]) / 2.4e6).astype(
@@ -1172,8 +1276,9 @@ def test_pfb_bank_routing_on_card_matches_cpu(cuda_device):
 def test_frontend_pipeline_on_card_matches_cpu(cuda_device, frontend, fs):
     """A P25 fixture through ``ControlPipeline.step`` with the pfb or fft
     bank on the card and on the CPU: the banks' channels within
-    1e-4·max|y| (the pfb fine stage on the complex bank kernel), the
-    fixture slot's decisions agree and decode the same grants."""
+    1e-4·max|y| (the pfb fine stage on the mixer kernel, the CPU's on the
+    modulated taps), the fixture slot's decisions agree and decode the
+    same grants."""
     check_card_against_cpu(cuda_device, frontend, fs)
 
 
@@ -1204,13 +1309,15 @@ def check_card_against_cpu(dev0, frontend, fs, fsk4_block=0):
     outs, chans = [], []
     for dev in (dev0, torch.device("cpu")):
         st = pipe.bank.init(1, dev)
-        before = (trace.counter("launch.xlat_complex"),
-                  trace.counter("launch.pfb_bins"))
+        before = (trace.counter("launch.pfb_fine"),
+                  trace.counter("launch.pfb_bins"),
+                  trace.counter("launch.xlat_complex"))
         _, y = pipe.bank(st, x[:, :bm].to(dev), offs.to(dev))
         if frontend == "pfb" and dev.type == "cuda":
-            assert (trace.counter("launch.xlat_complex"),
-                    trace.counter("launch.pfb_bins")) == (before[0] + 1,
-                                                          before[1] + 1)
+            assert (trace.counter("launch.pfb_fine"),
+                    trace.counter("launch.pfb_bins"),
+                    trace.counter("launch.xlat_complex")) == (
+                        before[0] + 1, before[1] + 1, before[2])
         chans.append(y.cpu())
         st = pipe.init(1, dev)
         got = []

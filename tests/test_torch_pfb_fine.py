@@ -1,0 +1,363 @@
+"""The pfb fine stage's mixer form (``ops/pfb_kernel.py``: ``pfb_fine``,
+``csrc/pfb_fine.cu``) on the CPU.
+
+- ``pfb_fine_plain`` against the modulated-taps form it replaces on the
+  card (``bank_complex_plain`` of ``modulated_taps``) within COMPLEX_REL
+  and against a float64 evaluation of the same function within FINE_REL:
+  f near ±0.5, f = 0, |f| < 2^-9, a block shorter than K-1, several
+  slots a bin through the row index;
+- ``PfbXlatBank``'s carried fine history and phase bit for bit what the
+  modulated-taps step carried;
+- the kernel's plan emulated in numpy at the constants it is built with
+  (read from the ``.cu``): the staged rows of D samples all inside
+  history ++ bin, the in-place mixing eight threads a row (a base phasor
+  times a row step), the real and imaginary halves swapped on odd rows,
+  each lane's register window of O rows of four planes walked a tap row
+  at a time, four lanes' partial sums met, the parts met and rotated
+  once; every output written once, within FINE_REL of the plain
+  version;
+- the launcher's plan (``fine_plan``) filling an H100 at 8192, 256 and 64
+  rows, with the blocks' shared memory in budget;
+- ``pfb_fine_args`` refusing what the kernel does not take."""
+
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from radiocapture_tpu_torch import kernels
+from radiocapture_tpu_torch.ops import channelizer as TC
+from radiocapture_tpu_torch.ops import channelizer_kernel as ck
+from radiocapture_tpu_torch.ops import pfb_kernel as pk
+from radiocapture_tpu_torch.ops.fir import U32_MASK, phase_step_u32
+
+torch.set_num_threads(1)   # six test workers share the machine
+
+_SRC = (kernels.CSRC / "pfb_fine.cu").read_text()
+
+
+def _const(name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+);", _SRC).group(1))
+
+
+O, D, MIX = _const("FINE_O"), _const("FINE_D"), _const("MIX_THREADS")
+LANES = D // _const("PLANES")
+K2 = 467                  # PfbXlatBank's fine prototype at 400 kHz bins
+H100_SMS = 132
+# The modulated-taps form rounds each tap's angle 2πf·k in float32, up to
+# half an ulp of 2π·0.5·466 ≈ 1464 rad (6e-5 rad): 4.9e-5·max|y| measured
+# near |f| = 0.5, under the complex bank's sum-order bound.
+COMPLEX_REL = 1e-4
+FINE_REL = pk.FINE_REL
+
+
+def _cnormal(rng, shape):
+    return (rng.standard_normal(shape)
+            + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+
+def _operands(rng, s, r, n, k, fine):
+    """Bins x [R, N·D, 2] float32, the row index (the first two rows on
+    one bin), history, the prototype, fine offsets, phase0 and step."""
+    x = torch.from_numpy(rng.standard_normal((r, n * D, 2)).astype(
+        np.float32))
+    rows = torch.as_tensor(rng.integers(0, r, s))
+    rows[1] = rows[0]
+    hist = torch.from_numpy(_cnormal(rng, (s, k - 1)))
+    taps = torch.from_numpy(TC.PfbXlatBank(4, 2.4e6, 12500.0).fine_taps
+                            if k == K2 else
+                            (rng.standard_normal(k) / k).astype(np.float32))
+    fine = torch.as_tensor(np.asarray(fine, np.float32))
+    phase0 = torch.as_tensor(rng.integers(0, 2 ** 32, s))
+    return x, rows, hist, taps, fine, phase0, phase_step_u32(fine, D)
+
+
+def _float64(x, rows, hist, taps, fine, phase0, step):
+    """The fine stage in float64: the prototype modulated exactly."""
+    z = ck.complex_z(x[rows], hist).numpy().astype(np.complex128)
+    k, n = taps.shape[0], x.shape[1] // D
+    kk = np.arange(k)
+    g = (taps.numpy().astype(np.float64)
+         * np.exp(2j * np.pi * fine.numpy().astype(np.float64)[:, None]
+                  * kk))[:, ::-1]
+    win = np.stack([z[:, i * D:i * D + k] for i in range(n)], 1)
+    u = (phase0.numpy()[:, None] + step.numpy()[:, None] * np.arange(n)) \
+        % 2 ** 32
+    return (win * g[:, None, :]).sum(-1) * np.exp(2j * np.pi * u / 2 ** 32)
+
+
+CASES = {   # (rows, bin rows, outputs, taps, fine offsets)
+    "near_half": (3, 2, 200, K2, [0.4999, -0.5, 0.5]),
+    "zero": (2, 2, 150, K2, [0.0, 0.0]),
+    "small": (3, 2, 150, K2, [2.0 ** -10, -3e-4, 1e-7]),
+    "short_block": (3, 2, 5, K2, [0.3, -0.21, 0.0]),
+    "slots_a_bin": (7, 3, 120, K2, [0.31, -0.12, 0.44, 0.0, -0.49, 0.05,
+                                    0.27]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_matches_modulated_taps(case):
+    """``pfb_fine_plain`` against ``bank_complex_plain`` on the modulated
+    taps (the rows gathered) within COMPLEX_REL·max|y|, and against the
+    float64 function within FINE_REL·max|y|: the mixer form is the
+    modulated form up to the rounding of the modulation's angle, which
+    the float64 comparison shows is the modulated taps'."""
+    s, r, n, k, fine = CASES[case]
+    rng = np.random.default_rng(s + n)
+    x, rows, hist, taps, fine, phase0, step = _operands(rng, s, r, n, k,
+                                                        fine)
+    y = pk.pfb_fine_plain(x, rows, hist, taps, fine, phase0, step, D)
+    assert y.shape == (s, n) and y.dtype == torch.complex64
+    want = ck.bank_complex_plain(
+        ck.complex_z(x[rows], hist), TC.modulated_taps(taps, fine[:, None]),
+        phase0[:, None], step[:, None], n, D)[:, 0]
+    exact = _float64(x, rows, hist, taps, fine, phase0, step)
+    scale = float(np.abs(exact).max())
+    assert float((y - want).abs().max()) <= COMPLEX_REL * scale
+    assert float(np.abs(y.numpy() - exact).max()) <= FINE_REL * scale
+
+
+def test_mixer_sigma_rounds_half_to_even():
+    """σ = round(f·2^32) mod 2^32: f = ±0.5 give 2^31, a negative f wraps,
+    and a half-integer f·2^32 rounds to even."""
+    f = torch.tensor([0.5, -0.5, 0.0, -2.0 ** -32, 2.0 ** -33,
+                      3 * 2.0 ** -33, 0.25], dtype=torch.float32)
+    assert pk.mixer_sigma(f).tolist() == [
+        2 ** 31, 2 ** 31, 0, 2 ** 32 - 1, 0, 2, 2 ** 30]
+
+
+@pytest.mark.parametrize("n_bin", [1024, 256])
+def test_bank_carries_history_and_phase_bit_for_bit(n_bin):
+    """``PfbXlatBank`` over two blocks of ``n_bin`` bin samples (256 <
+    K2-1): the new fine history is ``complex_history`` of each slot's
+    gathered bin, the new phase phase0 + step·N mod 2^32, bit for bit;
+    ``fine_operands`` hands the kernel each slot's fine offset, not its
+    modulated taps."""
+    bank = TC.PfbXlatBank(4, 2.4e6, 12500.0)
+    offs = torch.tensor([[-410e3, -395e3, 12.5e3, 790e3],
+                         [400e3, 390e3, 410e3, 450e3]]) / 2.4e6
+    rng = np.random.default_rng(n_bin)
+    st = bank.init(2, "cpu")
+    for _ in range(2):
+        x = torch.from_numpy(_cnormal(rng, (2, n_bin * bank.m)))
+        _, xb, rows, hist, fine, phase0, step = bank.fine_operands(st, x,
+                                                                   offs)
+        assert fine.shape == rows.shape == phase0.shape == (8,)
+        assert torch.equal(fine, bank.route(offs)[1].reshape(-1))
+        st, y = bank(st, x, offs)
+        assert y.shape == (2, 4, n_bin // D)
+        n = n_bin // D
+        assert torch.equal(
+            torch.view_as_real(st.fine.history.reshape(8, -1)),
+            torch.view_as_real(TC.complex_history(hist, xb[rows])))
+        assert torch.equal(st.fine.phase.reshape(-1),
+                           (phase0 + step * n) & U32_MASK)
+
+
+def _cis(u):
+    """``cis``: (cos, sin) of float32(u) · float32(2π/2^32), complex64."""
+    a = u.astype(np.uint32).astype(np.float32) * np.float32(2 * np.pi
+                                                            / 2 ** 32)
+    return (np.cos(a) + 1j * np.sin(a)).astype(np.complex64)
+
+
+def _chunk(m, p, h):
+    """``chunk``: the physical 16-byte chunk of row m's part p, planes
+    4h .. 4h+3 (the halves swapped on odd rows)."""
+    return 4 * (p ^ (m & 1)) + h
+
+
+def _stage(z, z0, nrows):
+    """A row's staged span: samples [z0, z0 + D·nrows) of history ++ bin
+    as rows of D interleaved samples, every row inside z."""
+    assert z0 + D * nrows <= z.shape[0]
+    return z[z0:z0 + D * nrows].view(np.float32).reshape(nrows, 2 * D)
+
+
+def _emulate(x, rows, hist, taps, fine, phase0, step, rb):
+    """The kernel's plan in numpy, block by block (one tile of NB outputs
+    of rb consecutive rows each, row by row), thread by thread; float32
+    arithmetic in its order up to the FMAs' single rounding. A row's span
+    keeps the bin part of the row before it where both read one bin, and
+    takes its own history part; shared memory a block did not write reads
+    NaN. Returns (y, how often each output was written)."""
+    s_n, t = rows.shape[0], x.shape[1]
+    n, k = t // D, taps.shape[0]
+    q_n = -(-(-(-k // D)) // O) * O        # whole groups of O tap rows
+    nb, nt = pk.FINE_NB, pk.FINE_WP * 64
+    rstride = nt // MIX
+    sig = pk.mixer_sigma(fine).numpy().astype(np.uint32)
+    xc = torch.view_as_complex(x).numpy()
+    tp = np.zeros(q_n * D, np.float32)
+    tp[:k] = taps.numpy()[::-1]
+    y = np.full((s_n, n), np.nan, np.complex64)
+    writes = np.zeros((s_n, n), np.int64)
+    tid = np.arange(nt)
+    c, r0 = tid % MIX, tid // MIX
+    warp, lane = tid // 32, tid % 32
+    part = warp // pk.FINE_WP
+    g, h = lane // LANES, lane % LANES
+    wbase = (warp - part * pk.FINE_WP) * (32 // LANES) * O
+    base = wbase + g * O
+    for s0 in range(0, s_n, rb):
+        for n0 in range(0, n, nb):
+            count = min(nb, n - n0)
+            nrows = count + -(-k // D) - 1           # staged
+            rowsp = count + q_n - 1                  # and zero rows
+            z0 = n0 * D
+            hn = max(0, min(k - 1 - z0, D * nrows))
+            raw = np.full((nb + q_n - 1, 2 * D), np.nan, np.float32)
+            mixed = np.full_like(raw, np.nan)
+            staged = None
+            for s in range(s0, min(s0 + rb, s_n)):
+                z = np.concatenate([hist[s].numpy(), xc[rows[s]]])
+                own = _stage(z, z0, nrows)
+                flat = raw[:nrows].reshape(-1, 2)          # [samples, 2]
+                if rows[s] != staged:
+                    raw[:nrows] = own
+                    staged = rows[s]
+                elif hn:
+                    flat[:hn] = own.reshape(-1, 2)[:hn]
+                assert np.array_equal(raw[:nrows].view(np.uint32),
+                                      own.view(np.uint32))
+                sg = np.uint32(sig[s])
+                steps = -(-rowsp // rstride)
+                with np.errstate(over="ignore"):
+                    ek = _cis(np.uint32(0) - sg * (np.arange(
+                        steps, dtype=np.uint32) * np.uint32(D * rstride)))
+                    u0 = (np.uint32(0) - sg * (z0 + D * r0 + 2 * c).astype(
+                        np.uint32))
+                    ph = np.stack([_cis(u0), _cis(u0 - sg)], 1)  # [nt, 2]
+                m2 = mixed.reshape(-1, 16, 2)                     # a view
+                for kk in range(steps):
+                    r = r0 + kk * rstride
+                    live = r < rowsp
+                    rl, cl = r[live], c[live]
+                    zc = raw.reshape(-1, 8, 4)[rl, cl]
+                    zs = (zc[:, 0::2] + 1j * zc[:, 1::2]).astype(np.complex64)
+                    with np.errstate(invalid="ignore"):
+                        w = (zs * (ph[live] * ek[kk]).astype(np.complex64)
+                             ).astype(np.complex64)
+                    w[rl >= nrows] = 0
+                    for p, vals in ((0, w.real), (1, w.imag)):
+                        m2[rl, 2 * _chunk(rl, p, cl >> 1) + (cl & 1)] = vals
+                active = wbase < count
+                acc = np.zeros((nt, O), np.float32)
+                win = [None] * O
+
+                def load(m, slot):
+                    assert slot == m % O
+                    rr = base + m
+                    win[slot] = (m, mixed.reshape(-1, 8, 4)[
+                        rr, _chunk(rr, part, h)])                 # [nt, 4]
+
+                with np.errstate(invalid="ignore"):
+                    for m in range(O - 1):
+                        load(m, m)
+                    for q in range(0, q_n, O):
+                        for u in range(O):
+                            load(q + u + O - 1, (u + O - 1) % O)
+                            tv = tp.reshape(-1, LANES, 4)[q + u, h]
+                            for j in range(4):
+                                for r in range(O):
+                                    row, wv = win[(u + r) % O]
+                                    assert row == q + u + r
+                                    acc[:, r] = acc[:, r] + tv[:, j] * wv[
+                                        :, j]
+                    grp = acc.reshape(nt // LANES, LANES, O)
+                    acc = np.repeat(((grp[:, 0] + grp[:, 1])
+                                     + (grp[:, 2] + grp[:, 3]))[:, None],
+                                    LANES, 1).reshape(nt, O)
+                out = np.full((2, nb), np.nan, np.float32)
+                for r in range(O):
+                    wr = active & (r % LANES == h)
+                    out[part[wr], base[wr] + r] = acc[wr, r]
+                i = np.arange(count)
+                nn = (n0 + i).astype(np.uint32)
+                with np.errstate(over="ignore"):
+                    v = (np.uint32(phase0[s]) + np.uint32(step[s]) * nn
+                         + sg * (nn * np.uint32(D) + np.uint32(k - 1)))
+                y[s, n0 + i] = (out[0, i] + 1j * out[1, i]).astype(
+                    np.complex64) * _cis(v)
+                writes[s, n0 + i] += 1
+    return y, writes
+
+
+@pytest.mark.parametrize("rb,s,r,n,k", [
+    (1, 3, 2, 600, K2), (3, 5, 2, 300, K2), (4, 4, 3, 5, K2),
+    (2, 3, 2, 300, 33), (3, 3, 2, 200, 47), (1, 2, 2, 100, 641)])
+def test_kernel_plan_matches_plain(rb, s, r, n, k):
+    """The kernel's plan at one to four rows a block (the rows' bins
+    repeating and changing, the last block short): ragged last tiles (the
+    bench's 2500 outputs end that way too), a block of 5 outputs (its
+    span all but 3 rows in the history, taken anew for each row of a
+    bin), K = 33 and 47 (three tap rows, the last part-filled, padded
+    with zero taps and zero rows to a group of O) and K = 641 (41 tap
+    rows: two whole groups of O, then one padded). Every
+    output written once and finite, within FINE_REL·max|y| of
+    ``pfb_fine_plain``."""
+    rng = np.random.default_rng(rb + s + n + k)
+    fine = rng.uniform(-0.5, 0.5, s)
+    x, rows, hist, taps, fine, phase0, step = _operands(rng, s, r, n, k,
+                                                        fine)
+    got, writes = _emulate(x, rows, hist, taps, fine, phase0.numpy(),
+                           step.numpy(), rb)
+    assert (writes == 1).all() and np.isfinite(got).all()
+    want = pk.pfb_fine_plain(x, rows, hist, taps, fine, phase0, step,
+                             D).numpy()
+    assert np.abs(got - want).max() <= FINE_REL * np.abs(want).max()
+
+
+def test_kernel_constants_match_the_plan():
+    """The plan's constants are the kernel's: D, O, the lanes of a group,
+    the warps a part, the mixing pass's threads a row and the blocks an
+    SM its ``__launch_bounds__`` ask for."""
+    assert (pk.FINE_D, pk.FINE_O, pk.FINE_LANES, pk.FINE_MIX) == (
+        D, O, LANES, MIX)
+    assert (pk.FINE_WP, pk.FINE_BLOCKS) == (_const("FINE_WP"),
+                                            _const("FINE_BLOCKS"))
+
+
+@pytest.mark.parametrize("rows,rb", [(8192, 16), (256, 1), (64, 1)])
+def test_plan_fills_the_card(rows, rb):
+    """At the bench's 8192 slot rows and the runtime's groups of 256 and
+    64, 2500 outputs a row: the rows a block (16 at the bench, where a
+    bin's span serves the slots that share it; one for the groups) leave
+    at least one full wave of blocks on an H100, and the blocks an
+    SM holds fit its shared memory together."""
+    assert pk.fine_plan(rows, 2500, K2, H100_SMS) == rb
+    blocks = -(-rows // rb) * -(-2500 // pk.FINE_NB)
+    assert blocks >= H100_SMS * pk.FINE_BLOCKS
+    smem = pk.fine_bytes(K2)
+    assert smem <= pk.SMEM_MAX
+    assert pk.FINE_BLOCKS * (smem + pk.BLOCK_RESERVED) <= pk.SM_SHARED
+
+
+def test_fine_args_refusals():
+    """``pfb_fine_args`` refuses bf16 or misshapen bins, D ≠ 16, an even
+    tap count, operands of the wrong dtype or shape, and valid operands
+    off the card."""
+    s, r, n, k = 3, 2, 10, 47
+    x = torch.zeros((r, n * D, 2))
+    rows = torch.zeros(s, dtype=torch.int64)
+    hist = torch.zeros((s, k - 1), dtype=torch.complex64)
+    taps = torch.zeros(k)
+    fine = torch.zeros(s)
+    ph = torch.zeros(s, dtype=torch.int64)
+    good = (x, rows, hist, taps, fine, ph, ph)
+
+    def refuse(args, d=D, match="pfb_fine"):
+        with pytest.raises(ValueError, match=match):
+            pk.pfb_fine_args(*args, d)
+
+    refuse((x.bfloat16(),) + good[1:], match="float32 bins")
+    refuse((x[:, :, :1],) + good[1:], match="float32 bins")
+    refuse(good, d=8, match="D = 16")
+    refuse(good[:3] + (torch.zeros(k + 1),) + good[4:], match="odd tap")
+    refuse(good[:1] + (rows.int(),) + good[2:], match="rows must be")
+    refuse(good[:2] + (hist[:, :-1],) + good[3:], match="history must be")
+    refuse(good[:4] + (fine.double(),) + good[5:], match="fine must be")
+    refuse(good[:5] + (ph[:2],) + good[6:], match="phase0 must be")
+    refuse(good, match="the kernel takes CUDA")
