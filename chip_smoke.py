@@ -62,24 +62,18 @@ paths, the scan slice, live SDR ingest and the mesh steps.
    each slot's bin mixed to its offset and filtered by the one real
    K2 = 467-tap prototype, each row reading its slot's bin in place from
    the bin-major bins through a row index) against ``pfb_fine_plain``
-   within ``FINE_REL`` and against the complex bank's narrow plan on the
+   within ``FINE_REL`` and against the complex bank on the gathered rows'
    modulated taps within COMPLEX_REL_TOL (``pfb fine kernel:``), with the
    bins within ``BINS_REL`` of the time-major rows transposed (``pfb
    bins:``), timed at 8192 rows beside its bound and a grouped
-   ``conv1d`` (``pfb fine bank:``) and in turns with the narrow plan at
-   8192, 256 and 64 rows (``pfb fine turns:``); the narrow plan, kept as
-   its yardstick, in turns with the gathered form
-   (``pfb narrow turns:``; every output and the new
-   fine history must be bit-identical), with the general path it
-   replaced (``complex general turns: pfb fine``; bit-identical to
-   ``tools/xlat_complex_54b2cf5.cu``'s) and with the plan before its
-   redesign (``pfb fine narrow turns:``, ``tools/xlat_complex_2cf31c4.cu``
-   in turns, every output and the new fine history bit-identical), both
-   modes' step at 128 sources (``bench pfb:``, ``bench fft:``; fft's
-   block is 390336 samples, 162.6 ms; the pfb profile may run no
-   ``cat``, no ``addcmul_``, no gather, no cuFFT, no complex multiply, no
-   ``pfb_rows`` and no kernel P-1 times a step), the pfb step again at the live config's 10 MS/s
-   sources (M = 25, 128 sources × 100 ms, ``bench pfb 10 MS/s:``) with
+   ``conv1d`` (``pfb fine bank:``), the new fine history read through
+   the row index bit-identical to the gathered rows' (``pfb fine
+   history:``), both modes' step at 128 sources (``bench pfb:``,
+   ``bench fft:``; fft's block is 390336 samples, 162.6 ms; the pfb
+   profile may run no ``cat``, no ``addcmul_``, no gather, no cuFFT, no
+   complex multiply, no ``pfb_rows`` and no kernel P-1 times a step),
+   the pfb step again at the live config's 10 MS/s sources (M = 25,
+   128 sources × 100 ms, ``bench pfb 10 MS/s:``) with
    ``pfb_bins``' share of it and in turns with the same step on commit
    ef6af1a's ``pfb_bins``, and
    the step with ``fsk4_block = 10`` against the tracker kernel's
@@ -1080,16 +1074,14 @@ def check_complex_bank(got, want, what: str) -> float:
     return err
 
 
-def general_turns(what: str, x, hist, grev, phase0, step, d,
-                  rows=None) -> dict:
+def general_turns(what: str, x, hist, grev, phase0, step, d) -> dict:
     """``complex general turns:``: the general path in turns with the one
     it replaced (``tools/xlat_complex_54b2cf5.cu``, the same loop) on the
-    same complex64 values (with ``rows``, the package's through the row
-    index, the other's on the gathered rows), old, new, new, old; fails
-    unless every output is bit-identical."""
+    same complex64 values, old, new, new, old; fails unless every output
+    is bit-identical."""
     from radiocapture_tpu_torch.tools import track_turns
     t = track_turns.complex_turns(track_turns.EARLIER_COMPLEX, x, hist,
-                                  grev, phase0, step, d, rows, iters=3,
+                                  grev, phase0, step, d, iters=3,
                                   pairings=("kernel",))
     old = Path(t["other"]).name
     res = {"shape": t["shape"], "other_ms": t["kernel_other_ms"],
@@ -1921,99 +1913,6 @@ def pfb_bins_check(pfb, state, x) -> dict:
     return res
 
 
-def pfb_fine_turns(xb, rows, hist, grev, phase0, step, d) -> dict:
-    """``pfb narrow turns:`` the narrow plan at the fine stage's shape as
-    the step ran it before the row index (the bins gathered into an
-    [S·C, T/M, 2] block, the kernel on it, the new history from it) in
-    turns with the in-place form (the kernel through the row index,
-    ``row_history``): gathered, in place, in place, gathered; fails unless
-    every output and every new fine history sample are bit-identical."""
-    from radiocapture_tpu_torch.ops import channelizer as chz
-    from radiocapture_tpu_torch.ops import channelizer_kernel as ck
-    from radiocapture_tpu_torch.tools.track_turns import identical_outputs
-
-    def gathered():
-        xg = xb[rows]
-        return (ck.bank_complex(xg, hist, grev, phase0, step, d),
-                chz.complex_history(hist, xg))
-
-    def in_place():
-        return (ck.bank_complex(xb, hist, grev, phase0, step, d, rows),
-                chz.row_history(hist, xb, rows))
-
-    res = turns(gathered, in_place, 5)
-    # the kernel alone on the gathered rows: what the row index's reads
-    # cost against contiguous rows, apart from the gather
-    xg = xb[rows]
-    res["gathered_kernel_ms"] = cuda_ms(
-        lambda: ck.bank_complex(xg, hist, grev, phase0, step, d), 5)
-    del xg
-    (yg, hg), (yi, hi) = gathered(), in_place()
-    res.update({"identical_outputs": identical_outputs(yi, yg),
-                "outputs": yi.numel(),
-                "identical_history": identical_outputs(hi, hg),
-                "history": hi.numel()})
-    ok = (res["identical_outputs"] == res["outputs"]
-          and res["identical_history"] == res["history"])
-    log(f"pfb narrow turns: {rows.numel()} rows over {xb.shape[0]} bin rows: "
-        f"gathered {res['plain_turns_ms'][0]:.4f}, in place "
-        f"{res['kernel_turns_ms'][0]:.4f}, {res['kernel_turns_ms'][1]:.4f}, "
-        f"gathered {res['plain_turns_ms'][1]:.4f} ms ({res['speedup']:.2f}x), "
-        f"the kernel alone on the gathered rows "
-        f"{res['gathered_kernel_ms']:.4f} ms; "
-        f"bit-identical outputs {res['identical_outputs']} of "
-        f"{res['outputs']}, new fine history {res['identical_history']} of "
-        f"{res['history']} {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("pfb narrow turns: the in-place narrow plan "
-                             "differs from the gathered one")
-    return res
-
-
-def pfb_fine_narrow_turns(xb, rows, hist, grev, phase0, step, d) -> dict:
-    """``pfb fine narrow turns:`` the narrow plan in turns with the one it
-    replaced (``tools/xlat_complex_2cf31c4.cu``, built with the package's
-    flags) on the fine stage's operands, both reading the bins in place
-    through the row index: old, new, new, old, at the bench's 8192 rows
-    and at the runtime's groups of 64 and 256 rows (the first rows of the
-    bench's, one and four sources' slots: a 10 MS/s source alone and
-    ``decode pfb``'s group, 2500 outputs a row at every rate); fails
-    unless every output is bit-identical, and unless the new fine history
-    (``row_history``) is the gathered rows' ``complex_history`` bit for
-    bit. Returns the bench's turns, with the groups' under ``groups``."""
-    from radiocapture_tpu_torch.ops import channelizer as chz
-    from radiocapture_tpu_torch.tools import track_turns
-    turns = {}
-    for nrows in (rows.numel(), 64, 256):
-        h, g, p0, st, ro = (v[:nrows]
-                            for v in (hist, grev, phase0, step, rows))
-        t = track_turns.narrow_turns(track_turns.EARLIER_NARROW, xb, h, g,
-                                     p0, st, d, ro,
-                                     iters=5 if nrows > 256 else 20)
-        hi = chz.row_history(h, xb, ro)
-        hg = chz.complex_history(h, xb[ro])
-        t["identical_history"] = track_turns.identical_outputs(hi, hg)
-        t["history"] = hi.numel()
-        old = Path(t["other"]).name
-        ok = (t["identical_outputs"] == t["outputs"] == nrows * t["shape"][3]
-              // d and t["identical_history"] == t["history"])
-        log(f"pfb fine narrow turns: {nrows} rows over {xb.shape[0]} bin "
-            f"rows: {old} {t['other_ms'][0]:.4f}, kernel "
-            f"{t['package_ms'][0]:.4f}, {t['package_ms'][1]:.4f}, {old} "
-            f"{t['other_ms'][1]:.4f} ms: {t['speedup']:.2f}x; bit-identical "
-            f"outputs {t['identical_outputs']} of {t['outputs']}, new fine "
-            f"history {t['identical_history']} of {t['history']} "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"pfb fine narrow turns: the narrow plan "
-                                 f"differs from the one it replaced at "
-                                 f"{nrows} rows")
-        turns[nrows] = t
-    res = turns.pop(rows.numel())
-    res["groups"] = turns
-    return res
-
-
 def fine_check(got, want, what: str, rel: float) -> float:
     """The fine stage's outputs against ``want`` within rel·max|want|;
     returns max |err| over max|want|."""
@@ -2033,22 +1932,19 @@ def phase_pfb_fine(dev) -> tuple[dict, float]:
     K2 = 467 taps, D = 16), each row reading its slot's bin in place
     through the row index: small and ragged cases (the index permuted and
     repeated, f at ±0.5 and 0) at one and three rows a block against
-    ``pfb_fine_plain``
-    within ``FINE_REL`` and against the complex bank on the modulated
-    taps (the form it replaced) within COMPLEX_REL_TOL; then at a
-    bench-shape step (128 sources × 64 slots = 8192 rows over 768 bin
-    rows of 40000 samples, ``track_turns.fine_bench_operands``): the bins
-    (``pfb_bins_check``), the kernel on all rows held to the narrow plan
+    ``pfb_fine_plain`` within ``FINE_REL`` and against the complex bank
+    on the gathered rows' modulated taps (the form it replaced) within
+    COMPLEX_REL_TOL; then at a bench-shape step (128 sources × 64 slots
+    = 8192 rows over 768 bin rows of 40000 samples,
+    ``track_turns.fine_bench_operands``): the bins (``pfb_bins_check``),
+    the kernel on all rows held to the complex bank on the gathered rows
     and on the first PFB_ROWS to the plain version, its ms, its bound
     (the filter's 4 FLOP a tap and the mixing's 8 a sample), the plain
-    version's ms on PFB_ROWS rows and one grouped ``conv1d`` yardstick
-    (groups = 8192, the modulated taps, no rotation), and the kernel in
-    turns with the narrow plan at 8192, 256 and 64 rows (``pfb fine
-    turns:``). Then the narrow plan, the yardstick, as before: in turns
-    with the gathered form (``pfb narrow turns:``), with the general path
-    it replaced (``general_turns``) and with the narrow plan before its
-    redesign (``pfb fine narrow turns:``). Returns (numbers, max |err|
-    over max|y| against the plain version)."""
+    version's ms on PFB_ROWS rows, one grouped ``conv1d`` yardstick
+    (groups = 8192, the modulated taps, no rotation) and the new fine
+    history through the row index (``row_history``) against the gathered
+    rows' (``pfb fine history:``, bit-identical). Returns (numbers, max
+    |err| over max|y| against the plain version)."""
     from radiocapture_tpu_torch.ops import channelizer as chz
     from radiocapture_tpu_torch.ops import channelizer_kernel as ck
     from radiocapture_tpu_torch.ops import pfb_kernel as pk
@@ -2077,8 +1973,9 @@ def phase_pfb_fine(dev) -> tuple[dict, float]:
         step = phase_step_u32(fine, d)
         ops = (x, rows, hist, taps, fine, phase0, step)
         want = pk.pfb_fine_plain(*ops, d)
-        old = ck.bank_complex(x, hist, chz.modulated_taps(taps, fine[:, None]),
-                              phase0[:, None], step[:, None], d, rows)[:, 0]
+        old = ck.bank_complex(x[rows], hist,
+                              chz.modulated_taps(taps, fine[:, None]),
+                              phase0[:, None], step[:, None], d)[:, 0]
         for rb in (1, 3):
             args, got = pk.pfb_fine_args(*ops, d, rb=rb)
             got.fill_(float("nan"))
@@ -2087,7 +1984,7 @@ def phase_pfb_fine(dev) -> tuple[dict, float]:
                     f"D={d} rb={rb}")
             worst = max(worst, fine_check(got, want, what + " vs plain",
                                           pk.FINE_REL))
-            fine_check(got, old, what + " vs the narrow plan",
+            fine_check(got, old, what + " vs the modulated taps",
                        COMPLEX_REL_TOL)
 
     xb, rows, hist, taps, fine, phase0, step, d = \
@@ -2102,10 +1999,11 @@ def phase_pfb_fine(dev) -> tuple[dict, float]:
         pk.pfb_fine_args(*ops, d, rb=1)[0]), 10)
     y = pk.pfb_fine(*ops, d)
     grev = chz.modulated_taps(taps, fine[:, None])
-    old = ck.bank_complex(xb, hist, grev, phase0[:, None], step[:, None], d,
-                          rows)[:, 0]
+    xg = xb[rows]
+    old = ck.bank_complex(xg, hist, grev, phase0[:, None], step[:, None],
+                          d)[:, 0]
     fine_check(y, old, f"pfb fine kernel, bench operands, {nrows} rows, vs "
-               f"the narrow plan", COMPLEX_REL_TOL)
+               f"the modulated taps", COMPLEX_REL_TOL)
     sub = slice(0, PFB_ROWS)
     sub_ops = (xb, rows[sub], hist[sub], taps, fine[sub], phase0[sub],
                step[sub])
@@ -2125,7 +2023,7 @@ def phase_pfb_fine(dev) -> tuple[dict, float]:
         flops, F32_PEAK, res["pfb_fine_bytes"])
     # the yardstick: the modulated taps' correlation, re/im the two
     # channels of each row's group, no rotation, so |y| must match
-    z = torch.view_as_real(ck.complex_z(xb[rows], hist))    # [S', L, 2]
+    z = torch.view_as_real(ck.complex_z(xg, hist))          # [S', L, 2]
     inp = z.permute(0, 2, 1).reshape(1, 2 * nrows, -1).contiguous()
     del z
     w = torch.stack([torch.stack([grev.real, -grev.imag], 1),
@@ -2153,28 +2051,19 @@ def phase_pfb_fine(dev) -> tuple[dict, float]:
         f"(grouped conv1d, groups={nrows}, modulated taps, no rotation) "
         f"{res['pfb_fine_library_ms']:.4f} ms, |y| within {mag_err:.3e}; "
         f"plain on {PFB_ROWS} rows {res['pfb_fine_plain_ms_rows']:.3f} ms")
-    res["pfb_fine_turns"] = {}
-    for nr in (nrows, 256, 64):
-        t = track_turns.fine_turns(xb, rows[:nr], hist[:nr], taps, fine[:nr],
-                                   phase0[:nr], step[:nr], d,
-                                   iters=5 if nr > 256 else 20)
-        ok = t["max_rel_diff"] <= COMPLEX_REL_TOL
-        log(f"pfb fine turns: {nr} rows over {xb.shape[0]} bin rows: narrow "
-            f"plan {t['narrow_ms'][0]:.4f}, pfb_fine {t['fine_ms'][0]:.4f}, "
-            f"{t['fine_ms'][1]:.4f}, narrow {t['narrow_ms'][1]:.4f} ms "
-            f"({t['speedup']:.2f}x); max |diff| {t['max_rel_diff']:.3e} of "
-            f"max|y| {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError("pfb fine turns: the kernels disagree")
-        res["pfb_fine_turns"][nr] = t
-    p1, s1 = phase0[:, None], step[:, None]
+    hi = chz.row_history(hist, xb, rows)
+    hg = chz.complex_history(hist, xg)
+    del xg
+    res["identical_history"] = track_turns.identical_outputs(hi, hg)
+    res["history"] = hi.numel()
+    ok = res["identical_history"] == res["history"]
+    log(f"pfb fine history: {nrows} rows through the row index against the "
+        f"gathered rows: bit-identical {res['identical_history']} of "
+        f"{res['history']} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("pfb fine history: row_history differs from "
+                             "the gathered rows'")
     res["pfb_bins"] = pfb_bins_check_bench(dev)
-    res["pfb_narrow_in_place_turns"] = pfb_fine_turns(xb, rows, hist, grev,
-                                                      p1, s1, d)
-    res["pfb_narrow_general_turns"] = general_turns(
-        "pfb fine", xb, hist, grev, p1, s1, d, rows)
-    res["pfb_fine_narrow_turns"] = pfb_fine_narrow_turns(
-        xb, rows, hist, grev, p1, s1, d)
     return res, worst
 
 
@@ -2438,9 +2327,9 @@ def phase_pfb_bins(dev) -> dict:
 
 def phase_decode_pfb(dev) -> tuple[dict, dict]:
     """``decode pfb:`` the grant through the pfb step as it runs
-    (``pfb_fine``), then ``decode pfb narrow:`` the same stream with the
-    fine stage swapped for the form it replaced (the complex bank's
-    narrow plan on the modulated taps): the fixture slots' dibits and
+    (``pfb_fine``), then ``decode pfb modulated:`` the same stream with
+    the fine stage swapped for the form it replaced (the complex bank on
+    the gathered rows' modulated taps): the fixture slots' dibits and
     valid flags must be identical. Returns both runs' launch counts."""
     from radiocapture_tpu_torch.frontend.pipeline import ControlPipeline
     from radiocapture_tpu_torch.ops import channelizer as chz
@@ -2450,16 +2339,17 @@ def phase_decode_pfb(dev) -> tuple[dict, dict]:
         dev, ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE, frontend="pfb"),
         "decode pfb", ("pfb_bins", "pfb_fine", "fsk_track"), keep=got)
 
-    def narrow(xb, rows, hist, taps, fine, phase0, step, d):
-        return ck.bank_complex(xb, hist, chz.modulated_taps(taps, fine[:, None]),
-                               phase0[:, None], step[:, None], d, rows)[:, 0]
+    def modulated(xb, rows, hist, taps, fine, phase0, step, d):
+        return ck.bank_complex(xb[rows], hist,
+                               chz.modulated_taps(taps, fine[:, None]),
+                               phase0[:, None], step[:, None], d)[:, 0]
 
-    mixer, chz.pfb_fine = chz.pfb_fine, narrow
+    mixer, chz.pfb_fine = chz.pfb_fine, modulated
     try:
-        narrow_launches = phase_decode(
+        modulated_launches = phase_decode(
             dev, ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE, frontend="pfb"),
-            "decode pfb narrow", ("pfb_bins", "xlat_complex", "fsk_track"),
-            keep=old)
+            "decode pfb modulated", ("pfb_bins", "xlat_complex",
+                                     "fsk_track"), keep=old)
     finally:
         chz.pfb_fine = mixer
     for key, (dib, val) in got.items():
@@ -2467,11 +2357,11 @@ def phase_decode_pfb(dev) -> tuple[dict, dict]:
                                old[key][0][old[key][1].astype(bool)])
                 and np.array_equal(val, old[key][1]))
         log(f"decode pfb: source {key[0]} slot {key[1]}: dibits and valid "
-            f"flags against the narrow plan's: {int(val.sum())} valid "
+            f"flags against the modulated taps': {int(val.sum())} valid "
             f"{'identical' if same else 'DIFFER'}")
         if not same:
             raise AssertionError("decode pfb: the mixer's dibits differ")
-    return launches, narrow_launches
+    return launches, modulated_launches
 
 
 def pfb_launches_match(what: str, launches: dict) -> None:
@@ -3957,7 +3847,7 @@ def main() -> None:
     res_block = phase_fsk4_block(dev, pipe)
 
     # the pfb and fft frontend modes: a P25 grant through each, the pfb
-    # fine stage on the complex bank's general path, both at 128 sources
+    # fine stage on pfb_fine, both at 128 sources
     launches_pfb, _ = phase_decode_pfb(dev)
     pfb_launches_match("decode pfb", launches_pfb)
     launches_fft = phase_decode(
@@ -4134,7 +4024,8 @@ def main() -> None:
          "bound_ms": res_fine["pfb_fine_bound_ms"],
          "bound_by": res_fine["pfb_fine_bound_by"],
          "library_ms": res_fine["pfb_fine_library_ms"],
-         "turns": res_fine["pfb_fine_turns"],
+         "identical_history": res_fine["identical_history"],
+         "history": res_fine["history"],
          "pfb_bins": res_fine["pfb_bins"]},
         {"name": "xlat_complex", "route": "cuda",
          "source": "radiocapture_tpu_torch/csrc/xlat_complex.cu",
@@ -4146,9 +4037,6 @@ def main() -> None:
          "bound_by": res2["xlat_complex_bound_by"],
          "library_ms": res2["xlat_complex_library_ms"],
          "pfb_fine_launches": launches_pfb["xlat_complex"],
-         "pfb_narrow_in_place_turns": res_fine["pfb_narrow_in_place_turns"],
-         "pfb_narrow_general_turns": res_fine["pfb_narrow_general_turns"],
-         "pfb_narrow_2cf31c4_turns": res_fine["pfb_fine_narrow_turns"],
          "mesh_c4fm_launches": mesh["launches"]["xlat_complex"],
          "mesh_c4fm_max_abs_err": bench_mesh["complex_bank_err"],
          "mesh_c4fm_ms": mbank["ms"], "mesh_c4fm_plain_ms": mbank["plain_ms"],

@@ -7,8 +7,9 @@ kernels for Hopper (``csrc/``):
   bank_fused``) and the fused discriminator → boxcar → fsk4 → slicer
   tracker (``demod.track_kernel``): ``ControlPipeline``;
 - the float32 complex bank (``ops.channelizer_kernel.bank_complex``),
-  the route of ``XlatBank.__call__`` and ``SpectrumSplit2``, and the
-  fused CQPSK tracker (``demod.cqpsk_kernel``): ``CqpskControlPipeline``;
+  the route of ``XlatBank.__call__`` (``SpectrumSplit2`` and the
+  time-sharded mesh step), and the fused CQPSK tracker
+  (``demod.cqpsk_kernel``): ``CqpskControlPipeline``;
 - the fused discriminator → de-emphasis → squelch power tracker
   (``ops.fm_kernel``): ``AnalogVoicePipeline``.
 

@@ -54,9 +54,8 @@ _SIGNATURES = {
     # spacing, nlevels, k_ff, k_t, stream
     "fsk_chain_probe_launch": (_P, _I) + (_P,) * 6 + (_F,) * 3 + (_I, _F,
                                                                    _F, _P),
-    # x, xrow (null: none), hist, g, phase0, step, y, S, T, N, K, D, C,
-    # x_bf16, stream
-    "xlat_complex_launch": (_P,) * 7 + (_I,) * 7 + (_P,),
+    # x, hist, g, phase0, step, y, S, T, N, K, D, C, x_bf16, stream
+    "xlat_complex_launch": (_P,) * 6 + (_I,) * 7 + (_P,),
     # y_re, y_im, scale, t, omega, freq, phase, hist_re, hist_im, prev_re,
     # prev_im, syms, valid, dibits, consts, S, N, C, n0_first, n0_count,
     # omega_lo, omega_hi, fmax, k_mu, k_om, k_f, stream

@@ -80,7 +80,7 @@ def complex_history(history: torch.Tensor, x2: torch.Tensor
 def row_history(history: torch.Tensor, x: torch.Tensor, rows: torch.Tensor
                 ) -> torch.Tensor:
     """``complex_history(history, x[rows])`` without gathering x: history
-    [S', K-1] complex64, x [R, T, 2], rows [S'] int64 (``bank_complex``'s
+    [S', K-1] complex64, x [R, T, 2], rows [S'] int64 (``pfb_fine``'s
     row index). Only the last K-1 samples of each indexed row are
     selected (``index_select``: one [S', K-1] copy); a block shorter than
     K-1 keeps the history's own samples in front. Bit for bit
@@ -404,12 +404,12 @@ class PfbXlatBank:
     per-output factor into the rotation: the same function up to the
     rounding of the modulation's angle. On the CPU the fine stage is the
     JAX form itself (``modulated_taps`` on ``bank_complex``'s plain
-    version), which the parity tests hold to JAX's float32 arithmetic:
-    the port's chaotic noise lanes agree with JAX's only where the
-    channels round as JAX's do. Each row reads its slot's bin in place
-    from the PFB's bin-major bins by a row index, as the JAX step's
-    ``bins[chan]`` gather (channelizer.py:362) selects it; no gathered
-    [S·C, T/M] block is built."""
+    version of the gathered bins), which the parity tests hold to JAX's
+    float32 arithmetic: the port's chaotic noise lanes agree with JAX's
+    only where the channels round as JAX's do. On the card each row reads
+    its slot's bin in place from the PFB's bin-major bins by a row index,
+    as the JAX step's ``bins[chan]`` gather (channelizer.py:362) selects
+    it; no gathered [S·C, T/M] block is built."""
 
     def __init__(self, num_slots: int, samp_rate: float,
                  channel_rate: float, bin_rate: float = 400e3,
@@ -485,9 +485,9 @@ class PfbXlatBank:
             state, x, offsets_norm)
         taps = self.device_taps(xb.device)
         if xb.device.type == "cpu":    # the JAX form, the parity reference
-            y = bank_complex(xb, hist, modulated_taps(taps, fine[:, None]),
-                             phase0[:, None], step[:, None], self.decim2,
-                             rows)
+            y = bank_complex(xb[rows], hist,
+                             modulated_taps(taps, fine[:, None]),
+                             phase0[:, None], step[:, None], self.decim2)
         else:
             y = pfb_fine(xb, rows, hist, taps, fine, phase0, step,
                          self.decim2)

@@ -31,10 +31,7 @@ replaces ``bank_matmul_pallas`` (with ``_bank_kernel``) and the rotation
 after it in ``XlatBank.__call__``: the same correlation on history ++
 block, in float32 throughout, with outputs ``[S, C, N]`` complex64. The
 kernel reads the wire block (bf16 or float32) and the complex64 history
-where they lie; with a row index each bank row reads its samples from a
-row of a shared block (each slot's bin of the PFB's bins, as the pfb
-fine stage ran on it before ``pfb_kernel.pfb_fine``), in place of the
-JAX step's gather.
+where they lie.
 """
 
 from __future__ import annotations
@@ -358,20 +355,13 @@ def complex_z(x: torch.Tensor, history: torch.Tensor) -> torch.Tensor:
     return torch.cat([history, xc], dim=1)
 
 
-# csrc/xlat_complex.cu's fast path: SpectrumSplit2's (K, D, C) (FAST_P ·
-# FAST_D, FAST_D, FAST_C); it takes no row index
-SPLIT2_KDC = (20, 2, 2)
-
-
 def complex_args(x: torch.Tensor, history: torch.Tensor, grev: torch.Tensor,
-                 phase0: torch.Tensor, step: torch.Tensor, d: int,
-                 rows: torch.Tensor | None = None):
+                 phase0: torch.Tensor, step: torch.Tensor, d: int):
     """Validate the complex bank kernel's inputs and allocate its output:
     (the arguments of the C entry point ``xlat_complex_launch``, y).
     Raises ValueError on what the kernel does not take: another dtype or
     shape, a non-contiguous or misaligned tensor, tensors on different
-    devices, a row index at split2's shape, or tensors off the card. The
-    values of ``rows`` are not checked: that would sync with the host."""
+    devices, or tensors off the card."""
     if (x.dtype not in (torch.bfloat16, torch.float32) or x.dim() != 3
             or x.shape[-1] != 2 or not x.is_contiguous()
             or x.data_ptr() % (2 * x.element_size())):
@@ -381,17 +371,12 @@ def complex_args(x: torch.Tensor, history: torch.Tensor, grev: torch.Tensor,
                          f"{x.is_contiguous()})")
     t = x.shape[1]
     c, k = grev.shape[1:]
-    s = x.shape[0] if rows is None else grev.shape[0]
-    checks = [("history", history, torch.complex64, (s, k - 1)),
-              ("grev", grev, torch.complex64, (s, c, k)),
-              ("phase0", phase0, torch.int64, (s, c)),
-              ("step", step, torch.int64, (s, c))]
-    if rows is not None:
-        if (k, d, c) == SPLIT2_KDC:
-            raise ValueError("bank_complex: split2's fast path takes no row "
-                             "index")
-        checks.append(("rows", rows, torch.int64, (s,)))
-    for name, v, dt, shape in checks:
+    s = x.shape[0]
+    for name, v, dt, shape in (
+            ("history", history, torch.complex64, (s, k - 1)),
+            ("grev", grev, torch.complex64, (s, c, k)),
+            ("phase0", phase0, torch.int64, (s, c)),
+            ("step", step, torch.int64, (s, c))):
         if (v.device != x.device or v.dtype != dt
                 or tuple(v.shape) != shape or not v.is_contiguous()):
             raise ValueError(f"bank_complex: {name} must be a contiguous "
@@ -403,21 +388,20 @@ def complex_args(x: torch.Tensor, history: torch.Tensor, grev: torch.Tensor,
                          f"{x.device}")
     n = t // d
     y = torch.empty((s, c, n), dtype=torch.complex64, device=x.device)
-    args = (x.data_ptr(), 0 if rows is None else rows.data_ptr(),
-            history.data_ptr(), grev.data_ptr(), phase0.data_ptr(),
-            step.data_ptr(), y.data_ptr(), s, t, n, k, d, c,
-            int(x.dtype == torch.bfloat16),
+    args = (x.data_ptr(), history.data_ptr(), grev.data_ptr(),
+            phase0.data_ptr(), step.data_ptr(), y.data_ptr(), s, t, n, k, d,
+            c, int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream(x.device).cuda_stream)
     return args, y
 
 
 def bank_complex(x: torch.Tensor, history: torch.Tensor, grev: torch.Tensor,
-                 phase0: torch.Tensor, step: torch.Tensor, d: int,
-                 rows: torch.Tensor | None = None) -> torch.Tensor:
+                 phase0: torch.Tensor, step: torch.Tensor, d: int
+                 ) -> torch.Tensor:
     """The complex bank on one block: ``bank_complex_plain`` of
-    ``complex_z(x, history)`` (``x[rows]`` with a row index) on CPU
-    tensors, the CUDA kernel ``csrc/xlat_complex.cu`` on CUDA tensors.
-    Returns y [S, C, T//d] complex64.
+    ``complex_z(x, history)`` on CPU tensors, the CUDA kernel
+    ``csrc/xlat_complex.cu`` on CUDA tensors. Returns y [S, C, T//d]
+    complex64.
 
     x [S, T, 2] is the block as it arrives, a bf16 or float32 wire block
     (a complex64 block as ``torch.view_as_real``, a view); history
@@ -426,39 +410,24 @@ def bank_complex(x: torch.Tensor, history: torch.Tensor, grev: torch.Tensor,
     (no conversion, no concatenation); another dtype, a non-contiguous
     tensor or a shape that does not match raises (``complex_args``).
 
-    ``rows`` [S] int64: bank row s reads its samples from row ``rows[s]``
-    of x = [R, T, 2], its history, taps, phase and outputs staying row
-    s's; the pfb fine stage's form on modulated taps reads each slot's
-    bin of the PFB's bin-major bins this way, in place (``PfbXlatBank``
-    on the CPU; ``pfb_fine``'s yardstick on the card). The kernel takes
-    one more address a row and
-    gathers nothing, on the general path only (split2's shape raises).
-    The index's values are not checked, which would sync with the host
-    every step: the caller keeps them in [0, R) (``PfbXlatBank.route``
-    does, by ``torch.remainder``).
-
     At the shape ``SpectrumSplit2`` sends (D=2, K=20, C=2) the kernel is
     memory-bound: each warp stages the spans of its tiles of 32·R outputs
     in shared memory by ``cp.async``, one tile ahead, as float32
     polyphase planes, and each lane computes R consecutive outputs of
     every slot from the planes' rows with the taps in registers. Other
-    shapes take the general path, bound by float32 FMAs: a block stages
-    its outputs' span as polyphase planes; with 8 slots or more (the
-    time-sharded mesh step, C=64) each thread holds 4 outputs × 8 slots
-    and the taps stream through shared memory, with fewer (the pfb fine
-    stage's shape, C=1: the narrow plan) a block stages each x row's span
-    once for the bank rows that read it and each lane holds 5
-    consecutive outputs of a slot.
-    Every output is one ``fmaf`` chain in k order, the same bits on
-    every path."""
+    shapes (the time-sharded mesh step, C=64) take the general path,
+    bound by float32 FMAs: a block stages its outputs' span as polyphase
+    planes, each thread holds 4 outputs × 8 slots and the taps stream
+    through shared memory; a span too large for shared memory is read
+    from device memory. Every output is one ``fmaf`` chain in k order,
+    the same bits on every path."""
     if x.device.type == "cpu":
-        xs = x if rows is None else x[rows]
-        return bank_complex_plain(complex_z(xs, history), grev, phase0, step,
+        return bank_complex_plain(complex_z(x, history), grev, phase0, step,
                                   x.shape[1] // d, d)
     if x.device.type != "cuda":
         raise ValueError(f"bank_complex: unsupported device {x.device}")
     from radiocapture_tpu_torch import kernels
-    args, y = complex_args(x, history, grev, phase0, step, d, rows)
+    args, y = complex_args(x, history, grev, phase0, step, d)
     if y.shape[-1] == 0:
         return y
     kernels.launch("xlat_complex", *args)

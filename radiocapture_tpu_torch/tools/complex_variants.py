@@ -3,10 +3,8 @@ another plan or part of the work changed against the package's build, on
 one CUDA card at the split2 bench shape (128 sources × 240,000 bf16 wire
 samples, mid-stream after three steps, as
 ``track_turns.complex_bench_operands`` makes them), or with ``--shape
-mesh`` or ``--shape pfb`` first at a shape of the general path
-(``track_turns.complex_general_operands``). ``--source FILE`` (before
-the shape) rewrites another source with the package's entry, such as
-``tools/xlat_complex_2cf31c4.cu``, the narrow plan before its redesign.
+mesh`` first at the general path's, the time-sharded mesh step's bank
+(``track_turns.complex_mesh_operands``).
 
 Each variant rewrites a copy of the source (``a+b`` applies both;
 ``base`` is the source as it is):
@@ -21,49 +19,31 @@ Each variant rewrites a copy of the source (``a+b`` applies both;
 - ``sincos``: one ``sincosf`` per output and slot, not split2's two
   phasors per slot;
 - ``wide_unroll2``: the wide plan's loop over tap pairs unrolled by two;
-- ``index_branch``: the general plans' row address chosen at run time
-  (``xrow ? xrow[s] : s``) in every kernel, in place of the compile-time
-  choice between a kernel with the row index and one without: the same
-  outputs at ``--shape mesh`` (no index) and ``--shape pfb`` (the
-  index);
-- the general path's plans: ``wide_r=N`` outputs and ``wide_rc=N``
+- the general path's wide plan: ``wide_r=N`` outputs and ``wide_rc=N``
   slots per thread, ``wide_warps=N`` warps per block at most,
   ``wide_kc=N`` taps per staged chunk (the package's 4, 8, 8, 96);
-  ``narrow_r=N`` outputs per lane (odd), ``narrow_warps=N`` warps per
-  block at most, ``narrow_blocks=N`` blocks per SM asked of the
-  compiler, ``narrow_rows=N`` bank rows a block at most (the package's
-  5, 8, 1, 64; commit 2cf31c4's 3, 4, 3 and one row);
 
 and, wrong on purpose, to show what one part of the work costs:
 
 - ``fma1``: one FMA per tap and slot instead of four in split2's loop;
-  ``fma1_general`` the same in the general plans' ``fma4``;
-- ``stage_only``: the narrow plan stages its span and taps and computes
-  nothing, stores nothing;
-- ``no_stores``: the narrow plan computes and rotates every output but
-  stores none;
-- ``no_tail``: the narrow plan without its last group of tap rows.
+  ``fma1_general`` the same in the general path's ``fma4``.
 
 ::
 
     python3 -m radiocapture_tpu_torch.tools.complex_variants \\
         r=5 r=9 blocks=3 taps_held sincos fma1
-    python3 -m radiocapture_tpu_torch.tools.complex_variants --shape pfb \\
-        narrow_r=7 narrow_warps=2
-    python3 -m radiocapture_tpu_torch.tools.complex_variants --source \\
-        radiocapture_tpu_torch/tools/xlat_complex_2cf31c4.cu --shape pfb \\
-        base stage_only fma1_general
+    python3 -m radiocapture_tpu_torch.tools.complex_variants --shape mesh \\
+        wide_r=2 wide_kc=48 fma1_general
 
 Every variant is built with the package's flags (all at once, one nvcc
 process each) into ``_build/variants/``; for each its ptxas line (the
-bf16 instance of the split2 kernel; at ``mesh`` the float32 wide kernel
-without a row index, at ``pfb`` the float32 narrow one with it), the
-count of outputs bit-identical to the package's, and its ms in ROUNDS
-rounds (the order reversed every other round, ITERS launches each timed
-by CUDA events). The compared outputs are filled first, the package's
-with NaN and each variant's with infinity, so an output a variant skips
-does not count as identical. Prints the card's ``nvidia-smi`` name and
-power limit, then one JSON line.
+bf16 instance of the split2 kernel; at ``mesh`` the float32 wide
+kernel), the count of outputs bit-identical to the package's, and its
+ms in ROUNDS rounds (the order reversed every other round, ITERS
+launches each timed by CUDA events). The compared outputs are filled
+first, the package's with NaN and each variant's with infinity, so an
+output a variant skips does not count as identical. Prints the card's
+``nvidia-smi`` name and power limit, then one JSON line.
 """
 
 from __future__ import annotations
@@ -73,14 +53,13 @@ import json
 import re
 import subprocess
 import sys
-from pathlib import Path
 
 import torch
 
 from radiocapture_tpu_torch import kernels
 from radiocapture_tpu_torch.device import require_cuda
 from radiocapture_tpu_torch.tools.track_turns import (
-    card_line, complex_bench_operands, complex_general_operands, cuda_ms,
+    card_line, complex_bench_operands, complex_mesh_operands, cuda_ms,
     identical_outputs)
 
 ITERS = 20
@@ -108,14 +87,6 @@ GENERAL_FMA4 = """  ar = fmaf(gv.x, zv.x, ar);
   ai = fmaf(gv.x, zv.y, ai);
   ai = fmaf(gv.y, zv.x, ai);
 """
-NARROW_STORE = """        if (n < N)
-          y[sc * N + n] = rotate(ar[r], ai[r], p0 + st * (uint32_t)n);
-"""
-# the rotated value is compared, so the FMAs and the rotation stay
-NARROW_NO_STORE = (
-    "        const float2 v = rotate(ar[r], ai[r], p0 + st * (uint32_t)n);\n"
-    "        if (n < N && v.x == 1.25e-38f && v.y == 1.25e-38f)\n"
-    "          y[sc * N + n] = v;\n")
 
 # name -> [(text of the source, its replacement)]
 EDITS = {
@@ -127,20 +98,6 @@ EDITS = {
     "sincos": [("\n    if (two) {\n", "\n    if (false) {\n")],
     "fma1": [(FMA4, FMA1)],
     "fma1_general": [(GENERAL_FMA4, "  ar = fmaf(gv.x, zv.x, ar);\n")],
-    "stage_only": [("    if (active) {\n      float ar[R], ai[R];\n",
-                    "    if (false) {\n"
-                    "      float ar[R], ai[R];\n")],
-    "no_stores": [(NARROW_STORE, NARROW_NO_STORE)],
-    "no_tail": [("        if (q + u < QF) tap_row(u, q + u, D);\n",
-                 "        if (false) tap_row(u, q + u, D);\n"),
-                ("        if (q + u == QF && QF < Q) tap_row(u, QF, JL);\n",
-                 "        if (false) tap_row(u, QF, JL);\n")],
-    "index_branch": [("  if constexpr (kRows)\n"
-                      "    return x + __ldg(xrow + s) * T;\n"
-                      "  else\n"
-                      "    return x + (long long)s * T;\n",
-                      "  return x + (xrow ? __ldg(xrow + s) : (long long)s)"
-                      " * T;\n")],
     "wide_unroll2": [("      for (; kk + 1 < kc; kk += 2) {\n",
                       "#pragma unroll 2\n"
                       "      for (; kk + 1 < kc; kk += 2) {\n")],
@@ -152,17 +109,10 @@ SIZED = {"r": "constexpr int R = {};",
          "wide_r": "constexpr int WIDE_R = {};",
          "wide_rc": "constexpr int WIDE_RC = {};",
          "wide_warps": "constexpr int WIDE_WARPS = {};",
-         "wide_kc": "constexpr int WIDE_KC = {};",
-         "narrow_r": "constexpr int NARROW_R = {};",
-         "narrow_warps": "constexpr int NARROW_WARPS = {};",
-         "narrow_blocks": "constexpr int NARROW_BLOCKS = {};",
-         "narrow_rows": "constexpr int NARROW_ROWS = {};"}
-# the kernel whose ptxas line a shape's run prints: its name and the
-# mangled template arguments (the wire; the general plans' row index,
-# Lb1E with one, as at pfb, Lb0E without)
+         "wide_kc": "constexpr int WIDE_KC = {};"}
+# the kernel whose ptxas line a shape's run prints: its name and its wire
 PTXAS_OF = {"split2": ("xlat_complex_split2", "Bf16Pair"),
-            "mesh": ("xlat_complex_wide", "F32PairELb0E"),
-            "pfb": ("xlat_complex_narrow", "F32PairELb1E")}
+            "mesh": ("xlat_complex_wide", "F32Pair")}
 
 
 def variant_source(src: str, name: str) -> str:
@@ -190,12 +140,11 @@ def variant_source(src: str, name: str) -> str:
     return src
 
 
-def build(names: list, shape: str = "split2",
-          source: Path = kernels.CSRC / "xlat_complex.cu") -> tuple:
+def build(names: list, shape: str = "split2") -> tuple:
     """({variant: its ``xlat_complex_launch``}, {variant: its ptxas line
-    for ``shape``'s kernel, ``PTXAS_OF``}), each variant a rewrite of
-    ``source``."""
-    src = Path(source).read_text()
+    for ``shape``'s kernel, ``PTXAS_OF``}), each variant a rewrite of the
+    package's ``csrc/xlat_complex.cu``."""
+    src = (kernels.CSRC / "xlat_complex.cu").read_text()
     out_dir = kernels.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -230,18 +179,16 @@ def build(names: list, shape: str = "split2",
 
 
 def main(argv: list[str]) -> None:
-    shape, source = "split2", kernels.CSRC / "xlat_complex.cu"
-    if argv[:1] == ["--source"] and len(argv) > 1:
-        source, argv = Path(argv[1]), argv[2:]
+    shape = "split2"
     if argv[:1] == ["--shape"] and len(argv) > 1:
         shape, argv = argv[1], argv[2:]
     if not argv or shape not in PTXAS_OF:
         raise SystemExit(__doc__)
     dev = require_cuda()
-    x, hist, grev, phase0, step, d, rows = (
-        complex_bench_operands(dev) + (None,) if shape == "split2"
-        else complex_general_operands(dev, shape))
-    fns, ptxas = build(argv, shape, source)
+    x, hist, grev, phase0, step, d = (
+        complex_bench_operands(dev) if shape == "split2"
+        else complex_mesh_operands(dev))
+    fns, ptxas = build(argv, shape)
     fns["package"] = kernels.load().xlat_complex_launch
     t = x.shape[1]
     s, c, k = grev.shape
@@ -253,8 +200,7 @@ def main(argv: list[str]) -> None:
         if fill is not None:
             y.fill_(fill)
         kernels.check(fns[name](
-            x.data_ptr(), None if rows is None else rows.data_ptr(),
-            hist.data_ptr(), grev.data_ptr(), phase0.data_ptr(),
+            x.data_ptr(), hist.data_ptr(), grev.data_ptr(), phase0.data_ptr(),
             step.data_ptr(), y.data_ptr(), s, t, n, k, d, c,
             int(x.dtype == torch.bfloat16), stream),
             f"xlat_complex {name}")
@@ -274,7 +220,7 @@ def main(argv: list[str]) -> None:
               "identical outputs", res[key]["identical_outputs"], "of",
               ref.numel())
     print(card_line())
-    print(json.dumps({"source": str(source), "shape": [s, t, c, k, d],
+    print(json.dumps({"shape": [s, t, c, k, d],
                       "outputs": ref.numel(),
                       "variants": res}))
 

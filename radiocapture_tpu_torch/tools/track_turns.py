@@ -49,45 +49,15 @@ and counts the outputs that are bit-identical::
     python3 -m radiocapture_tpu_torch.tools.track_turns --kernel \
         xlat_complex radiocapture_tpu_torch/tools/xlat_complex_54b2cf5.cu
 
-``--shape mesh`` or ``--shape pfb`` (after ``--kernel xlat_complex``)
-takes the complex bank's general path instead, the kernels alone on the
-same complex64 values: the time-sharded mesh step's bank (128 sources ×
-64 slots × 2503 outputs, K = 1440, D = 96, a float32 block) or the pfb
-fine stage (8192 one-slot rows × 2500 outputs, K = 467, D = 16, from a
-mid-stream ``PfbXlatBank`` state; the package reads each row's bin in
-place through its row index, 54b2cf5's kernel the gathered rows);
-54b2cf5's kernel is the general path the package's replaced, the same
-loop::
+``--shape mesh`` (after ``--kernel xlat_complex``) takes the complex
+bank's general path instead, the kernels alone on the same complex64
+values: the time-sharded mesh step's bank (128 sources × 64 slots × 2503
+outputs, K = 1440, D = 96, a float32 block); 54b2cf5's kernel is the
+general path the package's replaced, the same loop::
 
     python3 -m radiocapture_tpu_torch.tools.track_turns --kernel \
-        xlat_complex --shape pfb \
+        xlat_complex --shape mesh \
         radiocapture_tpu_torch/tools/xlat_complex_54b2cf5.cu
-
-``--kernel xlat_complex_narrow``: the other source must export
-``xlat_complex_launch`` with the package's C signature;
-``xlat_complex_2cf31c4.cu`` beside this module is the complex bank as
-commit 2cf31c4 had it, before the narrow plan's redesign. The tool times
-it against the package's ``bank_complex`` on the pfb fine stage's
-operands (as ``--shape pfb``, each row's bin read in place through the
-row index by both), at all 8192 rows and at the first 64, 128 and 256
-(the runtime's groups: one 10 MS/s source, two 2.4 MS/s ones, ``decode
-pfb``'s), and counts the outputs that are bit-identical::
-
-    python3 -m radiocapture_tpu_torch.tools.track_turns --kernel \
-        xlat_complex_narrow \
-        radiocapture_tpu_torch/tools/xlat_complex_2cf31c4.cu
-
-``--kernel pfb_fine`` (no source): the pfb fine stage as the step runs
-it, ``pfb_fine`` (``csrc/pfb_fine.cu``: the mixer and the real-tap
-filter), in turns with the form it replaced, the complex bank's narrow
-plan (``bank_complex`` of the modulated taps, built once outside the
-timing) on the same operands (``fine_bench_operands``), both reading the
-bins in place through the row index, at all 8192 rows and at the first
-256 and 64 (the runtime's groups); gives the largest difference between
-their outputs over max|y| (not bit for bit: the modulation rounds
-apart)::
-
-    python3 -m radiocapture_tpu_torch.tools.track_turns --kernel pfb_fine
 
 ``--kernel pfb_bins``: the other source must export ``pfb_bins_launch``
 with the signature of commit ef6af1a (the direct [M, M] table, no
@@ -109,11 +79,10 @@ steps; for ``cqpsk_track`` the split2 → CQPSK shape, 256 halves × 64
 slots × 2500 samples; for ``xlat_complex`` split2's own operands, 128
 sources × 240,000 bf16 wire samples), as ``chip_smoke.py`` times them;
 ``chip_smoke.py`` calls ``voice_turns``, ``cqpsk_turns``,
-``complex_turns``, ``narrow_turns`` and ``bins_turns`` on its own
-operands. Kernels run in the order other,
-package, package, other, each over ITERS launches timed by CUDA events.
-Prints the card's ``nvidia-smi`` name and power limit, then one JSON
-line.
+``complex_turns`` and ``bins_turns`` on its own operands. Kernels run in
+the order other, package, package, other, each over ITERS launches timed
+by CUDA events. Prints the card's ``nvidia-smi`` name and power limit,
+then one JSON line.
 """
 
 from __future__ import annotations
@@ -141,7 +110,6 @@ from radiocapture_tpu_torch.ops import channelizer_kernel as ck
 from radiocapture_tpu_torch.ops import fm
 from radiocapture_tpu_torch.ops import fm_kernel as fk
 from radiocapture_tpu_torch.ops import pfb_kernel as pk
-from radiocapture_tpu_torch.ops.channelizer import modulated_taps
 from radiocapture_tpu_torch.ops.fir import phase_step_u32
 
 SOURCES, SLOTS, BLOCK, SAMP_RATE = 128, 64, 240_000, 2.4e6
@@ -152,7 +120,6 @@ SYMBOL_MAJOR_CQPSK = Path(__file__).with_name("cqpsk_track_b498eb2.cu")
 EARLIER_COMPLEX = Path(__file__).with_name("xlat_complex_54b2cf5.cu")
 EARLIER_FSK = Path(__file__).with_name("fsk_track_3e03d30.cu")
 EARLIER_BINS = Path(__file__).with_name("pfb_rows_ef6af1a.cu")
-EARLIER_NARROW = Path(__file__).with_name("xlat_complex_2cf31c4.cu")
 CQ_GRID_HZ = 12.5e3      # the CQPSK slot grid around each split2 half
 # fm_voice_launch of the one-thread-per-lane kernel: y_re, y_im, prev,
 # y_last, x_last, audio, power, S, N, C, gain, z1, b0, stream
@@ -313,20 +280,17 @@ def identical_outputs(a: torch.Tensor, b: torch.Tensor) -> int:
 
 def complex_turns(src: Path, x: torch.Tensor, history: torch.Tensor,
                   grev: torch.Tensor, phase0: torch.Tensor,
-                  step: torch.Tensor, d: int,
-                  rows: torch.Tensor | None = None, iters: int = ITERS,
+                  step: torch.Tensor, d: int, iters: int = ITERS,
                   pairings: tuple = ("chain", "kernel")) -> dict:
     """The complex bank built from ``src`` (commit 54b2cf5's signature, one
     complex64 z) against the package's on the CUDA operands of one step:
-    the wire block x [S, T, 2] and the history [S, K-1], or with ``rows``
-    the block x [R, T, 2] that bank row s reads at row ``rows[s]``. In
-    turns (other, package, package, other), for each of ``pairings``:
-    ``chain``, that kernel's chain (x gathered by ``rows``, to float32,
-    history ++ block, the other kernel) against ``bank_complex`` on x in
-    place; ``kernel``, the two kernels alone on the same complex64 values
-    (the other on z, the package on the block's float32 view, or on x
-    through ``rows``, and the history). Counts the outputs that are
-    bit-identical in each pairing."""
+    the wire block x [S, T, 2] and the history [S, K-1]. In turns (other,
+    package, package, other), for each of ``pairings``: ``chain``, that
+    kernel's chain (x to float32, history ++ block, the other kernel)
+    against ``bank_complex`` on x in place; ``kernel``, the two kernels
+    alone on the same complex64 values (the other on z, the package on
+    the block's float32 view and the history). Counts the outputs that
+    are bit-identical in each pairing."""
     other = build_other(Path(src), "xlat_complex_launch",
                         COMPLEX_Z_SIGNATURE)
     t = x.shape[1]
@@ -341,21 +305,16 @@ def complex_turns(src: Path, x: torch.Tensor, history: torch.Tensor,
                             z.shape[1], stream), "xlat_complex")
         return y
 
-    def gathered():
-        return x if rows is None else x[rows]
-
-    z = ck.complex_z(gathered(), history)
-    xz = (torch.view_as_real(z[:, k - 1:].contiguous()) if rows is None
-          else x)                                       # z's block, f32
-    pairs = {"chain": (lambda: old_kernel(ck.complex_z(gathered(), history)),
+    z = ck.complex_z(x, history)
+    xz = torch.view_as_real(z[:, k - 1:].contiguous())  # z's block, f32
+    pairs = {"chain": (lambda: old_kernel(ck.complex_z(x, history)),
                        lambda: ck.bank_complex(x, history, grev, phase0,
-                                               step, d, rows)),
+                                               step, d)),
              "kernel": (lambda: old_kernel(z),
                         lambda: ck.bank_complex(xz, history, grev, phase0,
-                                                step, d, rows))}
+                                                step, d))}
     res = {"shape": [s, t, c, k, d], "wire": str(x.dtype).split(".")[-1],
-           "other": str(src), "outputs": s * c * n,
-           "row_index": rows is not None}
+           "other": str(src), "outputs": s * c * n}
     for name in pairings:
         old, new = pairs[name]
         ms = {"other": [], "package": []}
@@ -367,50 +326,6 @@ def complex_turns(src: Path, x: torch.Tensor, history: torch.Tensor,
         res[f"{name}_speedup"] = sum(ms["other"]) / sum(ms["package"])
         res[f"{name}_identical_outputs"] = identical_outputs(old(), new())
     return res
-
-
-def narrow_turns(src: Path, x: torch.Tensor, history: torch.Tensor,
-                 grev: torch.Tensor, phase0: torch.Tensor,
-                 step: torch.Tensor, d: int,
-                 rows: torch.Tensor | None = None,
-                 iters: int = ITERS) -> dict:
-    """The complex bank built from ``src`` (the package's signature of
-    ``xlat_complex_launch``) against the package's ``bank_complex`` on the
-    same CUDA operands, both reading x in place (through ``rows`` when
-    given): ms of each in turns (other, package, package, other) after
-    one untimed run of each, the speedup and the count of bit-identical
-    outputs. The compared runs write into outputs filled first, the
-    other's with NaN and the package's with infinity, so an output that
-    either kernel skips cannot count as identical."""
-    other = build_other(Path(src), "xlat_complex_launch")
-
-    def run(fn, fill=None):
-        args, y = ck.complex_args(x, history, grev, phase0, step, d, rows)
-        if fill is not None:
-            y.fill_(fill)
-        kernels.check(fn(*args), "xlat_complex")
-        return y
-
-    def old():
-        return run(other)
-
-    def new():
-        return ck.bank_complex(x, history, grev, phase0, step, d, rows)
-
-    for fn in (old, new):                     # the card's clocks up
-        cuda_ms(fn, iters)
-    ms = {"other": [], "package": []}
-    for who, fn in (("other", old), ("package", new), ("package", new),
-                    ("other", old)):
-        ms[who].append(cuda_ms(fn, iters))
-    yo = run(other, float("nan"))
-    yp = run(kernels.load().xlat_complex_launch, float("inf"))
-    return {"other": str(src), "shape": list(grev.shape) + [x.shape[1], d],
-            "row_index": rows is not None, "other_ms": ms["other"],
-            "package_ms": ms["package"],
-            "speedup": sum(ms["other"]) / sum(ms["package"]),
-            "identical_outputs": identical_outputs(yo, yp),
-            "outputs": yp.numel()}
 
 
 def ef6af1a_plan(m: int, p: int, bf16: bool) -> tuple[int, int, int]:
@@ -538,22 +453,12 @@ def complex_bench_operands(dev):
             phase_step_u32(offs, sp.bank.decim), sp.bank.decim)
 
 
-def complex_general_operands(dev, shape: str):
+def complex_mesh_operands(dev):
     """The complex bank's operands where its general path runs at the
-    bench shape: ``mesh``, the time-sharded step's bank at world size 1
-    (128 sources × 64 slots, K = 1440, D = 96, the 100 ms block and the
+    bench shape: the time-sharded step's bank at world size 1 (128
+    sources × 64 slots, K = 1440, D = 96, the 100 ms block and the
     sym-filter halo before it, a random-normal float32 block and history,
-    random phases) or ``pfb``, the pfb fine stage's 8192 one-slot rows
-    (``fine_bench_operands``), each slot's prototype modulated to its
-    offset: the 768 bin rows and the row index. Returns (x, history,
-    grev, phase0, step, D, rows), rows None at ``mesh``."""
-    if shape == "pfb":
-        xb, rows, hist, taps, fine, phase0, step, d = fine_bench_operands(
-            dev)
-        return (xb, hist, modulated_taps(taps, fine[:, None]),
-                phase0[:, None], step[:, None], d, rows)
-    if shape != "mesh":
-        raise ValueError(f"unknown shape {shape!r}: mesh or pfb")
+    random phases). Returns (x, history, grev, phase0, step, D)."""
     pipe = ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE)
     bank = pipe.bank
     d, k = bank.decim, bank.ntaps
@@ -566,7 +471,7 @@ def complex_general_operands(dev, shape: str):
     phase0 = torch.randint(0, 2 ** 32, (SOURCES, SLOTS), generator=gen,
                            device=dev, dtype=torch.int64)
     return (x, hist, bank.modulated_taps(offs).contiguous(), phase0,
-            phase_step_u32(offs, d), d, None)
+            phase_step_u32(offs, d), d)
 
 
 def fine_bench_operands(dev):
@@ -587,48 +492,6 @@ def fine_bench_operands(dev):
                                                                offs)
     return (xb, rows, hist, bank.device_taps(dev), fine, phase0, step,
             bank.decim2)
-
-
-def fine_turns(xb: torch.Tensor, rows: torch.Tensor, hist: torch.Tensor,
-               taps: torch.Tensor, fine: torch.Tensor,
-               phase0: torch.Tensor, step: torch.Tensor, d: int,
-               iters: int = ITERS) -> dict:
-    """``pfb_fine`` in turns with the complex bank's narrow plan on the
-    modulated taps (``bank_complex``, the taps built once, untimed) on the
-    same CUDA operands: narrow, fine, fine, narrow after one untimed run
-    of each; the ms, the speedup and the largest difference between their
-    outputs over max|y|."""
-    grev = modulated_taps(taps, fine[:, None])
-    p1, s1 = phase0[:, None], step[:, None]
-
-    def narrow():
-        return ck.bank_complex(xb, hist, grev, p1, s1, d, rows)[:, 0]
-
-    def mixer():
-        return pk.pfb_fine(xb, rows, hist, taps, fine, phase0, step, d)
-
-    for fn in (narrow, mixer):                # the card's clocks up
-        cuda_ms(fn, iters)
-    ms = {"narrow": [], "fine": []}
-    for who, fn in (("narrow", narrow), ("fine", mixer), ("fine", mixer),
-                    ("narrow", narrow)):
-        ms[who].append(cuda_ms(fn, iters))
-    yn, yf = narrow(), mixer()
-    return {"rows": rows.numel(), "outputs": yf.numel(),
-            "narrow_ms": ms["narrow"], "fine_ms": ms["fine"],
-            "speedup": sum(ms["narrow"]) / sum(ms["fine"]),
-            "max_rel_diff": float((yf - yn).abs().max()
-                                  / yn.abs().max())}
-
-
-def main_fine() -> None:
-    xb, rows, hist, taps, fine, phase0, step, d = fine_bench_operands(
-        require_cuda())
-    res = {n: fine_turns(xb, rows[:n], hist[:n], taps, fine[:n],
-                         phase0[:n], step[:n], d)
-           for n in (rows.numel(), 256, 64)}
-    print(card_line())
-    print(json.dumps(res))
 
 
 def grid_offsets(n_sources: int, dev) -> torch.Tensor:
@@ -709,19 +572,8 @@ def main_complex(src: str, shape: str | None = None) -> None:
     if shape is None:
         res = complex_turns(Path(src), *complex_bench_operands(dev))
     else:
-        res = complex_turns(Path(src), *complex_general_operands(dev, shape),
+        res = complex_turns(Path(src), *complex_mesh_operands(dev),
                             pairings=("kernel",))
-    print(card_line())
-    print(json.dumps(res))
-
-
-def main_narrow(src: str) -> None:
-    dev = require_cuda()
-    x, hist, grev, phase0, step, d, rows = complex_general_operands(dev,
-                                                                    "pfb")
-    res = {n: narrow_turns(Path(src), x, hist[:n], grev[:n], phase0[:n],
-                           step[:n], d, rows[:n])
-           for n in (rows.numel(), 64, 128, 256)}
     print(card_line())
     print(json.dumps(res))
 
@@ -783,18 +635,16 @@ def main_bins(src: str) -> None:
 
 
 def main(argv: list[str]) -> None:
-    if argv == ["--kernel", "pfb_fine"]:
-        return main_fine()
     if argv[:1] == ["--kernel"] and len(argv) >= 3 and argv[1] in (
             "fsk_track", "fm_voice", "cqpsk_track", "xlat_complex",
-            "xlat_complex_narrow", "pfb_bins"):
+            "pfb_bins"):
         kernel, argv = argv[1], argv[2:]
     else:
         kernel = "fsk_track"
     shape = None
     if kernel == "xlat_complex" and argv[:1] == ["--shape"] and len(argv) > 1:
         shape, argv = argv[1], argv[2:]
-    if len(argv) != 1 or shape not in (None, "mesh", "pfb"):
+    if len(argv) != 1 or shape not in (None, "mesh"):
         raise SystemExit(__doc__)
     if kernel == "fm_voice":
         return main_voice(argv[0])
@@ -802,8 +652,6 @@ def main(argv: list[str]) -> None:
         return main_cqpsk(argv[0])
     if kernel == "xlat_complex":
         return main_complex(argv[0], shape)
-    if kernel == "xlat_complex_narrow":
-        return main_narrow(argv[0])
     if kernel == "pfb_bins":
         return main_bins(argv[0])
     dev = require_cuda()

@@ -365,9 +365,9 @@ def test_complex_bank_kernel_matches_plain(cuda_device, s, n, k, d, c, wire,
     N off the 224-output warp tile, a block shorter than K-1 (N = 5); the
     general path's wide plan at K = 1440 / D = 96 with C = 40 and the
     time-sharded mesh step's C = 64 (bf16 and float32, ragged N, N = 5)
-    and its narrow plan at the pfb fine stage's C = 1 / K = 467 / D = 16
-    (64 rows of a 100 ms block; K % D ≠ 0): within 1e-4·max|y| of the
-    plain version on history ++ block, from a random history and uint32
+    and at one slot, the pfb fine stage's C = 1 / K = 467 / D = 16 (64
+    rows of a 100 ms block; K % D ≠ 0): within 1e-4·max|y| of the plain
+    version on history ++ block, from a random history and uint32
     phase."""
     rng = np.random.default_rng(n + c + s)
     x, hist, grev, phase0, step = _complex_operands(
@@ -408,10 +408,10 @@ def test_complex_bank_matches_earlier_kernel(cuda_device, s, n, k, d, c,
     """The kernel against the one it replaced on the same values (that one
     on history ++ block as complex64): every output bit-identical, on
     split2's fast path (its two phasors per slot, and ``sincosf`` per
-    output for other offsets) and on the general path's three plans: wide
+    output for other offsets) and on the general path's two plans: wide
     (C = 40 and the mesh step's C = 64 at K = 1440 / D = 96, bf16 and
-    float32, ragged N, N = 5; K % D ≠ 0 at an odd D with C = 12), narrow
-    (the pfb fine stage's C = 1 / K = 467 / D = 16) and direct (a span
+    float32, ragged N, N = 5; K % D ≠ 0 at an odd D with C = 12; one slot
+    at the pfb fine stage's C = 1 / K = 467 / D = 16) and direct (a span
     too large for shared memory)."""
     from radiocapture_tpu_torch.tools import track_turns
     rng = np.random.default_rng(n + s)
@@ -892,10 +892,11 @@ def test_runtime_grant_to_recording(cuda_device, tmp_path):
 @pytest.mark.cuda
 @pytest.mark.parametrize("s,n", [(3, 37), (5, 1001), (64, 2500)])
 def test_pfb_fine_stage_kernel_matches_plain(cuda_device, s, n):
-    """The complex bank's general path at the shape the pfb frontend's
-    fine stage sends (one slot per row, K2 = 467 taps, D = 16, float32
-    bin samples; 64 of the 8192 rows of the bench shape, ragged N):
-    within 1e-4·max|y| of the plain version, one launch."""
+    """The complex bank's general path (the wide plan at one slot) at the
+    shape of the pfb frontend's fine stage on the modulated taps, the
+    form ``pfb_fine`` replaced (one slot per row, K2 = 467 taps, D = 16,
+    float32 bin samples; 64 of the 8192 rows of the bench shape, ragged
+    N): within 1e-4·max|y| of the plain version, one launch."""
     bank = ControlPipeline.p25_c4fm(64, 2.4e6, frontend="pfb").bank
     k, d = bank.ntaps2, bank.decim2
     assert (k, d) == (467, 16)
@@ -922,171 +923,14 @@ def test_pfb_fine_stage_kernel_matches_plain(cuda_device, s, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,r,n,k,d,c", [
-    (3, 2, 37, 467, 16, 1), (5, 4, 1001, 467, 16, 1), (2, 3, 5, 467, 16, 1),
-    (64, 24, 2500, 467, 16, 1), (4, 3, 613, 1440, 96, 40),
-    (2, 3, 64, 30000, 1, 1)])
-def test_complex_bank_row_index_matches_gathered(cuda_device, s, r, n, k, d,
-                                                 c):
-    """``bank_complex`` with a row index (bank row s reading row rows[s] of
-    an R-row float32 block, permuted and repeated) on the narrow plan (the
-    pfb fine stage's shape, ragged N, N = 5 < K-1 and 64 rows of a 100 ms
-    block), the wide plan and the direct kernel: every output bit for bit
-    the kernel's on the gathered rows, within 1e-4·max|y| of the plain
-    version, one launch."""
-    rng = np.random.default_rng(s + r + n)
-    x = torch.as_tensor(rng.standard_normal((r, n * d, 2)).astype(
-        np.float32), device=cuda_device)
-    rows = torch.as_tensor(rng.integers(0, r, s), device=cuda_device)
-    rows[1] = rows[0]
-    _, hist, grev, phase0, step = _complex_operands(
-        rng, s, n, k, d, c, "float32", cuda_device)
-    before = trace.counter("launch.xlat_complex")
-    got = ck.bank_complex(x, hist, grev, phase0, step, d, rows)
-    assert trace.counter("launch.xlat_complex") == before + 1
-    gathered = ck.bank_complex(x[rows], hist, grev, phase0, step, d)
-    from radiocapture_tpu_torch.tools import track_turns
-    assert track_turns.identical_outputs(got, gathered) == s * c * n
-    want = ck.bank_complex_plain(ck.complex_z(x[rows], hist), grev, phase0,
-                                 step, n, d)
-    scale = float(want.abs().max())
-    assert float((got - want).abs().max()) <= COMPLEX_REL * scale
-
-
-@pytest.mark.cuda
-def test_complex_bank_refuses_bad_row_index(cuda_device):
-    """On the card the row index is validated, never gathered around: one
-    on the CPU, of int32 or of the wrong length is refused, and so is any
-    index at split2's shape."""
-    x = torch.zeros((3, 160, 2), device=cuda_device)
-    h = torch.zeros((4, 46), dtype=torch.complex64, device=cuda_device)
-    g = torch.zeros((4, 1, 47), dtype=torch.complex64, device=cuda_device)
-    ph = torch.zeros((4, 1), dtype=torch.int64, device=cuda_device)
-    rows = torch.zeros(4, dtype=torch.int64, device=cuda_device)
-    for bad in (rows.cpu(), rows.int(), rows[:3]):
-        with pytest.raises(ValueError, match="rows must be"):
-            ck.bank_complex(x, h, g, ph, ph, 16, bad)
-    k2, d2, c2 = ck.SPLIT2_KDC
-    with pytest.raises(ValueError, match="split2's fast path"):
-        ck.bank_complex(
-            x, torch.zeros((4, k2 - 1), dtype=torch.complex64,
-                           device=cuda_device),
-            torch.zeros((4, c2, k2), dtype=torch.complex64,
-                        device=cuda_device),
-            ph.expand(4, c2).contiguous(), ph.expand(4, c2).contiguous(), d2,
-            rows)
-
-
-@functools.cache
-def _narrow_2cf31c4():
-    """The complex bank as commit 2cf31c4 had it, before the narrow plan's
-    redesign (``tools/xlat_complex_2cf31c4.cu``, the package's signature),
-    built with the package's flags."""
-    from radiocapture_tpu_torch.tools import track_turns
-    return track_turns.build_other(track_turns.EARLIER_NARROW,
-                                   "xlat_complex_launch")
-
-
-def _run_2cf31c4(x, hist, grev, phase0, step, d, rows=None):
-    args, y = ck.complex_args(x, hist, grev, phase0, step, d, rows)
-    y.fill_(float("nan"))     # an output the kernel skips stays NaN
-    kernels.check(_narrow_2cf31c4()(*args), "xlat_complex")
-    return y
-
-
-def _poison(shape, dev):
-    """Fill and free a complex64 block of ``shape``: the caching allocator
-    hands it to the next output of that size, so an output the kernel
-    skips holds infinity, not an earlier result."""
-    torch.full(shape, float("inf"), dtype=torch.complex64, device=dev)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("s,r,n,k,c,wire", [
-    (3, None, 700, 467, 1, "float32"), (2, None, 5, 467, 1, "bf16"),
-    (4, 3, 333, 467, 3, "bf16"), (5, 2, 1001, 47, 7, "float32"),
-    (2, None, 613, 400, 2, "bf16"), (3, 3, 37, 33, 5, "float32"),
-    (2, None, 1289, 480, 4, "float32"), (6, 4, 2500, 467, 6, "bf16"),
-    (150, 20, 300, 467, 1, "float32"), (70, None, 41, 95, 2, "bf16"),
-    (64, 8, 2500, 467, 1, "bf16"), (256, 16, 2500, 467, 1, "float32"),
-    (64, 8, 1250, 467, 1, "float32"), (5, 3, 300, 8000, 1, "bf16"),
-    (3, 2, 100, 13000, 2, "float32")])
-def test_narrow_plan_matches_2cf31c4(cuda_device, s, r, n, k, c, wire):
-    """The narrow plan (C < 8 slots at D = 16) against the one it replaced
-    (``tools/xlat_complex_2cf31c4.cu``) on the same operands, every output
-    bit-identical: C = 1 to 7; K % D ≠ 0 (467, 47, and 33, whose three
-    tap rows all fall in the last group) and K % D = 0 (400, 25 tap rows
-    in whole groups; 480, 30); ragged N and N = 5 < K-1; bf16 and float32
-    wires; without a row index and through one (R rows, repeated); more
-    bank rows than a block takes (150 rows over 20 x rows, 70 without an
-    index); the runtime's groups of 64 and 256 rows of 2500 outputs (one
-    and four rows a block) and 64 rows of 1250 (blocks of four warps);
-    one tap buffer, the history fetched into the planes (K = 8000 and
-    13000, the latter one warp a block)."""
-    rng = np.random.default_rng(s + n + k + c)
-    d = 16
-    x, hist, grev, phase0, step = _complex_operands(
-        rng, s, n, k, d, c, wire, cuda_device)
-    rows = None
-    if r is not None:
-        x = x[torch.as_tensor(rng.integers(0, s, r), device=cuda_device)]
-        rows = torch.as_tensor(rng.integers(0, r, s), device=cuda_device)
-        rows[1] = rows[0]
-    before = trace.counter("launch.xlat_complex")
-    _poison((s, c, n), cuda_device)
-    got = ck.bank_complex(x, hist, grev, phase0, step, d, rows)
-    assert trace.counter("launch.xlat_complex") == before + 1
-    old = _run_2cf31c4(x, hist, grev, phase0, step, d, rows)
-    torch.cuda.synchronize()
-    from radiocapture_tpu_torch.tools import track_turns
-    assert track_turns.identical_outputs(got, old) == s * c * n
-
-
-def _bench_pfb_operands(dev):
-    """The pfb fine stage's operands at the bench shape (128 sources × 64
-    slots on the 25 kHz grid, one random-normal bf16 100 ms block, after
-    two steps; ``track_turns.fine_bench_operands``) as the complex bank
-    takes them: (bins, rows, history, the modulated taps, phase0, step,
-    D)."""
-    from radiocapture_tpu_torch.tools import track_turns
-    xb, rows, hist, taps, fine, phase0, step, d = \
-        track_turns.fine_bench_operands(dev)
-    return (xb, rows, hist, TCH.modulated_taps(taps, fine[:, None]),
-            phase0[:, None], step[:, None], d)
-
-
-@pytest.mark.cuda
 def test_pfb_fine_stage_in_place_at_bench_shape(cuda_device):
-    """The fine stage at 128 × 64 rows of one 100 ms block, read in place
-    from the 768 bin rows through the row index: all 20480000 outputs and
-    the new fine history bit for bit the gathered form's (the bins
-    gathered, the kernel and ``complex_history`` on them)."""
+    """The fine stage's new history at 128 × 64 rows of one 100 ms block,
+    read in place from the 768 bin rows through the row index
+    (``row_history``): every sample bit for bit ``complex_history`` of
+    the gathered rows."""
     from radiocapture_tpu_torch.tools import track_turns
-    xb, rows, hist, grev, phase0, step, d = _bench_pfb_operands(cuda_device)
+    xb, rows, hist = track_turns.fine_bench_operands(cuda_device)[:3]
     assert xb.shape == (768, 40000, 2) and rows.shape == (8192,)
-    got = ck.bank_complex(xb, hist, grev, phase0, step, d, rows)
-    xg = xb[rows]
-    want = ck.bank_complex(xg, hist, grev, phase0, step, d)
-    assert track_turns.identical_outputs(got, want) == 20480000
-    assert torch.equal(
-        torch.view_as_real(TCH.row_history(hist, xb, rows)),
-        torch.view_as_real(TCH.complex_history(hist, xg)))
-
-
-@pytest.mark.cuda
-def test_pfb_fine_narrow_matches_2cf31c4_at_bench_shape(cuda_device):
-    """The pfb fine stage at the bench shape (8192 one-slot rows reading
-    the 768 bin rows in place, K = 467, D = 16): all 20480000 outputs of
-    the narrow plan bit-identical to those of the plan it replaced
-    (``tools/xlat_complex_2cf31c4.cu``) on the same operands, and the new
-    fine history through ``row_history`` bit-identical to the gathered
-    rows' ``complex_history``."""
-    from radiocapture_tpu_torch.tools import track_turns
-    xb, rows, hist, grev, phase0, step, d = _bench_pfb_operands(cuda_device)
-    _poison(grev.shape[:2] + (xb.shape[1] // d,), cuda_device)
-    got = ck.bank_complex(xb, hist, grev, phase0, step, d, rows)
-    old = _run_2cf31c4(xb, hist, grev, phase0, step, d, rows)
-    assert track_turns.identical_outputs(got, old) == 20480000
     assert torch.equal(
         torch.view_as_real(TCH.row_history(hist, xb, rows)),
         torch.view_as_real(TCH.complex_history(hist, xb[rows])))
@@ -1125,9 +969,9 @@ def test_pfb_fine_kernel_matches_plain(cuda_device, s, r, n, k, fine, rb):
     one and three rows a block: ragged N, N = 5 < K-1, f at ±0.5 and 0, 64
     rows of a 100 ms block over 24 bin rows, K = 33 (every tap row in the
     last group) and 401: within FINE_REL·max|y| of ``pfb_fine_plain``,
-    and within 1e-4·max|y| of the complex bank on the modulated taps (the
-    form it replaced, whose float32 angles round up to 4.9e-5·max|y|
-    apart)."""
+    and within 1e-4·max|y| of the complex bank on the gathered rows'
+    modulated taps (the form it replaced, whose float32 angles round up
+    to 4.9e-5·max|y| apart)."""
     rng = np.random.default_rng(s + n + k)
     ops = _fine_operands(rng, s, r, n, k, cuda_device, fine)
     x, rows, hist, taps, fine, phase0, step = ops
@@ -1143,8 +987,9 @@ def test_pfb_fine_kernel_matches_plain(cuda_device, s, r, n, k, fine, rb):
     assert got.shape == (s, n)
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= pk.FINE_REL * scale
-    old = ck.bank_complex(x, hist, TCH.modulated_taps(taps, fine[:, None]),
-                          phase0[:, None], step[:, None], 16, rows)[:, 0]
+    old = ck.bank_complex(x[rows], hist,
+                          TCH.modulated_taps(taps, fine[:, None]),
+                          phase0[:, None], step[:, None], 16)[:, 0]
     assert float((got - old).abs().max()) <= COMPLEX_REL * scale
 
 
@@ -1152,15 +997,17 @@ def test_pfb_fine_kernel_matches_plain(cuda_device, s, r, n, k, fine, rb):
 def test_pfb_fine_at_bench_shape(cuda_device):
     """The fine stage at 128 × 64 rows of one 100 ms block over the 768
     bin rows (``track_turns.fine_bench_operands``), at the plan's 16 rows a
-    block and at one: every output finite, within 1e-4·max|y| of the
-    narrow plan on the modulated
-    taps, and the first 64 rows within FINE_REL·max|y| of
-    ``pfb_fine_plain`` (all 8192 would need 38 GB of windows)."""
+    block and at one: every output finite, all 8192 rows within
+    1e-4·max|y| of the complex bank on the gathered rows' modulated taps
+    (the wide plan at one slot), and the first 64 rows within
+    FINE_REL·max|y| of ``pfb_fine_plain`` (all 8192 would need 38 GB of
+    windows)."""
     from radiocapture_tpu_torch.tools import track_turns
     xb, rows, hist, taps, fine, phase0, step, d = \
         track_turns.fine_bench_operands(cuda_device)
-    old = ck.bank_complex(xb, hist, TCH.modulated_taps(taps, fine[:, None]),
-                          phase0[:, None], step[:, None], d, rows)[:, 0]
+    old = ck.bank_complex(xb[rows], hist,
+                          TCH.modulated_taps(taps, fine[:, None]),
+                          phase0[:, None], step[:, None], d)[:, 0]
     scale = float(old.abs().max())
     sub = slice(0, 64)
     want = pk.pfb_fine_plain(xb, rows[sub], hist[sub], taps, fine[sub],

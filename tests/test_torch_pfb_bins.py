@@ -1,6 +1,5 @@
 """The pfb fine stage reading its bins in place: ``PfbChannelizer.bins``
-(the channels bin-major), ``bank_complex``'s row index and
-``row_history``, on the CPU.
+(the channels bin-major) and ``row_history``, on the CPU.
 
 - ``PfbXlatBank`` against the JAX ``PfbXlatBank`` (its fine stage the
   CPU conv, as ``test_torch_frontends.py`` runs it) over three steps,
@@ -10,13 +9,8 @@
   and a block shorter than K2-1 bin samples;
 - the bin-major bins equal to ``rows``' time-major channels transposed,
   exactly;
-- the plain bank with a row index equal to the gather and the plain
-  bank, and ``row_history`` equal to ``complex_history`` on the gathered
-  rows, exactly;
-- ``complex_args`` refusing a row index of the wrong dtype, shape,
-  device or layout, and one at split2's shape."""
-
-import re
+- ``row_history`` equal to ``complex_history`` on the gathered rows,
+  exactly."""
 
 import jax
 import jax.numpy as jnp
@@ -26,11 +20,8 @@ import pytest
 import torch
 
 from radiocapture_tpu.ops import channelizer as JC
-from radiocapture_tpu_torch import kernels
 from radiocapture_tpu_torch.device import wire_from_numpy
 from radiocapture_tpu_torch.ops import channelizer as TC
-from radiocapture_tpu_torch.ops import channelizer_kernel as ck
-from radiocapture_tpu_torch.ops.fir import phase_step_u32
 from test_torch_frontends import PFB_BANK_ATOL
 
 torch.set_num_threads(1)   # six test workers share the machine
@@ -128,61 +119,16 @@ def _fine_rows(rng, r, t, k, wire, rows):
     (4000, "float32", [3, 0, 0, 5, 2, 5, 1]),
     (160, "float32", [1, 1, 1]),
     (480, "bf16", [2, 0, 1, 2])])
-def test_row_index_is_the_gather(t, wire, rows):
-    """The plain bank with a row index equals the plain bank on the
-    gathered rows, and ``row_history`` equals ``complex_history`` on them,
+def test_row_history_is_the_gather(t, wire, rows):
+    """``row_history`` equals ``complex_history`` on the gathered rows,
     bit for bit: permuted and repeated rows, a block longer than K2-1 =
     466, one shorter (the old history's samples in front) and a bf16
     one."""
     bank = TC.PfbXlatBank(len(rows), FS, 12500.0)
-    k, d = bank.ntaps2, bank.decim2
+    k = bank.ntaps2
     rng = np.random.default_rng(t)
     x, hist, idx = _fine_rows(rng, 6, t, k, wire, rows)
-    fine = torch.as_tensor(rng.uniform(-0.5, 0.5, (len(rows), 1)).astype(
-        np.float32))
-    grev = TC.modulated_taps(torch.from_numpy(bank.fine_taps), fine)
-    phase0 = torch.as_tensor(rng.integers(0, 2 ** 32, (len(rows), 1)))
-    step = phase_step_u32(fine, d)
-    got = ck.bank_complex(x, hist, grev, phase0, step, d, idx)
-    want = ck.bank_complex_plain(ck.complex_z(x[idx], hist), grev, phase0,
-                                 step, t // d, d)
-    assert torch.equal(_bits(got), _bits(want))
     new = TC.row_history(hist, x, idx)
     assert new.shape == (len(rows), k - 1)
     assert torch.equal(_bits(new),
                        _bits(TC.complex_history(hist, x[idx])))
-
-
-def test_row_index_refusals():
-    """``complex_args`` refuses a row index that is not a contiguous int64
-    [S'] tensor on x's device, and any row index at split2's (K, D, C),
-    which takes the fast path; valid operands on the CPU are refused as
-    off the card. ``SPLIT2_KDC`` is the kernel's fast-path shape."""
-    src = (kernels.CSRC / "xlat_complex.cu").read_text()
-    fast = {name: int(re.search(rf"constexpr int {name} = (\d+);",
-                                src).group(1))
-            for name in ("FAST_P", "FAST_D", "FAST_C")}
-    assert ck.SPLIT2_KDC == (fast["FAST_P"] * fast["FAST_D"],
-                             fast["FAST_D"], fast["FAST_C"])
-    s, c, k, d = 4, 1, 47, 16
-    x = torch.zeros((3, 10 * d, 2))
-    hist = torch.zeros((s, k - 1), dtype=torch.complex64)
-    grev = torch.zeros((s, c, k), dtype=torch.complex64)
-    ph = torch.zeros((s, c), dtype=torch.int64)
-    good = torch.zeros(s, dtype=torch.int64)
-    for bad in (good.int(), good.float(), torch.zeros((s, 1), dtype=torch
-                                                      .int64),
-                torch.zeros(s + 1, dtype=torch.int64),
-                torch.zeros(2 * s, dtype=torch.int64)[::2],
-                torch.zeros(s, dtype=torch.int64, device="meta")):
-        with pytest.raises(ValueError, match="rows must be"):
-            ck.complex_args(x, hist, grev, ph, ph, d, bad)
-    with pytest.raises(ValueError, match="the kernel takes CUDA"):
-        ck.complex_args(x, hist, grev, ph, ph, d, good)
-    k2, d2, c2 = ck.SPLIT2_KDC
-    with pytest.raises(ValueError, match="split2's fast path takes no row"):
-        ck.complex_args(torch.zeros((3, 10 * d2, 2)),
-                        torch.zeros((s, k2 - 1), dtype=torch.complex64),
-                        torch.zeros((s, c2, k2), dtype=torch.complex64),
-                        torch.zeros((s, c2), dtype=torch.int64),
-                        torch.zeros((s, c2), dtype=torch.int64), d2, good)

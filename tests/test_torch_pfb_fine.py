@@ -16,8 +16,9 @@
   at a time, four lanes' partial sums met, the parts met and rotated
   once; every output written once, within FINE_REL of the plain
   version;
-- the launcher's plan (``fine_plan``) filling an H100 at 8192, 256 and 64
-  rows, with the blocks' shared memory in budget;
+- the launcher's plan (``fine_plan``) filling an H100 at 8192, 256, 128
+  and 64 rows and cards of 4 SMs and 1, with the blocks' shared memory
+  in budget;
 - ``pfb_fine_args`` refusing what the kernel does not take."""
 
 import re
@@ -57,13 +58,18 @@ def _cnormal(rng, shape):
             + 1j * rng.standard_normal(shape)).astype(np.complex64)
 
 
-def _operands(rng, s, r, n, k, fine):
-    """Bins x [R, N·D, 2] float32, the row index (the first two rows on
-    one bin), history, the prototype, fine offsets, phase0 and step."""
+def _operands(rng, s, r, n, k, fine, order="repeated"):
+    """Bins x [R, N·D, 2] float32, the row index, history, the prototype,
+    fine offsets, phase0 and step. The index's ``order``: ``repeated``,
+    drawn at random with the first two rows on one bin; ``permuted``,
+    a permutation of the S rows taken mod R, so a bin's rows lie apart."""
     x = torch.from_numpy(rng.standard_normal((r, n * D, 2)).astype(
         np.float32))
-    rows = torch.as_tensor(rng.integers(0, r, s))
-    rows[1] = rows[0]
+    if order == "permuted":
+        rows = torch.as_tensor(rng.permutation(s) % r)
+    else:
+        rows = torch.as_tensor(rng.integers(0, r, s))
+        rows[1] = rows[0]
     hist = torch.from_numpy(_cnormal(rng, (s, k - 1)))
     taps = torch.from_numpy(TC.PfbXlatBank(4, 2.4e6, 12500.0).fine_taps
                             if k == K2 else
@@ -285,23 +291,35 @@ def _emulate(x, rows, hist, taps, fine, phase0, step, rb):
     return y, writes
 
 
-@pytest.mark.parametrize("rb,s,r,n,k", [
-    (1, 3, 2, 600, K2), (3, 5, 2, 300, K2), (4, 4, 3, 5, K2),
-    (2, 3, 2, 300, 33), (3, 3, 2, 200, 47), (1, 2, 2, 100, 641)])
-def test_kernel_plan_matches_plain(rb, s, r, n, k):
-    """The kernel's plan at one to four rows a block (the rows' bins
+@pytest.mark.parametrize("rb,s,r,n,k,order", [
+    (1, 3, 2, 600, K2, "repeated"), (3, 5, 2, 300, K2, "repeated"),
+    (4, 4, 3, 5, K2, "repeated"), (2, 3, 2, 300, 33, "repeated"),
+    (3, 3, 2, 200, 47, "repeated"), (1, 2, 2, 100, 641, "repeated"),
+    (6, 6, 4, 300, K2, "permuted"), (5, 5, 2, 5, K2, "repeated"),
+    (4, 12, 3, 333, K2, "repeated"), (6, 6, 2, 150, 47, "permuted"),
+    (16, 70, 5, 20, 47, "permuted"), (16, 16, 3, 70, 481, "repeated")])
+def test_kernel_plan_matches_plain(rb, s, r, n, k, order):
+    """The kernel's plan at one to sixteen rows a block (the rows' bins
     repeating and changing, the last block short): ragged last tiles (the
-    bench's 2500 outputs end that way too), a block of 5 outputs (its
+    bench's 2500 outputs end that way too), blocks of 5 outputs (their
     span all but 3 rows in the history, taken anew for each row of a
-    bin), K = 33 and 47 (three tap rows, the last part-filled, padded
-    with zero taps and zero rows to a group of O) and K = 641 (41 tap
-    rows: two whole groups of O, then one padded). Every
-    output written once and finite, within FINE_REL·max|y| of
-    ``pfb_fine_plain``."""
+    bin) and of 20, K = 33 and 47 (three tap rows, the last part-filled,
+    padded with zero taps and zero rows to a group of O), K = 641 (41 tap
+    rows: two whole groups of O, then one padded) and K = 481 (31 tap
+    rows: two whole groups, then one row and 14 zero rows; 480 would be
+    refused, the kernel takes odd tap counts); permuted bins, whose rows
+    lie apart in a block, so a bin's span is staged again after another
+    bin's (``permuted``, 70 rows over 5 bins among them), and repeated
+    bins. Every output written once and finite, within FINE_REL·max|y|
+    of ``pfb_fine_plain``."""
     rng = np.random.default_rng(rb + s + n + k)
     fine = rng.uniform(-0.5, 0.5, s)
     x, rows, hist, taps, fine, phase0, step = _operands(rng, s, r, n, k,
-                                                        fine)
+                                                        fine, order)
+    if order == "permuted":       # some block holds a bin's rows apart
+        assert any(b[j] in b[:j - 1] and b[j] != b[j - 1]
+                   for b in (rows[i:i + rb].tolist() for i in range(0, s, rb))
+                   for j in range(2, len(b)))
     got, writes = _emulate(x, rows, hist, taps, fine, phase0.numpy(),
                            step.numpy(), rb)
     assert (writes == 1).all() and np.isfinite(got).all()
@@ -320,17 +338,23 @@ def test_kernel_constants_match_the_plan():
                                             _const("FINE_BLOCKS"))
 
 
-@pytest.mark.parametrize("rows,rb", [(8192, 16), (256, 1), (64, 1)])
-def test_plan_fills_the_card(rows, rb):
-    """At the bench's 8192 slot rows and the runtime's groups of 256 and
-    64, 2500 outputs a row: the rows a block (16 at the bench, where a
-    bin's span serves the slots that share it; one for the groups) leave
-    at least one full wave of blocks on an H100, and the blocks an
-    SM holds fit its shared memory together."""
-    assert pk.fine_plan(rows, 2500, K2, H100_SMS) == rb
-    blocks = -(-rows // rb) * -(-2500 // pk.FINE_NB)
-    assert blocks >= H100_SMS * pk.FINE_BLOCKS
-    smem = pk.fine_bytes(K2)
+@pytest.mark.parametrize("rows,n,k,sms,rb", [
+    (8192, 2500, K2, H100_SMS, 16), (256, 2500, K2, H100_SMS, 1),
+    (128, 2500, K2, H100_SMS, 1), (64, 2500, K2, H100_SMS, 1),
+    (4, 700, 401, 4, 1), (8, 650, 479, 4, 1), (70, 20, 47, 4, 1),
+    (9, 100, K2, 1, 1), (36, 100, 95, 1, 3), (20, 60, 95, 1, 1)])
+def test_plan_fills_the_card(rows, n, k, sms, rb):
+    """On an H100's 132 SMs at the bench's 8192 slot rows and the
+    runtime's groups of 256, 128 and 64, 2500 outputs a row, and on cards
+    of 4 SMs and of 1 with short blocks (20 to 700 outputs) and other
+    prototypes: the rows a block (16 at the bench, where a bin's span
+    serves the slots that share it; three for 36 rows on one SM; one
+    elsewhere) leave at least one full wave of blocks on the card, and
+    the blocks an SM holds fit its shared memory together."""
+    assert pk.fine_plan(rows, n, k, sms) == rb
+    blocks = -(-rows // rb) * -(-n // pk.FINE_NB)
+    assert blocks >= sms * pk.FINE_BLOCKS
+    smem = pk.fine_bytes(k)
     assert smem <= pk.SMEM_MAX
     assert pk.FINE_BLOCKS * (smem + pk.BLOCK_RESERVED) <= pk.SM_SHARED
 
