@@ -71,7 +71,8 @@ paths, the scan slice, live SDR ingest and the mesh steps.
    history:``), both modes' step at 128 sources (``bench pfb:``,
    ``bench fft:``; fft's block is 390336 samples, 162.6 ms; the pfb
    profile may run no ``cat``, no ``addcmul_``, no gather, no cuFFT, no
-   complex multiply, no ``pfb_rows`` and no kernel P-1 times a step),
+   complex multiply, no ``pfb_rows``, no kernel P-1 times a step and
+   none of ``planes()``' copies),
    the pfb step again at the live config's 10 MS/s sources (M = 25,
    128 sources × 100 ms, ``bench pfb 10 MS/s:``) with
    ``pfb_bins``' share of it and in turns with the same step on commit
@@ -1926,25 +1927,33 @@ def fine_check(got, want, what: str, rel: float) -> float:
     return err
 
 
+def fine_rows(y_re: torch.Tensor, y_im: torch.Tensor) -> torch.Tensor:
+    """``pfb_fine``'s planes [S, N, C] as its rows [S·C, N] complex64."""
+    return torch.complex(y_re, y_im).transpose(1, 2).reshape(
+        -1, y_re.shape[1])
+
+
 def phase_pfb_fine(dev) -> tuple[dict, float]:
     """The pfb frontend's fine stage, ``pfb_fine`` (``csrc/pfb_fine.cu``:
     each row's bin mixed to its slot's offset, one real prototype filter,
-    K2 = 467 taps, D = 16), each row reading its slot's bin in place
-    through the row index: small and ragged cases (the index permuted and
-    repeated, f at ±0.5 and 0) at one and three rows a block against
-    ``pfb_fine_plain`` within ``FINE_REL`` and against the complex bank
-    on the gathered rows' modulated taps (the form it replaced) within
-    COMPLEX_REL_TOL; then at a bench-shape step (128 sources × 64 slots
-    = 8192 rows over 768 bin rows of 40000 samples,
-    ``track_turns.fine_bench_operands``): the bins (``pfb_bins_check``),
-    the kernel on all rows held to the complex bank on the gathered rows
-    and on the first PFB_ROWS to the plain version, its ms, its bound
-    (the filter's 4 FLOP a tap and the mixing's 8 a sample), the plain
-    version's ms on PFB_ROWS rows, one grouped ``conv1d`` yardstick
-    (groups = 8192, the modulated taps, no rotation) and the new fine
-    history through the row index (``row_history``) against the gathered
-    rows' (``pfb fine history:``, bit-identical). Returns (numbers, max
-    |err| over max|y| against the plain version)."""
+    K2 = 467 taps, D = 16, the outputs stored as the trackers' [S, N, C]
+    planes), each row reading its slot's bin in place through the row
+    index: small and ragged cases (the index permuted and repeated, f at
+    ±0.5 and 0, one to four sources of 1 to 16 slots) at one and three
+    rows a block against ``pfb_fine_plain`` within ``FINE_REL`` and
+    against the complex bank on the gathered rows' modulated taps (the
+    form it replaced) within COMPLEX_REL_TOL, every plane element written;
+    then at a bench-shape step (128 sources × 64 slots = 8192 rows over
+    768 bin rows of 40000 samples, ``track_turns.fine_bench_operands``):
+    the bins (``pfb_bins_check``), the kernel on all rows held to the
+    complex bank on the gathered rows and on the first PFB_ROWS to the
+    plain version, its ms, its bound (the filter's 4 FLOP a tap and the
+    mixing's 8 a sample), the plain version's ms on PFB_ROWS rows, one
+    grouped ``conv1d`` yardstick (groups = 8192, the modulated taps, no
+    rotation) and the new fine history through the row index
+    (``row_history``) against the gathered rows' (``pfb fine history:``,
+    bit-identical). Returns (numbers, max |err| over max|y| against the
+    plain version)."""
     from radiocapture_tpu_torch.ops import channelizer as chz
     from radiocapture_tpu_torch.ops import channelizer_kernel as ck
     from radiocapture_tpu_torch.ops import pfb_kernel as pk
@@ -1955,10 +1964,11 @@ def phase_pfb_fine(dev) -> tuple[dict, float]:
     taps = bank.device_taps(dev)
     rng = np.random.default_rng(12)
     worst = 0.0
-    for s, r, n, fine in ((3, 2, 37, None), (5, 4, 1001, None),
-                          (3, 2, 5, None), (3, 2, 300, [0.4999, -0.5, 0.5]),
-                          (2, 1, 300, [0.0, 1e-7]),
-                          (PFB_ROWS, 24, BLOCK // bank.decim, None)):
+    for s, c, r, n, fine in ((3, 3, 2, 37, None), (5, 5, 4, 1001, None),
+                             (3, 1, 2, 5, None),
+                             (3, 3, 2, 300, [0.4999, -0.5, 0.5]),
+                             (2, 1, 1, 300, [0.0, 1e-7]),
+                             (PFB_ROWS, 16, 24, BLOCK // bank.decim, None)):
         x = torch.as_tensor(rng.standard_normal((r, n * d, 2)).astype(
             np.float32), device=dev)
         rows = torch.as_tensor(rng.integers(0, r, s), device=dev)
@@ -1977,11 +1987,13 @@ def phase_pfb_fine(dev) -> tuple[dict, float]:
                               chz.modulated_taps(taps, fine[:, None]),
                               phase0[:, None], step[:, None], d)[:, 0]
         for rb in (1, 3):
-            args, got = pk.pfb_fine_args(*ops, d, rb=rb)
-            got.fill_(float("nan"))
+            args, planes = pk.pfb_fine_args(*ops, d, c, rb=rb, out=tuple(
+                torch.full((s // c, n, c), float("nan"), device=dev)
+                for _ in range(2)))
             kernels_check(args)
-            what = (f"pfb fine kernel: S'={s} over {r} rows N={n} K={k} "
-                    f"D={d} rb={rb}")
+            got = fine_rows(*planes)
+            what = (f"pfb fine kernel: S'={s} (C={c}) over {r} rows N={n} "
+                    f"K={k} D={d} rb={rb}")
             worst = max(worst, fine_check(got, want, what + " vs plain",
                                           pk.FINE_REL))
             fine_check(got, old, what + " vs the modulated taps",
@@ -1994,10 +2006,11 @@ def phase_pfb_fine(dev) -> tuple[dict, float]:
                       .multi_processor_count)
     res = {"rb": rb}
     ops = (xb, rows, hist, taps, fine, phase0, step)
-    res["pfb_fine_ms"] = cuda_ms(lambda: pk.pfb_fine(*ops, d), 10)
+    res["pfb_fine_ms"] = cuda_ms(lambda: pk.pfb_fine(*ops, d, SLOTS), 10)
     res["pfb_fine_ms_rb1"] = cuda_ms(lambda: kernels_check(
-        pk.pfb_fine_args(*ops, d, rb=1)[0]), 10)
-    y = pk.pfb_fine(*ops, d)
+        pk.pfb_fine_args(*ops, d, SLOTS, rb=1)[0]), 10)
+    planes = pk.pfb_fine(*ops, d, SLOTS)
+    y = fine_rows(*planes)
     grev = chz.modulated_taps(taps, fine[:, None])
     xg = xb[rows]
     old = ck.bank_complex(xg, hist, grev, phase0[:, None], step[:, None],
@@ -2018,7 +2031,7 @@ def phase_pfb_fine(dev) -> tuple[dict, float]:
     flops = 4.0 * nrows * n * k + 12.0 * nrows * (n * d + k - 1)
     res["pfb_fine_flop"] = flops
     res["pfb_fine_bytes"] = tensor_bytes(xb, rows, hist, taps, fine, phase0,
-                                         step, y)
+                                         step, planes)
     res["pfb_fine_bound_ms"], res["pfb_fine_bound_by"] = bound(
         flops, F32_PEAK, res["pfb_fine_bytes"])
     # the yardstick: the modulated taps' correlation, re/im the two
@@ -2039,7 +2052,7 @@ def phase_pfb_fine(dev) -> tuple[dict, float]:
     if mag_err > 10 * COMPLEX_REL_TOL * scale:     # cuDNN picks its algorithm
         raise AssertionError(f"conv1d yardstick computes another function: "
                              f"|y| differs by {mag_err}")
-    del out, y, old
+    del out, y, old, planes
     log(f"pfb fine bank: {nrows} rows (S={BENCH_SOURCES} x C={SLOTS}) x "
         f"N={n}, K={k}, D={d}, bins read in place ({xb.shape[0]} bin rows), "
         f"{rb} rows a block: kernel {res['pfb_fine_ms']:.4f} ms (one row a "
@@ -2339,10 +2352,11 @@ def phase_decode_pfb(dev) -> tuple[dict, dict]:
         dev, ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE, frontend="pfb"),
         "decode pfb", ("pfb_bins", "pfb_fine", "fsk_track"), keep=got)
 
-    def modulated(xb, rows, hist, taps, fine, phase0, step, d):
-        return ck.bank_complex(xb[rows], hist,
-                               chz.modulated_taps(taps, fine[:, None]),
-                               phase0[:, None], step[:, None], d)[:, 0]
+    def modulated(xb, rows, hist, taps, fine, phase0, step, d, c):
+        y = ck.bank_complex(xb[rows], hist,
+                            chz.modulated_taps(taps, fine[:, None]),
+                            phase0[:, None], step[:, None], d)
+        return chz.planes(y.view(-1, c, y.shape[-1]))
 
     mixer, chz.pfb_fine = chz.pfb_fine, modulated
     try:
@@ -2456,13 +2470,13 @@ def phase_frontend_bench(dev, frontend: str,
 
 
 def planes_copies(bank, state, x, offs, step_kernels) -> dict:
-    """Names the pfb step's two launches of one elementwise kernel:
-    ``ops/channelizer.py::planes`` (the time-major float32 planes the
-    tracker reads, two ``.contiguous()`` copies of the fine stage's
-    [S, C, N] channels transposed), which ``PfbXlatBank.call_planes``
-    calls once a step, profiled alone on the step's own channels: each
-    device kernel's full name, launches a call and ms, and what the step's
-    profile (``step_kernels``) ran of the same kernels."""
+    """The pfb step runs none of the kernels of ``ops/channelizer.py::
+    planes`` (two ``.contiguous()`` copies of [S, C, N] channels
+    transposed, which ``PfbXlatBank.call_planes`` ran once a step before
+    ``pfb_fine`` wrote the planes itself): ``planes()`` of the bank's
+    channels profiled alone, each device kernel's full name, launches a
+    call and ms, and what the step's profile (``step_kernels``) ran of
+    the same kernels, which must be nothing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from radiocapture_tpu_torch.ops.channelizer import planes
@@ -2481,10 +2495,13 @@ def planes_copies(bank, state, x, offs, step_kernels) -> dict:
         res.append({"kernel": e.key, "launches": e.count / PROFILE_STEPS,
                     "ms": e.self_device_time_total / 1e3 / PROFILE_STEPS,
                     "step_launches": n, "step_ms": ms})
-        log(f"profile: c4fm pfb: planes() of the step's [S, C, N] channels "
-            f"launches {res[-1]['launches']:.1f} x {e.key} "
-            f"({res[-1]['ms']:.3f} ms a call); the step runs it "
-            f"{n:.1f} times, {ms:.3f} ms")
+        log(f"profile: c4fm pfb: planes() of [S, C, N] channels launches "
+            f"{res[-1]['launches']:.1f} x {e.key} ({res[-1]['ms']:.3f} ms a "
+            f"call); the step runs it {n:.1f} times, {ms:.3f} ms "
+            f"{'ok' if n == 0 else 'FAIL'}")
+    if not res or any(r["step_launches"] for r in res):
+        raise AssertionError("profile: c4fm pfb: the step copies the "
+                             "channels into planes")
     return {"kernels": res}
 
 

@@ -52,8 +52,21 @@
 //     row and one of the row's taps (reversed, zero past K) a tap row
 //     against 4*O FMAs. Two shuffles sum the four lanes' partial sums of
 //     each output;
-//   - the two parts meet in shared memory, and each output is rotated
-//     once by the phasor of v(n) and stored in whole rows.
+//   - the two parts meet in shared memory, in a box of G = 3 rows'
+//     sums; once a group of G consecutive rows is filtered, each of its
+//     outputs is rotated once by the phasor of v(n) and stored straight
+//     into the trackers' time-major float32 planes y_re, y_im [S/C, N,
+//     C]: row s is slot s % C of source s / C, so a time step's G slots
+//     are one run of consecutive floats (two where the group straddles
+//     two sources), and a row's own outputs C floats apart. A run
+//     costs about what a lone float does (one write request to L2; a TMA
+//     tensor store of 4-slot runs cost what threads' stores do): row by
+//     row the planes took 0.22 ms more of the bench's 1.41 than whole
+//     complex rows, in runs of 3 slots 0.07 (H100). A box of all 16 rows
+//     leaves an SM two blocks (1.66 ms); runs of 4 need the taps out of
+//     shared memory, and read from constant memory or through L1 they
+//     slow the filter by what the runs save. G = 3 is the most the third
+//     block's shared memory holds.
 //
 // O is small (15, a divisor of the 30 tap rows of K = 467): larger
 // windows ran slower on an H100, for the warps their registers cost; three
@@ -78,6 +91,7 @@ constexpr int FINE_NT = FINE_WP * 64;     // threads a block
 constexpr int FINE_NB = FINE_WP * (32 / LANES) * FINE_O;   // outputs a tile
 constexpr int FINE_BLOCKS = 3;    // blocks an SM holds (shared memory)
 constexpr int MIX_THREADS = 8;    // threads a row in the mixing pass
+constexpr int FINE_G = 3;         // slot rows a store group
 static_assert(ROW * (int)sizeof(float) == 128, "a row spans the banks once");
 static_assert(FINE_O % 2 == 1, "O odd: groups O rows apart, both halves");
 static_assert(PLANES == 4 && MIX_THREADS == 8, "16-byte chunks");
@@ -141,13 +155,49 @@ __device__ __forceinline__ int chunk(int m, int p, int h) {
 
 // The block's shared memory in bytes at qp tap rows (Q rounded up to
 // whole groups of O): the raw span and the mixed rows (NB + qp - 1 rows
-// of 128 bytes each), the taps (qp rows of D), the mixer's row steps and
-// the two parts' sums (NB each).
+// of 128 bytes each), the taps (qp rows of D), the mixer's row steps, the
+// copies' mbarrier, and for a store group's G rows their planes' offsets,
+// phase0, step and sigma and the two parts' sums (2 x NB x G).
 __host__ __device__ constexpr int fine_bytes(int nb, int qp, int rstride) {
   return 2 * (nb + qp - 1) * ROW * (int)sizeof(float)
          + qp * FINE_D * (int)sizeof(float)
          + (nb + qp - 1 + rstride - 1) / rstride * (int)sizeof(float2)
-         + 2 * nb * (int)sizeof(float);
+         + (int)sizeof(unsigned long long)
+         + FINE_G * ((int)sizeof(long long) + 3 * (int)sizeof(uint32_t))
+         + 2 * nb * FINE_G * (int)sizeof(float);
+}
+
+// Rotate and store the outputs of a group of g <= FINE_G filtered rows:
+// box [2][NB][FINE_G] their two parts' sums, at[j] the planes' offset of
+// row j's output n0, rsc its phase0, step and sigma ([3][FINE_G]). The g
+// rows' values of one time step are consecutive threads' and consecutive
+// floats. g is a template parameter, reached from the group's row count
+// at run time: dividing by a run-time g cost the kernel 2% on an H100 at
+// 8192, 256 and 64 rows, and stepping by FINE_G with the slots past g
+// idle 2.5% at 256 rows.
+template <int G>
+__device__ __forceinline__ void store_group(
+    const float* box, const long long* at, const uint32_t* rsc, int g,
+    int n0, int count, int K, int C, float* __restrict__ y_re,
+    float* __restrict__ y_im) {
+  if constexpr (G > 1) {
+    if (g < G) {
+      store_group<G - 1>(box, at, rsc, g, n0, count, K, C, y_re, y_im);
+      return;
+    }
+  }
+  for (int idx = threadIdx.x; idx < G * count; idx += FINE_NT) {
+    const int k = idx / G, j = idx - k * G;
+    const uint32_t n = (uint32_t)(n0 + k);
+    const uint32_t v = rsc[j] + rsc[FINE_G + j] * n
+        + rsc[2 * FINE_G + j] * (n * FINE_D + (uint32_t)(K - 1));
+    const float2 yv = cmul(make_float2(box[k * FINE_G + j],
+                                       box[(FINE_NB + k) * FINE_G + j]),
+                           cis(v));
+    const long long a = at[j] + (long long)k * C;
+    y_re[a] = yv.x;
+    y_im[a] = yv.y;
+  }
 }
 
 __global__ void __launch_bounds__(FINE_NT, FINE_BLOCKS)
@@ -158,12 +208,11 @@ pfb_fine_kernel(const float2* __restrict__ x,
                 const float* __restrict__ fine,
                 const long long* __restrict__ phase0,
                 const long long* __restrict__ step,
-                float2* __restrict__ y, int S, int T, int N, int K,
-                int rb) {
+                float* __restrict__ y_re, float* __restrict__ y_im,
+                int S, int T, int N, int K, int C, int rb) {
   constexpr int O = FINE_O, NT = FINE_NT, NB = FINE_NB;
   constexpr int RSTRIDE = NT / MIX_THREADS;   // rows a mixing pass
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ __align__(8) unsigned long long bar;
   const int Q = (K + FINE_D - 1) / FINE_D;
   const int QP = (Q + O - 1) / O * O;     // whole groups of O tap rows
   const int tid = threadIdx.x;
@@ -177,11 +226,14 @@ pfb_fine_kernel(const float2* __restrict__ x,
   float* mixed = raw + (NB + QP - 1) * ROW;
   float* tp = mixed + (NB + QP - 1) * ROW;
   float2* ek = reinterpret_cast<float2*>(tp + QP * FINE_D);
-  float* out = reinterpret_cast<float*>(
-      ek + (NB + QP - 1 + RSTRIDE - 1) / RSTRIDE);   // [2][NB]
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(
+      ek + (NB + QP - 1 + RSTRIDE - 1) / RSTRIDE);
+  long long* at = reinterpret_cast<long long*>(bar + 1);     // [G]
+  uint32_t* rsc = reinterpret_cast<uint32_t*>(at + FINE_G);  // [3][G]
+  float* box = reinterpret_cast<float*>(rsc + 3 * FINE_G);   // [2][NB][G]
   const int z0 = n0 * FINE_D, zn = rows * FINE_D;
   const int hn = max(0, min(K - 1 - z0, zn));  // history samples of it
-  const uint32_t b = smem_u32(&bar);
+  const uint32_t b = smem_u32(bar);
   // row s's span, samples [z0, z0 + zn): its history part, and the bin's
   // part when the bin is not the one staged (thread 0)
   auto stage = [&](int s, bool bin) {
@@ -218,17 +270,30 @@ pfb_fine_kernel(const float2* __restrict__ x,
   const float4* mix4 = reinterpret_cast<const float4*>(mixed);
   for (int i = 0; i < nrow; ++i) {
     const int s = s0 + i;
+    const int slot = i % FINE_G;          // the row's place in its group
     // the row's mixer: sigma, the row steps ek[k] =
     // phasor(-sigma*D*RSTRIDE*k) and the thread's base phasors, of
     // samples z0 + D*r0 + 2*c + j
     const uint32_t sig = (uint32_t)__double2ll_rn(
         (double)__ldg(fine + s) * 4294967296.0);
+    long long p0 = 0, st = 0;               // the row's rotation (thread 0)
+    if (tid == 0) {
+      p0 = __ldg(phase0 + s);
+      st = __ldg(step + s);
+    }
     for (int k = tid; k < steps; k += NT)
       ek[k] = cis(0u - sig * (uint32_t)(FINE_D * RSTRIDE * k));
     const uint32_t u0 = 0u - sig * (uint32_t)(z0 + FINE_D * r0 + 2 * c);
     const float2 ph0 = cis(u0), ph1 = cis(u0 - sig);
     if (pending) mbar_wait(b, (copies - 1) & 1);
-    __syncthreads();    // the span, the steps; the last row's stores read
+    __syncthreads();    // the span, the steps; the last group stored
+    if (tid == 0) {     // where the row's outputs go, and their rotation
+      const int src = s / C;
+      at[slot] = ((long long)src * N + n0) * C + (s - src * C);
+      rsc[slot] = (uint32_t)p0;
+      rsc[FINE_G + slot] = (uint32_t)st;
+      rsc[2 * FINE_G + slot] = sig;
+    }
 
     // mix: samples 2c, 2c+1 of raw row r (chunk c) become float2 c of
     // mixed row r's real half and of its imaginary half; the rows past
@@ -312,20 +377,15 @@ pfb_fine_kernel(const float2* __restrict__ x,
       for (int r = 0; r < O; ++r) {
         acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], 1);
         acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], 2);
-        if (r % LANES == h) out[part * NB + base + r] = acc[r];
+        if (r % LANES == h)
+          box[(part * NB + base + r) * FINE_G + slot] = acc[r];
       }
     }
     __syncthreads();    // the parts' sums written, the rows read
 
-    // rotate each output once and store the row's tile
-    const uint32_t p0 = (uint32_t)__ldg(phase0 + s);
-    const uint32_t st = (uint32_t)__ldg(step + s);
-    float2* ys = y + (long long)s * N + n0;
-    for (int k = tid; k < count; k += NT) {
-      const uint32_t n = (uint32_t)(n0 + k);
-      const uint32_t v = p0 + st * n + sig * (n * FINE_D + (uint32_t)(K - 1));
-      ys[k] = cmul(make_float2(out[k], out[NB + k]), cis(v));
-    }
+    if (slot == FINE_G - 1 || i == nrow - 1)   // the group filtered
+      store_group<FINE_G>(box, at, rsc, slot + 1, n0, count, K, C, y_re,
+                          y_im);
   }
 }
 
@@ -335,14 +395,17 @@ pfb_fine_kernel(const float2* __restrict__ x,
 // xrow [S] int64 rows of x in [0, R); hist [S, K-1] complex64 (16-byte
 // aligned); taps [K] float32, the prototype; fine [S] float32, each
 // row's offset in cycles per bin sample; phase0, step [S] int64 uint32
-// values; y [S, N] complex64. T = N*16 and K odd (whole 16-byte spans of
-// history and bin); rb consecutive rows a block.
+// values; y_re, y_im [S/C, N, C] float32, the planes of the rows as
+// C slots a source (S % C == 0). T = N*16 and K odd (whole 16-byte spans
+// of history and bin); rb consecutive rows a block.
 extern "C" int pfb_fine_launch(const void* x, const void* xrow,
                                const void* hist, const void* taps,
                                const void* fine, const void* phase0,
-                               const void* step, void* y, int S, int T,
-                               int N, int K, int rb, void* stream) {
-  if (K <= 0 || K % 2 == 0 || N < 0 || T != N * FINE_D || rb < 1)
+                               const void* step, void* y_re, void* y_im,
+                               int S, int T, int N, int K, int C, int rb,
+                               void* stream) {
+  if (K <= 0 || K % 2 == 0 || N < 0 || T != N * FINE_D || rb < 1 || C < 1 ||
+      S % C)
     return (int)cudaErrorInvalidValue;
   if (S <= 0 || N == 0) return (int)cudaSuccess;
   const int QP = ((K + FINE_D - 1) / FINE_D + FINE_O - 1) / FINE_O * FINE_O;
@@ -359,6 +422,7 @@ extern "C" int pfb_fine_launch(const void* x, const void* xrow,
   pfb_fine_kernel<<<grid, FINE_NT, smem, (cudaStream_t)stream>>>(
       (const float2*)x, (const long long*)xrow, (const float2*)hist,
       (const float*)taps, (const float*)fine, (const long long*)phase0,
-      (const long long*)step, (float2*)y, S, T, N, K, rb);
+      (const long long*)step, (float*)y_re, (float*)y_im, S, T, N, K, C,
+      rb);
   return (int)cudaGetLastError();
 }

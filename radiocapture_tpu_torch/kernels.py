@@ -77,8 +77,9 @@ _SIGNATURES = {
     # hist, x, hp2, table, bins, new_hist, S, T, M, P, x_bf16, k, wb,
     # slabs, m1, m2, stream
     "pfb_bins_launch": (_P,) * 6 + (_I,) * 10 + (_P,),
-    # x, xrow, hist, taps, fine, phase0, step, y, S, T, N, K, rb, stream
-    "pfb_fine_launch": (_P,) * 8 + (_I,) * 5 + (_P,),
+    # x, xrow, hist, taps, fine, phase0, step, y_re, y_im, S, T, N, K, C,
+    # rb, stream
+    "pfb_fine_launch": (_P,) * 9 + (_I,) * 6 + (_P,),
 }
 
 

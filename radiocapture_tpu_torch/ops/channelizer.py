@@ -409,7 +409,9 @@ class PfbXlatBank:
     only where the channels round as JAX's do. On the card each row reads
     its slot's bin in place from the PFB's bin-major bins by a row index,
     as the JAX step's ``bins[chan]`` gather (channelizer.py:362) selects
-    it; no gathered [S·C, T/M] block is built."""
+    it; no gathered [S·C, T/M] block is built, and the kernel writes the
+    trackers' planes itself (``call_planes``), so no [S, C, T//decim]
+    complex channels are built on the step's path either."""
 
     def __init__(self, num_slots: int, samp_rate: float,
                  channel_rate: float, bin_rate: float = 400e3,
@@ -475,32 +477,55 @@ class PfbXlatBank:
                 state.fine.phase.reshape(-1),
                 phase_step_u32(fine, self.decim2).reshape(-1))
 
+    @staticmethod
+    def _carried(state: PfbXlatBankState, ps: PfbState, xb: torch.Tensor,
+                 rows: torch.Tensor, hist: torch.Tensor,
+                 phase0: torch.Tensor, step: torch.Tensor,
+                 n: int) -> PfbXlatBankState:
+        """The state after ``state``'s step of N outputs: the PFB's ``ps``,
+        each slot's fine history (``row_history``) and phase."""
+        s, c = state.fine.phase.shape
+        return PfbXlatBankState(pfb=ps, fine=XlatState(
+            history=row_history(hist, xb, rows).view(s, c, -1),
+            phase=((phase0 + step * n) & U32_MASK).view(s, c)))
+
     def __call__(self, state: PfbXlatBankState, x: torch.Tensor,
                  offsets_norm: torch.Tensor
                  ) -> tuple[PfbXlatBankState, torch.Tensor]:
         """x [S, T] complex64 (or an [S, T, 2] wire block), T % decim ==
         0; offsets_norm [S, C] cycles/input sample → channels [S, C,
-        T//decim] complex64."""
+        T//decim] complex64. On the card, ``call_planes``' planes packed
+        into complex channels (a copy, off the step's path)."""
+        if x.device.type != "cpu":
+            state, y_re, y_im = self.call_planes(state, x, offsets_norm)
+            return state, torch.complex(y_re, y_im).transpose(1, 2
+                                                              ).contiguous()
         ps, xb, rows, hist, fine, phase0, step = self.fine_operands(
             state, x, offsets_norm)
-        taps = self.device_taps(xb.device)
-        if xb.device.type == "cpu":    # the JAX form, the parity reference
-            y = bank_complex(xb[rows], hist,
-                             modulated_taps(taps, fine[:, None]),
-                             phase0[:, None], step[:, None], self.decim2)
-        else:
-            y = pfb_fine(xb, rows, hist, taps, fine, phase0, step,
-                         self.decim2)
+        # the JAX form, the parity reference
+        y = bank_complex(xb[rows], hist,
+                         modulated_taps(self.device_taps(xb.device),
+                                        fine[:, None]),
+                         phase0[:, None], step[:, None], self.decim2)
         s, c = state.fine.phase.shape
         n = y.shape[-1]
-        fs = XlatState(history=row_history(hist, xb, rows).view(s, c, -1),
-                       phase=((phase0 + step * n) & U32_MASK).view(s, c))
-        return PfbXlatBankState(pfb=ps, fine=fs), y.view(s, c, n)
+        return (self._carried(state, ps, xb, rows, hist, phase0, step, n),
+                y.view(s, c, n))
 
     def call_planes(self, state: PfbXlatBankState, x: torch.Tensor,
                     offsets_norm: torch.Tensor
                     ) -> tuple[PfbXlatBankState, torch.Tensor, torch.Tensor]:
         """``__call__`` with the channels as time-major float32 planes
-        y_re, y_im [S, T//decim, C], the layout the trackers read."""
-        state, y = self(state, x, offsets_norm)
-        return (state, *planes(y))
+        y_re, y_im [S, T//decim, C], the layout the trackers read: on the
+        card ``pfb_fine``'s own output, on the CPU ``planes()`` of the JAX
+        form's channels."""
+        if x.device.type == "cpu":
+            state, y = self(state, x, offsets_norm)
+            return (state, *planes(y))
+        ps, xb, rows, hist, fine, phase0, step = self.fine_operands(
+            state, x, offsets_norm)
+        y_re, y_im = pfb_fine(xb, rows, hist, self.device_taps(xb.device),
+                              fine, phase0, step, self.decim2,
+                              state.fine.phase.shape[1])
+        return (self._carried(state, ps, xb, rows, hist, phase0, step,
+                              y_re.shape[1]), y_re, y_im)

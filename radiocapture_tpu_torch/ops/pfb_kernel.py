@@ -23,8 +23,9 @@ the chain the pfb step ran before it: ``pfb_rows_plain``,
 ``pfb_fine`` is the fine stage after it (``csrc/pfb_fine.cu``): each
 slot's row of bin samples mixed to the slot's offset by the phasor of an
 exact uint32 ramp, one real prototype filter for every slot, and the
-rotation. Its plain version, ``pfb_fine_plain``, is the same float32
-arithmetic in eager PyTorch.
+rotation, written as the trackers' time-major float32 planes. Its plain
+version, ``pfb_fine_plain``, is the same float32 arithmetic in eager
+PyTorch, one complex row a slot.
 """
 
 from __future__ import annotations
@@ -387,8 +388,10 @@ FINE_LANES = 4       # lanes a group: each takes 4 of a row's 16 samples
 FINE_WP = 2          # warps a part (real or imaginary) a block
 FINE_MIX = 8         # threads a row in the mixing pass
 FINE_BLOCKS = 3      # blocks an SM holds (its __launch_bounds__)
+FINE_G = 3           # slot rows a store group
 FINE_NB = FINE_WP * 32 // FINE_LANES * FINE_O   # outputs a tile
-FINE_RB_MAX = 16     # slot rows a block at most
+FINE_RB_MAX = 12     # slot rows a block at most: four store groups
+FINE_RB_MIN = 2      # ... and at least, where there are two
 # pfb_fine (the kernel, and its plan emulated on the CPU) against
 # pfb_fine_plain and the float64 function, × max|y|: both mix by phasors
 # of float32 angles (float(u)·2π/2^32) and sum in float32 in other orders
@@ -446,12 +449,13 @@ def fine_bytes(k: int) -> int:
     """A block's shared memory at K taps, as ``csrc/pfb_fine.cu``'s
     ``fine_bytes``, with the Q = ⌈K/D⌉ tap rows rounded up to QP, whole
     groups of FINE_O: the raw span and the mixed rows (NB + QP - 1 rows of
-    128 bytes each), the QP·D taps, the mixer's row steps and the two
-    parts' sums."""
+    128 bytes each), the QP·D taps, the mixer's row steps, the copies'
+    mbarrier, and for a store group of FINE_G rows their planes' offsets,
+    phase0, step and sigma and their two parts' sums."""
     qp = -(-(-(-k // FINE_D)) // FINE_O) * FINE_O
     rows, rstride = FINE_NB + qp - 1, FINE_WP * 64 // FINE_MIX
-    return (2 * 128 * rows + 4 * qp * FINE_D + 8 * -(-rows // rstride)
-            + 8 * FINE_NB)
+    return (2 * 128 * rows + 4 * qp * FINE_D + 8 * -(-rows // rstride) + 8
+            + 20 * FINE_G + 8 * FINE_NB * FINE_G)
 
 
 @functools.cache
@@ -459,17 +463,22 @@ def fine_plan(rows: int, n: int, k: int, sms: int) -> int:
     """The fine stage's slot rows a block for ``rows`` rows of N outputs
     at K taps on a card of ``sms`` SMs. A block takes one tile of FINE_NB
     outputs of rb consecutive rows, one after another, staging a bin's
-    span once for the rows that read it; rb is the most (up to
-    FINE_RB_MAX) that leaves four waves of blocks on the card, so that the
-    runtime's groups of 64 to 256 rows take one row a block and fill it
-    (on an H100 at 256 rows one row a block took 0.0540 ms, three 0.0556;
-    at 8192, 16 rows 1.4196, 8 rows 1.4199, one 1.5599). Raises
-    ValueError where a block's shared memory passes what one can use."""
+    span once for the rows that read it, and stores its rows' outputs
+    into the planes FINE_G rows at a time, one run of slots a time step;
+    a run costs the store path what one float does. rb is the most, up
+    to FINE_RB_MAX (four whole store groups), that leaves four waves of
+    blocks on the card, and at least FINE_RB_MIN: on an H100 at 8192
+    rows, 12 rows a block took 1.4787 ms, 15 1.4849, 16 1.4878; at the
+    runtime's 64 rows two rows a block 0.0180 against one 0.0202 (a
+    partial wave of blocks storing runs of two), at 128 0.0324 against
+    0.0346, at 256 0.0579 against 0.0623. Raises ValueError where a
+    block's shared memory passes what one can use."""
     if fine_bytes(k) > SMEM_MAX:
         raise ValueError(f"pfb_fine: K={k} taps need more shared memory "
                          f"than a block can use ({SMEM_MAX} bytes)")
     blocks = rows * -(-n // FINE_NB)
-    return max(1, min(FINE_RB_MAX, blocks // (4 * sms * FINE_BLOCKS)))
+    return max(min(FINE_RB_MIN, rows),
+               min(FINE_RB_MAX, blocks // (4 * sms * FINE_BLOCKS)))
 
 
 @functools.cache
@@ -477,19 +486,28 @@ def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def _check_slots(s: int, c: int) -> None:
+    if c < 1 or s % c:
+        raise ValueError(f"pfb_fine: {s} rows are not whole sources of "
+                         f"C = {c} slots")
+
+
 def pfb_fine_args(x: torch.Tensor, rows: torch.Tensor,
                   history: torch.Tensor, taps: torch.Tensor,
                   fine: torch.Tensor, phase0: torch.Tensor,
-                  step: torch.Tensor, d: int, rb: int | None = None):
+                  step: torch.Tensor, d: int, c: int, rb: int | None = None,
+                  out: tuple[torch.Tensor, torch.Tensor] | None = None):
     """Validate the fine-stage kernel's inputs, plan its launch
-    (``fine_plan``, or ``rb`` rows a block) and allocate its output: (the
-    arguments of the C entry point ``pfb_fine_launch``, y [S, T//d]
-    complex64). Raises ValueError on what the kernel does not take:
-    another dtype or shape, d ≠ FINE_D, an even tap count, a
-    non-contiguous or misaligned tensor (the bulk copies read whole
-    16-byte spans of history and bins), tensors on different devices, or
-    tensors off the card. The values of ``rows`` are not checked: that
-    would sync with the host."""
+    (``fine_plan``, or ``rb`` rows a block) and allocate its outputs, or
+    take ``out``: (the arguments of the C entry point ``pfb_fine_launch``,
+    the planes (y_re, y_im) [S/c, T//d, c] float32 of the S rows as c
+    slots a source). Raises ValueError on what the kernel does not take:
+    another dtype or shape, d ≠ FINE_D, an even tap count, S not a
+    multiple of c, a non-contiguous or misaligned tensor (the bulk copies
+    read whole 16-byte spans of history and bins), planes of another
+    shape or not contiguous, tensors on different devices, or tensors off
+    the card. The values of ``rows`` are not checked: that would sync
+    with the host."""
     if (x.dtype != torch.float32 or x.dim() != 3 or x.shape[-1] != 2
             or not x.is_contiguous() or x.data_ptr() % 16):
         raise ValueError(f"pfb_fine: x must be contiguous 16-byte aligned "
@@ -503,6 +521,15 @@ def pfb_fine_args(x: torch.Tensor, rows: torch.Tensor,
                          f"== 0 and an odd tap count, got D = {d}, T = {t}, "
                          f"K = {k}")
     s = rows.shape[0] if rows.dim() == 1 else -1
+    n = t // d
+
+    def expect(name, v, dt, shape):
+        if (v.device != x.device or v.dtype != dt
+                or tuple(v.shape) != shape or not v.is_contiguous()):
+            raise ValueError(f"pfb_fine: {name} must be a contiguous {dt} "
+                             f"tensor of shape {shape} on {x.device}, got "
+                             f"{v.dtype} {tuple(v.shape)} on {v.device}")
+
     for name, v, dt, shape in (
             ("rows", rows, torch.int64, (s,)),
             ("history", history, torch.complex64, (s, k - 1)),
@@ -510,42 +537,51 @@ def pfb_fine_args(x: torch.Tensor, rows: torch.Tensor,
             ("fine", fine, torch.float32, (s,)),
             ("phase0", phase0, torch.int64, (s,)),
             ("step", step, torch.int64, (s,))):
-        if (v.device != x.device or v.dtype != dt
-                or tuple(v.shape) != shape or not v.is_contiguous()):
-            raise ValueError(f"pfb_fine: {name} must be a contiguous {dt} "
-                             f"tensor of shape {shape} on {x.device}, got "
-                             f"{v.dtype} {tuple(v.shape)} on {v.device}")
+        expect(name, v, dt, shape)
+    _check_slots(s, c)
+    pshape = (s // c, n, c)
+    y_re, y_im = out or (torch.empty(pshape, dtype=torch.float32,
+                                     device=x.device) for _ in range(2))
+    expect("y_re", y_re, torch.float32, pshape)
+    expect("y_im", y_im, torch.float32, pshape)
     if history.data_ptr() % 16:
         raise ValueError("pfb_fine: history must be 16-byte aligned")
     if x.device.type != "cuda":
         raise ValueError(f"pfb_fine: the kernel takes CUDA tensors, got "
                          f"{x.device}")
-    n = t // d
     rb = rb or fine_plan(s, n, k, _sms(x.device))
-    y = torch.empty((s, n), dtype=torch.complex64, device=x.device)
     args = (x.data_ptr(), rows.data_ptr(), history.data_ptr(),
             taps.data_ptr(), fine.data_ptr(), phase0.data_ptr(),
-            step.data_ptr(), y.data_ptr(), s, t, n, k, rb,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    return args, y
+            step.data_ptr(), y_re.data_ptr(), y_im.data_ptr(), s, t, n, k, c,
+            rb, torch.cuda.current_stream(x.device).cuda_stream)
+    return args, (y_re, y_im)
 
 
 def pfb_fine(x: torch.Tensor, rows: torch.Tensor, history: torch.Tensor,
              taps: torch.Tensor, fine: torch.Tensor, phase0: torch.Tensor,
-             step: torch.Tensor, d: int) -> torch.Tensor:
-    """The pfb fine stage on one block: ``pfb_fine_plain`` on CPU tensors,
-    one launch of the CUDA kernel ``csrc/pfb_fine.cu`` on CUDA tensors,
-    which reads the bins (through ``rows``) and the history in place;
-    what it does not take raises (``pfb_fine_args``). Returns y [S, T//d]
-    complex64 (the operands as ``pfb_fine_plain`` takes them).
+             step: torch.Tensor, d: int, c: int
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pfb fine stage on one block, its S rows taken as c slots a
+    source (row s·c + j is slot j of source s): the planes of
+    ``pfb_fine_plain`` on CPU tensors, one launch of the CUDA kernel
+    ``csrc/pfb_fine.cu`` on CUDA tensors, which reads the bins (through
+    ``rows``) and the history in place and writes the planes itself;
+    what it does not take raises (``pfb_fine_args``). Returns the
+    time-major float32 planes y_re, y_im [S/c, T//d, c] the trackers read
+    (the operands as ``pfb_fine_plain`` takes them).
 
     Bound by float32 FMAs: the real-tap filter's 2 FMAs a tap for each
     output and part, 3.83e10 FLOP at the bench shape (8192 rows × 2500
     outputs × 467 taps, 0.571 ms at 67 TFLOP/s), where the modulated
     taps took 4; the mixing about 8 FLOP a staged sample more."""
     if x.device.type == "cpu":
-        return pfb_fine_plain(x, rows, history, taps, fine, phase0, step, d)
+        s, n = rows.shape[0], x.shape[1] // d
+        _check_slots(s, c)
+        y = pfb_fine_plain(x, rows, history, taps, fine, phase0, step, d)
+        yt = y.view(s // c, c, n).transpose(1, 2)
+        return yt.real.contiguous(), yt.imag.contiguous()
     from radiocapture_tpu_torch import kernels
-    args, y = pfb_fine_args(x, rows, history, taps, fine, phase0, step, d)
+    args, planes = pfb_fine_args(x, rows, history, taps, fine, phase0, step,
+                                 d, c)
     kernels.launch("pfb_fine", *args)
-    return y
+    return planes

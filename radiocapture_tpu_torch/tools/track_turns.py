@@ -73,6 +73,24 @@ new histories are bit-identical::
     python3 -m radiocapture_tpu_torch.tools.track_turns --kernel \
         pfb_bins radiocapture_tpu_torch/tools/pfb_rows_ef6af1a.cu
 
+``--kernel pfb_fine``: the other source must export ``pfb_fine_launch``
+with the signature the kernel had before it wrote the trackers' planes
+(one complex64 row a slot: ``FINE_ROWS_SIGNATURE``), as the parent
+commit's ``csrc/pfb_fine.cu`` has it; take it from that commit's
+``git archive``. On the fine stage's bench operands
+(``fine_bench_operands``) and their first 256 and 64 rows (the
+runtime's groups), each kernel at its own plan's rows a block (the
+other's ``fine_rows_plan``, the package's ``fine_plan``), the tool
+times the two kernels alone in turns, then the other kernel followed by
+``planes()`` (the step's path before) against the package's, and counts
+the plane elements that are bit-identical to ``planes()`` of the other's
+rows::
+
+    mkdir -p _chip/parent && git archive <commit> \
+        radiocapture_tpu_torch/csrc/pfb_fine.cu | tar -x -C _chip/parent
+    python3 -m radiocapture_tpu_torch.tools.track_turns --kernel \
+        pfb_fine _chip/parent/radiocapture_tpu_torch/csrc/pfb_fine.cu
+
 The planes are the bank's output at the bench shape (128 sources × 64
 slots × 2500 samples, random-normal bf16 wire, mid-stream after three
 steps; for ``cqpsk_track`` the split2 → CQPSK shape, 256 halves × 64
@@ -107,6 +125,7 @@ from radiocapture_tpu_torch.frontend.pipeline import (AnalogVoicePipeline,
                                                       SpectrumSplit2,
                                                       split2_sources)
 from radiocapture_tpu_torch.ops import channelizer_kernel as ck
+from radiocapture_tpu_torch.ops.channelizer import planes
 from radiocapture_tpu_torch.ops import fm
 from radiocapture_tpu_torch.ops import fm_kernel as fk
 from radiocapture_tpu_torch.ops import pfb_kernel as pk
@@ -133,6 +152,11 @@ COMPLEX_Z_SIGNATURE = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5
 # S, T, M, P, x_bf16, k, wb, slabs, stream
 BINS_DIRECT_SIGNATURE = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 8
                          + (ctypes.c_void_p,))
+# pfb_fine_launch before the planes store: x, xrow, hist, taps, fine,
+# phase0, step, y, S, T, N, K, rb, stream
+FINE_ROWS_SIGNATURE = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 5
+                       + (ctypes.c_void_p,))
+FINE_ROWS = (8192, 256, 64)   # the bench's slot rows, the runtime's groups
 
 
 def build_other(src: Path, entry: str = "fsk_track_launch",
@@ -494,6 +518,76 @@ def fine_bench_operands(dev):
             bank.decim2)
 
 
+def fine_rows_plan(rows: int, n: int, sms: int) -> int:
+    """The rows a block the fine stage's kernel took before it wrote the
+    planes (commit 149010e's ``fine_plan``): the most, up to 16, that
+    leaves four waves of blocks of three an SM, at least one."""
+    blocks = rows * -(-n // pk.FINE_NB)
+    return max(1, min(16, blocks // (4 * sms * pk.FINE_BLOCKS)))
+
+
+def fine_turns(src: Path, ops: tuple, d: int, c: int = SLOTS,
+               iters: int = ITERS, row_counts: tuple = FINE_ROWS) -> dict:
+    """``pfb_fine`` built from ``src`` (one complex64 row a slot,
+    ``FINE_ROWS_SIGNATURE``) against the package's, which writes the
+    [S/c, N, c] planes, on the fine stage's CUDA operands ``ops`` (bins,
+    rows, history, taps, fine, phase0, step) cut to their first R rows
+    for each R of ``row_counts``, each at its own plan's rows a block
+    (``fine_rows_plan``, ``fine_plan``).
+    In turns (other, package, package, other), after one untimed run of
+    each: ``kernel``, the two launches alone on arguments built once;
+    ``chain``, the other launch followed by ``planes()`` of its rows (the
+    step's path before) against the package's launch. Then counts the
+    plane elements bit-identical to ``planes()`` of the other's rows."""
+    other = build_other(Path(src), "pfb_fine_launch", FINE_ROWS_SIGNATURE)
+    package = kernels.load().pfb_fine_launch
+    xb, rows, hist, taps, fine, phase0, step = ops
+    res = {"other": str(src)}
+    for r in row_counts:
+        args, (y_re, y_im) = pk.pfb_fine_args(
+            xb, rows[:r], hist[:r], taps, fine[:r], phase0[:r], step[:r],
+            d, c)
+        t, n, k, rb, stream = args[10], args[11], args[12], args[14], args[15]
+        rb_other = fine_rows_plan(
+            r, n, torch.cuda.get_device_properties(xb.device)
+            .multi_processor_count)
+        y = torch.empty((r, n), dtype=torch.complex64, device=xb.device)
+        old_args = args[:7] + (y.data_ptr(), r, t, n, k, rb_other, stream)
+
+        def old():
+            kernels.check(other(*old_args), "pfb_fine")
+
+        def new():
+            kernels.check(package(*args), "pfb_fine")
+
+        def old_chain():
+            old()
+            return planes(y.view(r // c, c, n))
+
+        for fn in (old, new):                 # the card's clocks up
+            cuda_ms(fn, iters)
+        out = {"rows": r, "rb": rb, "other_rb": rb_other}
+        for name, (o, p) in (("kernel", (old, new)),
+                             ("chain", (old_chain, new))):
+            ms = {"other": [], "package": []}
+            for who, fn in (("other", o), ("package", p), ("package", p),
+                            ("other", o)):
+                ms[who].append(cuda_ms(fn, iters))
+            out[f"{name}_other_ms"] = ms["other"]
+            out[f"{name}_package_ms"] = ms["package"]
+            out[f"{name}_speedup"] = sum(ms["other"]) / sum(ms["package"])
+        y_re.fill_(float("nan"))
+        y_im.fill_(float("nan"))
+        new()
+        want_re, want_im = old_chain()
+        out["identical_planes"] = int(
+            ((_bits(y_re) == _bits(want_re))
+             & (_bits(y_im) == _bits(want_im))).sum())
+        out["plane_elements"] = y_re.numel()
+        res[str(r)] = out
+    return res
+
+
 def grid_offsets(n_sources: int, dev) -> torch.Tensor:
     """The bench's slot grid: 25 kHz spacing around the centre."""
     return ((torch.arange(SLOTS, device=dev) - SLOTS // 2) * 25e3
@@ -634,10 +728,17 @@ def main_bins(src: str) -> None:
     print(json.dumps(res))
 
 
+def main_fine(src: str) -> None:
+    ops = fine_bench_operands(require_cuda())
+    res = fine_turns(Path(src), ops[:7], ops[7])
+    print(card_line())
+    print(json.dumps(res))
+
+
 def main(argv: list[str]) -> None:
     if argv[:1] == ["--kernel"] and len(argv) >= 3 and argv[1] in (
             "fsk_track", "fm_voice", "cqpsk_track", "xlat_complex",
-            "pfb_bins"):
+            "pfb_bins", "pfb_fine"):
         kernel, argv = argv[1], argv[2:]
     else:
         kernel = "fsk_track"
@@ -654,6 +755,8 @@ def main(argv: list[str]) -> None:
         return main_complex(argv[0], shape)
     if kernel == "pfb_bins":
         return main_bins(argv[0])
+    if kernel == "pfb_fine":
+        return main_fine(argv[0])
     dev = require_cuda()
     card = card_line()
     pipe = ControlPipeline.p25_c4fm(SLOTS, SAMP_RATE)

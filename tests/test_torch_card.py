@@ -957,8 +957,21 @@ def _fine_operands(rng, s, r, n, k, dev, fine=None):
     return x, rows, hist, taps, fine, phase0, phase_step_u32(fine, 16)
 
 
+def _fine_rows(y_re, y_im):
+    """``pfb_fine``'s planes [S, N, C] as its rows [S·C, N] complex64."""
+    return torch.complex(y_re, y_im).transpose(1, 2).reshape(
+        -1, y_re.shape[1])
+
+
+def _nan_planes(s, n, c, dev):
+    """[S/C, N, C] float32 planes of NaN: an element the kernel skips
+    stays NaN."""
+    return tuple(torch.full((s // c, n, c), float("nan"), device=dev)
+                 for _ in range(2))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rb", [None, 1, 3])
+@pytest.mark.parametrize("rb", [None, 1, 3, 16])
 @pytest.mark.parametrize("s,r,n,k,fine", [
     (3, 2, 37, 467, None), (5, 4, 1001, 467, None), (3, 2, 5, 467, None),
     (3, 2, 300, 467, [0.4999, -0.5, 0.5]), (2, 1, 300, 467, [0.0, 1e-7]),
@@ -966,42 +979,50 @@ def _fine_operands(rng, s, r, n, k, dev, fine=None):
     (3, 2, 700, 401, None)])
 def test_pfb_fine_kernel_matches_plain(cuda_device, s, r, n, k, fine, rb):
     """``pfb_fine`` on the card (one launch) at the launcher's plan and at
-    one and three rows a block: ragged N, N = 5 < K-1, f at ±0.5 and 0, 64
-    rows of a 100 ms block over 24 bin rows, K = 33 (every tap row in the
-    last group) and 401: within FINE_REL·max|y| of ``pfb_fine_plain``,
-    and within 1e-4·max|y| of the complex bank on the gathered rows'
+    one, three and sixteen rows a block: ragged N, N = 5 < K-1, f at ±0.5
+    and 0, 64 rows of a 100 ms block over 24 bin rows as four sources of
+    C = 16 slots (three rows a block straddle two sources), the other
+    rows one source, K = 33 (every tap row in the last group) and 401:
+    the planes [S/C, N, C] within FINE_REL·max|y| of ``planes()`` of
+    ``pfb_fine_plain``'s rows, every element written, and the rows
+    within 1e-4·max|y| of the complex bank on the gathered rows'
     modulated taps (the form it replaced, whose float32 angles round up
     to 4.9e-5·max|y| apart)."""
     rng = np.random.default_rng(s + n + k)
     ops = _fine_operands(rng, s, r, n, k, cuda_device, fine)
     x, rows, hist, taps, fine, phase0, step = ops
+    c = 16 if s % 16 == 0 else s
     before = trace.counter("launch.pfb_fine")
     if rb is None:
-        got = pk.pfb_fine(*ops, 16)
+        y_re, y_im = pk.pfb_fine(*ops, 16, c)
         assert trace.counter("launch.pfb_fine") == before + 1
     else:
-        args, got = pk.pfb_fine_args(*ops, 16, rb=rb)
-        got.fill_(float("nan"))       # an output the kernel skips stays NaN
+        args, (y_re, y_im) = pk.pfb_fine_args(
+            *ops, 16, c, rb=rb, out=_nan_planes(s, n, c, cuda_device))
         kernels.check(kernels.load().pfb_fine_launch(*args), "pfb_fine")
+    assert y_re.shape == y_im.shape == (s // c, n, c)
+    assert bool(torch.isfinite(y_re).all() and torch.isfinite(y_im).all())
     want = pk.pfb_fine_plain(*ops, 16)
-    assert got.shape == (s, n)
+    want_re, want_im = TCH.planes(want.view(s // c, c, n))
     scale = float(want.abs().max())
-    assert float((got - want).abs().max()) <= pk.FINE_REL * scale
+    assert float(torch.complex(y_re - want_re, y_im - want_im).abs().max()
+                 ) <= pk.FINE_REL * scale
     old = ck.bank_complex(x[rows], hist,
                           TCH.modulated_taps(taps, fine[:, None]),
                           phase0[:, None], step[:, None], 16)[:, 0]
-    assert float((got - old).abs().max()) <= COMPLEX_REL * scale
+    assert float((_fine_rows(y_re, y_im) - old).abs().max()
+                 ) <= COMPLEX_REL * scale
 
 
 @pytest.mark.cuda
 def test_pfb_fine_at_bench_shape(cuda_device):
     """The fine stage at 128 × 64 rows of one 100 ms block over the 768
-    bin rows (``track_turns.fine_bench_operands``), at the plan's 16 rows a
-    block and at one: every output finite, all 8192 rows within
-    1e-4·max|y| of the complex bank on the gathered rows' modulated taps
-    (the wide plan at one slot), and the first 64 rows within
-    FINE_REL·max|y| of ``pfb_fine_plain`` (all 8192 would need 38 GB of
-    windows)."""
+    bin rows (``track_turns.fine_bench_operands``), at the plan's 12 rows a
+    block and at one: the planes [128, 2500, 64] every element finite,
+    all 8192 rows within 1e-4·max|y| of the complex bank on the gathered
+    rows' modulated taps (the wide plan at one slot), and the first 64
+    rows within FINE_REL·max|y| of ``pfb_fine_plain`` (all 8192 would
+    need 38 GB of windows)."""
     from radiocapture_tpu_torch.tools import track_turns
     xb, rows, hist, taps, fine, phase0, step, d = \
         track_turns.fine_bench_operands(cuda_device)
@@ -1012,11 +1033,14 @@ def test_pfb_fine_at_bench_shape(cuda_device):
     sub = slice(0, 64)
     want = pk.pfb_fine_plain(xb, rows[sub], hist[sub], taps, fine[sub],
                              phase0[sub], step[sub], d)
+    n = xb.shape[1] // d
     for rb in (None, 1):
-        args, got = pk.pfb_fine_args(xb, rows, hist, taps, fine, phase0,
-                                     step, d, rb=rb)
-        got.fill_(float("nan"))
+        args, planes = pk.pfb_fine_args(
+            xb, rows, hist, taps, fine, phase0, step, d, 64, rb=rb,
+            out=_nan_planes(8192, n, 64, cuda_device))
         kernels.check(kernels.load().pfb_fine_launch(*args), "pfb_fine")
+        assert planes[0].shape == (128, n, 64)
+        got = _fine_rows(*planes)
         assert bool(torch.isfinite(torch.view_as_real(got)).all())
         assert float((got - old).abs().max()) <= COMPLEX_REL * scale
         assert float((got[sub] - want).abs().max()) <= pk.FINE_REL * float(
@@ -1027,8 +1051,8 @@ def test_pfb_fine_at_bench_shape(cuda_device):
 def test_pfb_step_launches_the_mixer(cuda_device):
     """One ``PfbXlatBank`` step on the card launches ``pfb_bins`` and
     ``pfb_fine`` once each and the complex bank not at all, and
-    ``pfb_fine`` refuses bins it cannot read whole (bf16, off 16 bytes)
-    and operands off the card."""
+    ``pfb_fine`` refuses bins it cannot read whole (bf16, off 16 bytes),
+    operands off the card and rows that are not whole sources."""
     bank = TCH.PfbXlatBank(4, 2.4e6, 12500.0)
     st = bank.init(2, cuda_device)
     x = torch.zeros((2, 16 * bank.decim, 2), device=cuda_device)
@@ -1041,11 +1065,115 @@ def test_pfb_step_launches_the_mixer(cuda_device):
     rng = np.random.default_rng(7)
     ops = _fine_operands(rng, 3, 2, 10, 47, cuda_device)
     with pytest.raises(ValueError, match="float32 bins"):
-        pk.pfb_fine(ops[0].bfloat16(), *ops[1:], 16)
+        pk.pfb_fine(ops[0].bfloat16(), *ops[1:], 16, 3)
     with pytest.raises(ValueError, match="float32 bins"):
-        pk.pfb_fine(ops[0].view(-1)[2:-2].view(2, 159, 2), *ops[1:], 16)
+        pk.pfb_fine(ops[0].view(-1)[2:-2].view(2, 159, 2), *ops[1:], 16, 3)
     with pytest.raises(ValueError, match="rows must be"):
-        pk.pfb_fine(ops[0], ops[1].cpu(), *ops[2:], 16)
+        pk.pfb_fine(ops[0], ops[1].cpu(), *ops[2:], 16, 3)
+    with pytest.raises(ValueError, match="whole sources"):
+        pk.pfb_fine(*ops, 16, 2)
+
+
+@pytest.mark.cuda
+def test_pfb_call_planes_is_the_kernels_planes(cuda_device):
+    """``PfbXlatBank.call_planes`` on the card returns ``pfb_fine``'s
+    planes as the kernel wrote them (one launch, no copy: the step's
+    planes are the kernel's output), and ``__call__``'s complex channels
+    are those planes transposed, bit for bit, with the same new state."""
+    bank = TCH.PfbXlatBank(4, 2.4e6, 12500.0)
+    rng = np.random.default_rng(29)
+    offs = torch.as_tensor(rng.uniform(-0.45, 0.45, (2, 4)).astype(
+        np.float32), device=cuda_device)
+    x = torch.as_tensor(_complex_normal(rng, (2, 1024 * bank.m)),
+                        device=cuda_device)
+    st = bank.init(2, cuda_device)
+    before = trace.counter("launch.pfb_fine")
+    st_p, y_re, y_im = bank.call_planes(st, x, offs)
+    assert trace.counter("launch.pfb_fine") == before + 1
+    st_c, y = bank(st, x, offs)
+    assert y.shape == (2, 4, 1024 // 16) and y.is_contiguous()
+    want_re, want_im = TCH.planes(y)
+    assert torch.equal(_bits(y_re), _bits(want_re))
+    assert torch.equal(_bits(y_im), _bits(want_im))
+    for a, b in zip(st_p.fine, st_c.fine):
+        assert torch.equal(a, b)
+
+
+def _p25_pfb_decode(dev):
+    """The P25 fixture at +50 kHz through ``ControlPipeline.p25_c4fm(8,
+    800e3, frontend="pfb")`` on ``dev``, one block multiple a step: the
+    fixture slot's (dibits, valid flags) over the stream."""
+    fs = 800e3
+    pipe = ControlPipeline.p25_c4fm(8, fs, frontend="pfb")
+    dib, _expected = streams.p25_control_stream(4)
+    iq = M.upsample_to(M.c4fm_modulate(dib, 25000.0), 25000.0, fs)
+    bm = pipe.block_multiple
+    n = -(-len(iq) // bm) * bm
+    x = complex_to_wire(M.multi_channel(fs, [(50e3, iq)], n)[None], dev)
+    offs = torch.zeros((1, 8), device=dev)
+    offs[0, 2] = 50e3 / fs
+    offs[0, 5] = -0.3
+    st = pipe.init(1, dev)
+    got = []
+    for b in range(0, n, bm):
+        st, out = pipe.step(st, x[:, b:b + bm], offs)
+        got.append([o.cpu() for o in out])
+    out = [torch.cat([g[i] for g in got], -1) for i in range(3)]
+    return out[2][0, 2], out[1][0, 2]
+
+
+@pytest.mark.cuda
+def test_pfb_decode_matches_the_modulated_taps(cuda_device, monkeypatch):
+    """``decode pfb``: the fixture slot's dibits and valid flags through
+    the pfb step on ``pfb_fine`` identical to the same step with the fine
+    stage swapped for the form it replaced (the complex bank on the
+    gathered rows' modulated taps, on the card, then ``planes()``)."""
+    got_dib, got_val = _p25_pfb_decode(cuda_device)
+
+    def modulated(xb, rows, hist, taps, fine, phase0, step, d, c):
+        y = ck.bank_complex(xb[rows], hist,
+                            TCH.modulated_taps(taps, fine[:, None]),
+                            phase0[:, None], step[:, None], d)
+        return TCH.planes(y.view(-1, c, y.shape[-1]))
+
+    monkeypatch.setattr(TCH, "pfb_fine", modulated)
+    old_dib, old_val = _p25_pfb_decode(cuda_device)
+    assert int(got_val.sum()) > 0
+    assert torch.equal(got_val, old_val)
+    assert torch.equal(got_dib[got_val.bool()], old_dib[old_val.bool()])
+
+
+@pytest.mark.cuda
+def test_pfb_step_profile_has_no_planes_copy(cuda_device):
+    """A profiled pfb ``ControlPipeline.step`` (2 sources × 64 slots at
+    2.4 MS/s, one 100 ms block, after a warm-up step) launches
+    ``pfb_fine`` once and none of the device kernels that ``planes()``
+    of the bank's [S, C, N] channels launches: the trackers read the
+    kernel's planes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    pipe = ControlPipeline.p25_c4fm(64, 2.4e6, frontend="pfb")
+    x = torch.randn((2, 240000, 2), device=cuda_device).to(torch.bfloat16)
+    offs = ((torch.arange(64, device=cuda_device) - 32) * 25e3 / 2.4e6
+            ).expand(2, 64).contiguous()
+    st = pipe.init(2, cuda_device)
+    st, _ = pipe.step(st, x, offs)
+
+    def kernels_of(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return {e.key: e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and not e.key.startswith(("Memcpy", "Memset"))}
+
+    _, y = pipe.bank(st.bank, x, offs)
+    copies = kernels_of(lambda: TCH.planes(y))
+    assert copies
+    step = kernels_of(lambda: pipe.step(st, x, offs))
+    assert [n for k, n in step.items() if "pfb_fine" in k] == [1]
+    assert not set(copies) & set(step), set(copies) & set(step)
 
 
 @pytest.mark.cuda
